@@ -2,13 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``various_image_processings_tpu_torch/csrc``
-with nvcc, holds it against its plain PyTorch version over a parity grid,
-drives the main path (the 4K k=9 bilateral filter, through the op, the
-``BilateralFilter`` module and the CLI) with the launch counter reset just
-before, and times kernel and plain version with CUDA events.  Every phase
-prints a line; any failure exits non-zero.  On success the line before the
-last is ``{"kernels": [...]}`` and the last is
+Builds the port's CUDA kernels from ``various_image_processings_tpu_torch/csrc``
+with nvcc (one process per source, in parallel) and prints what ptxas says of
+each kernel.  Then, for each path the port has:
+
+- the bilateral filter (4K k=9): holds the kernel against its plain PyTorch
+  version over a parity grid, drives the path through the op, the
+  ``BilateralFilter`` module and the CLI with the launch counter reset just
+  before, and times kernel and plain version;
+- the bilateral texture filter (600x900 k=9 nitr=3, both variants): holds the
+  gradient, blur + mRTV and guide kernels against their plain versions over
+  their grids, drives the path through the op, the ``BilateralTextureFilter``
+  module and the CLI with every counter reset just before and read just
+  after, and times each kernel, the plain versions and the whole filter at
+  600x900 and 4K.
+
+Every phase prints a line; any failure exits non-zero.  On success the line
+before the last is ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits 1.
 """
@@ -18,6 +28,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -31,13 +42,49 @@ GRID_KSIZES = (1, 3, 5, 9, 13, 17, 25, 27, 31)
 GRID_SHAPES = ((50, 50), (37, 61), (8, 5), (1, 1))
 GRID_MODES = (("replicate", "trunc"), ("reflect101", "rint"))
 
+BTF_KSIZE, BTF_NITR = 9, 3                # the reference's own configuration
+GRADIENT_SHAPES = ((1, 1), (8, 5), (37, 61))
+STAGE_KSIZES = (1, 3, 5, 9, 15)
+STAGE_SHAPES = ((1, 1), (8, 5), (37, 61), (64, 31))
+
+# H100 SXM peaks: HBM bytes/s, f32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
 
 def max_diff(a, b) -> int:
     return int((a.int() - b.to(a.device).int()).abs().max().item())
 
 
+def max_abs(a, b) -> float:
+    """max |a - b| of two float tensors, taken in f64."""
+    return float((a.double() - b.to(a.device).double()).abs().max().item())
+
+
 def phase(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least ms the card could take: bytes over HBM rate vs f32 ops over peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from nvcc -Xptxas -v."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return out
 
 
 def main() -> int:
@@ -59,18 +106,42 @@ def main() -> int:
 
     import various_image_processings_tpu_torch as vt
     from various_image_processings_tpu_torch.cli import bilateral_filter as cli_bf
-    from various_image_processings_tpu_torch.core.rng import random_image
+    from various_image_processings_tpu_torch.cli import bilateral_texture_filter as cli_btf
+    from various_image_processings_tpu_torch.core.rng import random_array, random_image
+    from various_image_processings_tpu_torch.ops import bilateral_texture as obt
     from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math
     from various_image_processings_tpu_torch.ops.cuda import _build
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
+    from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
+    from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
+    from various_image_processings_tpu_torch.ops.gradient import _gradient_math
     from various_image_processings_tpu_torch.utils.io import imread, imwrite
     from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
+
+    def queued_ms(fn, n: int = 50) -> float:
+        """Device ms per call of ``fn`` run back to back: the launches are
+        queued behind a sleeping kernel first, so host launch time is not
+        counted."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)  # ~0.1 s: outlasts enqueueing the n calls
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
 
     # 1. build
     t0 = time.perf_counter()
     kbf._lib()
+    kgr._lib()
+    kbt._lib()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
+    for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
+        phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
 
     # 2. parity grid: kernel vs the plain version on the same CUDA tensors,
     #    and vs the plain version on the CPU
@@ -146,6 +217,10 @@ def main() -> int:
     phase(f"4K k=9 bilateral: kernel {ms:.4f} ms ({mp / ms * 1e3:.1f} MP/s), "
           f"op {op_ms:.4f} ms ({mp / op_ms * 1e3:.1f} MP/s), "
           f"plain {plain_ms:.4f} ms ({mp / plain_ms * 1e3:.1f} MP/s)")
+    n_taps = int(taps.shape[0])
+    # per tap: ws * lut, 3 products and 4 sums; per pixel and channel: a division and a rounding
+    bf_bound, bf_bound_by = bound(2 * h * w * 3, h * w * (8 * n_taps + 6))
+    phase(f"4K k=9 bilateral bound: {bf_bound:.4f} ms by {bf_bound_by} ({n_taps} taps)")
 
     # 5. the BTF-shaped joint filter (k=17, sigma_s=8, sigma_c=sqrt 3, cpp variant)
     bh, bw = BTF_SHAPE
@@ -164,16 +239,223 @@ def main() -> int:
     phase(f"BTF-shaped JBF {bh}x{bw} k={bk}: max |diff| {d_btf} (tolerance 0), "
           f"kernel {jbf_ms:.4f} ms, plain {jbf_plain_ms:.4f} ms")
 
-    print(json.dumps({"kernels": [{
+    # 6. gradient grid: u8 and f32, 1 and 3 channels; kernel vs plain on the
+    #    card and vs plain on the CPU
+    g_worst, g_cases = 0, 0
+    grad_inputs = []
+    for gh, gw in GRADIENT_SHAPES:
+        n = gh * gw * 3
+        grad_inputs.append(torch.from_numpy(random_array(n).reshape(gh, gw, 3)))
+        grad_inputs.append(torch.from_numpy(random_array(n, 255.0, np.float32)
+                                            .reshape(gh, gw, 3)))
+    grad_inputs += [torch.from_numpy(img_np), torch.from_numpy(img_np).float()]
+    for x in grad_inputs:
+        for c in (1, 3):
+            xc = x[:, :, :c].contiguous()
+            got = kgr.gradient(xc.to(dev))
+            d = max(max_abs(got, _gradient_math(xc.to(dev).float())),
+                    max_abs(got.cpu(), _gradient_math(xc.float())))
+            g_cases += 1
+            if d:
+                raise SystemExit(f"gradient parity FAILED: {tuple(xc.shape)} {xc.dtype}: "
+                                 f"max |diff| {d}")
+            g_worst = max(g_worst, d)
+    phase(f"gradient grid: {g_cases} cases (u8/f32, C 1 and 3, shapes "
+          f"{GRADIENT_SHAPES} and {MAIN_SHAPE}): max |diff| {g_worst} (tolerance 0)")
+
+    # 7. blur + mRTV and guide grid: kernel vs plain on the card (and blur +
+    #    mRTV vs plain on the CPU); the guide is held to 0 on the card
+    s_worst, guide_worst, guide_cpu, s_cases = 0, 0, 0, 0
+    for sh, sw in STAGE_SHAPES:
+        x = torch.from_numpy(random_image(sh, sw)).to(dev)
+        mag = _gradient_math(x.float())
+        for sk in STAGE_KSIZES:
+            blurred, rtv = kbt.blur_and_rtv(x, mag, sk)
+            bp, rp = obt._blur_and_rtv_math(x.float(), mag, sk)
+            bc, rc = obt._blur_and_rtv_math(x.cpu().float(), mag.cpu(), sk)
+            ds = max(max_abs(blurred, bp), max_abs(rtv, rp), max_abs(blurred.cpu(), bc),
+                     max_abs(rtv.cpu(), rc))
+            g = kbt.guide(blurred, rtv, sk)
+            dg = max_diff(g, obt._guide_math(bp, rp, sk))
+            guide_cpu = max(guide_cpu, max_diff(g.cpu(), obt._guide_math(bc, rc, sk)))
+            s_cases += 1
+            if ds or dg:
+                raise SystemExit(f"BTF stage parity FAILED: {sh}x{sw} k={sk}: blur+mRTV "
+                                 f"max |diff| {ds}, guide max |diff| {dg}")
+            s_worst = max(s_worst, ds)
+            guide_worst = max(guide_worst, dg)
+    phase(f"blur+mRTV / guide grid: {s_cases} cases (k {STAGE_KSIZES}, shapes "
+          f"{STAGE_SHAPES}): blurred and rtv max |diff| {s_worst} vs plain on the card and "
+          f"the CPU (tolerance 0); guide "
+          f"max |diff| {guide_worst} vs plain on the card (tolerance 0), {guide_cpu} vs "
+          f"plain on the CPU (torch.exp on the CPU is another implementation)")
+
+    # 8. the BTF path, counted: op (impl="auto", both variants), module, CLI
+    counters = ((kgr, "launches"), (kbt, "blur_rtv_launches"), (kbt, "guide_launches"),
+                (kbf, "launches"))
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+
+    def read() -> list[int]:
+        torch.cuda.synchronize()
+        return [getattr(mod, attr) for mod, attr in counters]
+
+    path_launches = [0, 0, 0, 0]
+    btf_np = random_image(bh, bw)
+    btf_in = torch.from_numpy(btf_np).to(dev)
+    btf_module = vt.BilateralTextureFilter(bh, bw, BTF_KSIZE, BTF_NITR)
+    btf_worst = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        in_path = os.path.join(tmp, "in.png")
+        imwrite(in_path, btf_np)
+        for variant in ("cuda", "cpp"):
+            reset()
+            out = vt.bilateral_texture_filter(btf_in, BTF_KSIZE, BTF_NITR, variant=variant)
+            op_counts = read()
+            plain = vt.bilateral_texture_filter(btf_in, BTF_KSIZE, BTF_NITR, impl="torch",
+                                                variant=variant)
+            module_counts, d_module = [0, 0, 0, 0], 0
+            if variant == "cuda":  # the module is the reference's CUDA pipeline
+                reset()
+                out_module = btf_module(btf_in)
+                module_counts = read()
+                d_module = max_diff(out_module, out)
+            out_path = os.path.join(tmp, f"out_{variant}.png")
+            reset()
+            cli_btf.main([in_path, str(BTF_KSIZE), str(BTF_NITR), "-o", out_path,
+                          "--device", "cuda", "--variant", variant])
+            cli_counts = read()
+            out_cli = torch.from_numpy(imread(out_path))
+            d_plain, d_cli = max_diff(out, plain), max_diff(out.cpu(), out_cli)
+            changed = float((out != btf_in).any(dim=2).float().mean().item())
+            phase(f"BTF path {bh}x{bw} k={BTF_KSIZE} nitr={BTF_NITR} variant={variant}: "
+                  f"launches (gradient, blur_rtv, guide, bilateral) op {op_counts}, module "
+                  f"{module_counts}, CLI {cli_counts}; vs plain on the card max |diff| "
+                  f"{d_plain}, module vs op {d_module}, CLI vs op {d_cli} (tolerance 0); "
+                  f"share of pixels changed {changed:.4f} (must be > 0.5)")
+            if op_counts != [BTF_NITR] * 4 or (variant == "cuda" and module_counts != op_counts):
+                raise SystemExit("BTF path did not launch exactly 4*nitr kernels per call")
+            if min(cli_counts) < 1:
+                raise SystemExit("BTF CLI did not go through every kernel")
+            if (out.shape != btf_in.shape or out.dtype != torch.uint8 or d_plain or d_module
+                    or d_cli or changed < 0.5):
+                raise SystemExit("BTF path output wrong")
+            btf_worst = max(btf_worst, d_plain, d_module, d_cli)
+            path_launches = [a + b + c + d for a, b, c, d in
+                             zip(path_launches, op_counts, module_counts, cli_counts)]
+
+    # 9. times: each kernel, its plain version and the whole filter, at
+    #    600x900 and at 4K
+    times = {}
+    for label, x_np in (("600x900", btf_np), ("4K", img_np)):
+        x = torch.from_numpy(x_np).to(dev)
+        xh, xw = x.shape[:2]
+        px = xh * xw
+        mag = kgr.gradient(x)
+        blurred, rtv = kbt.blur_and_rtv(x, mag, BTF_KSIZE)
+        gd = kbt.guide(blurred, rtv, BTF_KSIZE)
+        jt, jl = obt.jbf_tables(BTF_KSIZE, dev)
+        xf = x.float()
+        bp, rp = obt._blur_and_rtv_math(xf, mag, BTF_KSIZE)
+        n_jbf = int(jt.shape[0])
+        r = BTF_KSIZE
+        rows = {
+            "gradient": (lambda: kgr.gradient(x), lambda: _gradient_math(xf),
+                         bound(px * 3 + px * 4, px * (3 * 6 + 1))),
+            "blur_rtv": (lambda: kbt.blur_and_rtv(x, mag, BTF_KSIZE),
+                         lambda: obt._blur_and_rtv_math(xf, mag, BTF_KSIZE),
+                         # ordered window sum of G; separable max/min/box passes; per pixel
+                         bound(px * 3 + px * 4 + px * 12 + px * 4, px * (r * r + 12 * r + 10))),
+            "guide": (lambda: kbt.guide(blurred, rtv, BTF_KSIZE),
+                      lambda: obt._guide_math(bp, rp, BTF_KSIZE),
+                      # separable first-minimum argmin; alpha and blend per pixel
+                      bound(px * 12 + px * 4 + px * 3, px * (4 * r + 20))),
+            "bilateral": (lambda: kbf.joint_bilateral(x, gd, jt, jl, BTF_KSIZE - 1),
+                          lambda: _bilateral_math(x, gd, 2 * BTF_KSIZE - 1, BTF_KSIZE - 1.0,
+                                                  obt.JBF_SIGMA_COLOR),
+                          bound(3 * px * 3, px * (8 * n_jbf + 6))),
+        }
+        for name, (kernel, plain_fn, (b_ms, b_by)) in rows.items():
+            k_ms = queued_ms(kernel, 50 if label == "600x900" else 20)
+            p_ms = cuda_time_ms(plain_fn, iters=3, warmup=1)
+            times[(label, name)] = (k_ms, p_ms, b_ms, b_by)
+            phase(f"{label} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms by {b_by}")
+        op = lambda: vt.bilateral_texture_filter(x, BTF_KSIZE, BTF_NITR)  # noqa: E731
+        dev_ms = queued_ms(op, 20 if label == "600x900" else 5)
+        op_ms = cuda_time_ms(op, iters=10, warmup=2)
+        t0 = time.perf_counter()
+        btf_plain = vt.bilateral_texture_filter(x, BTF_KSIZE, BTF_NITR, impl="torch")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        del btf_plain
+        kernel_sum = BTF_NITR * sum(times[(label, n)][0] for n in rows)
+        phase(f"{label} BTF k={BTF_KSIZE} nitr={BTF_NITR}: op {op_ms:.4f} ms per call "
+              f"({px / op_ms / 1e3:.1f} MP/s), device {dev_ms:.4f} ms back to back "
+              f"({px / dev_ms / 1e3:.1f} MP/s), sum of its 12 kernels {kernel_sum:.4f} ms; "
+              f"plain {plain_s * 1e3:.1f} ms (one call, host clock)")
+        if label == "600x900":
+            n_calls = 100
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_calls):
+                op()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host_us = (t1 - t0) / n_calls * 1e6
+            wall_ms = (t2 - t0) / n_calls * 1e3
+            phase(f"600x900 BTF back to back, {n_calls} calls: host {host_us:.1f} us per call "
+                  f"to enqueue 12 launches, wall {wall_ms:.4f} ms per call, device busy "
+                  f"share {dev_ms / wall_ms:.3f}")
+
+    # 10. the bilateral kernel where TPU kernel #3 (taps > 480) took over: 4K k=31 self
+    k31_ms = queued_ms(lambda: kbf.bilateral(img, None, 31, 10.0, 30.0), 10)
+    k31_plain_ms = cuda_time_ms(lambda: _bilateral_math(img, img, 31, 10.0, 30.0), iters=1,
+                                warmup=1)
+    k31_taps = int(kbf.device_tables(31, 10.0, 30.0, dev)[0].shape[0])
+    k31_bound, k31_by = bound(2 * h * w * 3, h * w * (8 * k31_taps + 6))
+    phase(f"4K k=31 bilateral ({k31_taps} taps): kernel {k31_ms:.4f} ms, plain "
+          f"{k31_plain_ms:.4f} ms, bound {k31_bound:.4f} ms by {k31_by}")
+
+    main_label = "600x900"
+    entries = [{
         "name": "bilateral",
         "route": "cuda",
         "source": "various_image_processings_tpu_torch/csrc/bilateral.cu",
         "replaces": "various_image_processings_tpu/ops/pallas/bilateral.py:117",
-        "launches": launches,
-        "max_abs_err": worst,
+        "launches": launches + path_launches[3],
+        "max_abs_err": max(worst, btf_worst),
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": bf_bound,
+        "bound_by": bf_bound_by,
+        "library_ms": None,
+        "at": f"{h}x{w} k={k} self",
+    }]
+    for i, (name, source, replaces, err) in enumerate((
+            ("gradient", "gradient.cu", "gradient.py:20", g_worst),
+            ("blur_rtv", "bilateral_texture.cu", "bilateral_texture.py:39", s_worst),
+            ("guide", "bilateral_texture.cu", "bilateral_texture.py:137", guide_worst))):
+        k_ms, p_ms, b_ms, b_by = times[(main_label, name)]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"various_image_processings_tpu_torch/csrc/{source}",
+            "replaces": f"various_image_processings_tpu/ops/pallas/{replaces}",
+            "launches": path_launches[i],
+            "max_abs_err": max(err, btf_worst),
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "at": f"{bh}x{bw} k={BTF_KSIZE}",
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

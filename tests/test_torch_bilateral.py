@@ -34,7 +34,7 @@ def images(shape):
 @pytest.mark.parametrize("ksize", [1, 3, 9, 11, 17, 27])
 def test_plain_bilateral_bit_exact_to_golden(shape, ksize):
     src, _ = images(shape)
-    out = vt.bilateral_filter(src, ksize, 10.0, 30.0)
+    out = vt.bilateral_filter(src, ksize, 10.0, 30.0, device="cpu")
     assert out.dtype == torch.uint8 and tuple(out.shape) == src.shape
     assert max_diff(out.numpy(), golden.bilateral_filter(src, ksize, 10.0, 30.0)) == 0
 
@@ -43,7 +43,7 @@ def test_plain_bilateral_bit_exact_to_golden(shape, ksize):
 @pytest.mark.parametrize("ksize", [1, 3, 9, 11, 17, 27])
 def test_plain_joint_bilateral_bit_exact_to_golden(shape, ksize):
     src, guide = images(shape)
-    out = vt.joint_bilateral_filter(src, guide, ksize, 10.0, 30.0)
+    out = vt.joint_bilateral_filter(src, guide, ksize, 10.0, 30.0, device="cpu")
     expected = golden.joint_bilateral_filter(src, guide, ksize, 10.0, 30.0)
     assert max_diff(out.numpy(), expected) == 0
 
@@ -64,13 +64,13 @@ def test_plain_matches_jax_bilateral_math(border, rounding, shape, ksize, sigmas
 def test_plain_matches_jax_pallas_k9():
     src, _ = images((50, 50))
     expected = jbf.bilateral_filter(src, 9, 10.0, 30.0, impl="pallas")
-    assert max_diff(vt.bilateral_filter(src, 9, 10.0, 30.0).numpy(), expected) <= 1
+    assert max_diff(vt.bilateral_filter(src, 9, 10.0, 30.0, device="cpu").numpy(), expected) <= 1
 
 
 def test_plain_matches_jax_pallas_joint_k17():
     src, guide = images((41, 57))
     expected = jbf.joint_bilateral_filter(src, guide, 17, 10.0, 30.0, impl="pallas")
-    got = vt.joint_bilateral_filter(src, guide, 17, 10.0, 30.0)
+    got = vt.joint_bilateral_filter(src, guide, 17, 10.0, 30.0, device="cpu")
     assert max_diff(got.numpy(), expected) <= 1
 
 
@@ -90,42 +90,59 @@ def test_tensor_input_stays_and_numpy_input_goes_to_device():
     assert vt.bilateral_filter(src, 3, device="cpu").device.type == "cpu"
 
 
+def test_numpy_input_without_a_device_runs_on_the_gpu_or_raises():
+    """The default device is the GPU: without one, a NumPy input raises and
+    never runs silently on the CPU."""
+    src, guide = images((8, 5))
+    calls = [lambda: vt.bilateral_filter(src, 3),
+             lambda: vt.joint_bilateral_filter(src, guide, 3),
+             lambda: vt.BilateralFilter(8, 5, 3)(src)]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+                call()
+
+
 def test_ksize_1_is_identity():
     src = np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3)
-    np.testing.assert_array_equal(vt.bilateral_filter(src, ksize=1).numpy(), src)
+    np.testing.assert_array_equal(vt.bilateral_filter(src, ksize=1, device="cpu").numpy(), src)
 
 
 # -- validation: the same types and messages as tests/test_validation.py --
 
 def test_rejects_2d_image():
     with pytest.raises(ValueError, match="color image"):
-        vt.bilateral_filter(np.zeros((8, 8), np.uint8))
+        vt.bilateral_filter(np.zeros((8, 8), np.uint8), device="cpu")
 
 
 def test_rejects_f32_image():
     with pytest.raises(TypeError, match="uint8"):
-        vt.bilateral_filter(np.zeros((8, 8, 3), np.float32))
+        vt.bilateral_filter(np.zeros((8, 8, 3), np.float32), device="cpu")
 
 
 @pytest.mark.parametrize("ksize", [8, 0, -3])
 def test_rejects_bad_ksize(ksize):
     with pytest.raises(ValueError, match="odd"):
-        vt.bilateral_filter(np.zeros((8, 8, 3), np.uint8), ksize=ksize)
+        vt.bilateral_filter(np.zeros((8, 8, 3), np.uint8), ksize=ksize, device="cpu")
     with pytest.raises(ValueError, match="odd"):
         vt.joint_bilateral_filter(np.zeros((8, 8, 3), np.uint8),
-                                  np.zeros((8, 8, 3), np.uint8), ksize=ksize)
+                                  np.zeros((8, 8, 3), np.uint8), ksize=ksize, device="cpu")
 
 
 def test_rejects_mismatched_guide():
     with pytest.raises(ValueError, match="same shape"):
-        vt.joint_bilateral_filter(np.zeros((8, 8, 3), np.uint8), np.zeros((9, 8, 3), np.uint8))
+        vt.joint_bilateral_filter(np.zeros((8, 8, 3), np.uint8), np.zeros((9, 8, 3), np.uint8),
+                                  device="cpu")
     with pytest.raises(TypeError, match="uint8"):
-        vt.joint_bilateral_filter(np.zeros((8, 8, 3), np.uint8), np.zeros((8, 8, 3), np.int16))
+        vt.joint_bilateral_filter(np.zeros((8, 8, 3), np.uint8), np.zeros((8, 8, 3), np.int16),
+                                  device="cpu")
 
 
 def test_rejects_bad_impl():
     with pytest.raises(ValueError, match="impl"):
-        vt.bilateral_filter(np.zeros((8, 8, 3), np.uint8), impl="pallas")
+        vt.bilateral_filter(np.zeros((8, 8, 3), np.uint8), impl="pallas", device="cpu")
 
 
 def test_rejects_bad_border_and_rounding():
@@ -143,7 +160,7 @@ def test_auto_on_a_cpu_tensor_is_the_plain_version():
 
 def test_cuda_impl_on_a_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA tensor"):
-        vt.bilateral_filter(np.zeros((8, 8, 3), np.uint8), impl="cuda")
+        vt.bilateral_filter(np.zeros((8, 8, 3), np.uint8), impl="cuda", device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         resolve_impl("cuda", torch.zeros(1))
 

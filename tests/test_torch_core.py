@@ -108,9 +108,10 @@ def test_replicate_pad_matches_jax(pads, axis):
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """The port's modules and chip_smoke.py, which runs where jax is absent."""
     imports = re.compile(r"^\s*(import|from)\s+(jax\b|various_image_processings_tpu\b(?!_torch))",
                          re.MULTILINE)
-    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+    offenders = [str(p.relative_to(REPO)) for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
                  if imports.search(p.read_text())]
     assert offenders == []
 

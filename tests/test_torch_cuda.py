@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card, held bit-exact to its plain PyTorch
-version.  Every test here needs an NVIDIA GPU and skips without one; this
+"""The port's CUDA kernels on the card, held bit-exact to their plain
+PyTorch versions.  Every test here needs an NVIDIA GPU and skips without one; this
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only PyTorch:
 
@@ -12,9 +12,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import various_image_processings_tpu_torch as vt  # noqa: E402
-from various_image_processings_tpu_torch.core.rng import random_image  # noqa: E402
+from various_image_processings_tpu_torch.core.rng import random_array, random_image  # noqa: E402
 from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math  # noqa: E402
+from various_image_processings_tpu_torch.ops.bilateral_texture import (  # noqa: E402
+    _blur_and_rtv_math, _guide_math)
 from various_image_processings_tpu_torch.ops.cuda import bilateral as cuda_bf  # noqa: E402
+from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as cuda_btf  # noqa: E402
+from various_image_processings_tpu_torch.ops.cuda import gradient as cuda_grad  # noqa: E402
+from various_image_processings_tpu_torch.ops.gradient import _gradient_math  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -57,14 +62,15 @@ def test_auto_on_a_cuda_tensor_launches_the_kernel(cuda):
     assert torch.equal(out_joint, _bilateral_math(src, guide, 9, 10.0, 30.0))
     assert torch.equal(out_module, out)
     np.testing.assert_array_equal(out.cpu().numpy(),
-                                  vt.bilateral_filter(src.cpu().numpy(), 9, 10.0, 30.0).numpy())
+                                  vt.bilateral_filter(src.cpu().numpy(), 9, 10.0, 30.0,
+                                                      device="cpu").numpy())
 
 
 def test_op_makes_views_contiguous_and_wrapper_rejects_them(cuda):
     src, _ = images((40, 64), cuda)
     view = src[:, ::2]
     np.testing.assert_array_equal(vt.bilateral_filter(view, 5).cpu().numpy(),
-                                  vt.bilateral_filter(view.cpu().numpy(), 5).numpy())
+                                  vt.bilateral_filter(view.cpu().numpy(), 5, device="cpu").numpy())
     taps, lut = cuda_bf.device_tables(5, 10.0, 30.0, src.device)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_bf.joint_bilateral(view, None, taps, lut, 2)
@@ -76,3 +82,115 @@ def test_too_large_a_halo_tile_raises(cuda):
     src, _ = images((8, 8), cuda)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_bf.bilateral(src, None, 301, 10.0, 30.0)
+
+
+# -- gradient, blur + mRTV and guide kernels; the bilateral texture filter --
+
+STAGE_SHAPES = [(1, 1), (8, 5), (37, 61), (64, 31)]
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("shape", [(1, 1), (8, 5), (37, 61)])
+def test_gradient_kernel_bit_exact_to_plain(cuda, shape, channels, dtype):
+    n = shape[0] * shape[1] * channels
+    if dtype == torch.float32:
+        src_np = random_array(n, 255.0, np.float32).reshape(*shape, channels)
+    else:
+        src_np = random_array(n).reshape(*shape, channels)
+    src = torch.from_numpy(src_np).to(cuda)
+    got = cuda_grad.gradient(src)
+    assert torch.equal(got, _gradient_math(src.float()))
+    assert torch.equal(got.cpu(), _gradient_math(src.cpu().float()))
+
+
+@pytest.mark.parametrize("ksize", [1, 3, 5, 9, 15])
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+def test_blur_rtv_and_guide_kernels_bit_exact_to_plain(cuda, shape, ksize):
+    img, _ = images(shape, cuda)
+    magnitude = _gradient_math(img.float())
+    blurred, rtv = cuda_btf.blur_and_rtv(img, magnitude, ksize)
+    blurred_p, rtv_p = _blur_and_rtv_math(img.float(), magnitude, ksize)
+    assert torch.equal(blurred, blurred_p) and torch.equal(rtv, rtv_p)
+    blurred_c, rtv_c = _blur_and_rtv_math(img.cpu().float(), magnitude.cpu(), ksize)
+    assert torch.equal(blurred.cpu(), blurred_c) and torch.equal(rtv.cpu(), rtv_c)
+    guide = cuda_btf.guide(blurred, rtv, ksize)
+    assert guide.dtype == torch.uint8
+    assert torch.equal(guide, _guide_math(blurred, rtv, ksize).to(torch.uint8))
+
+
+def near_tie_image():
+    """A (24, 32, 3) image whose every pixel sum b+g+r is one whose /3 a
+    multiply by the reciprocal gets one ulp wrong."""
+    sums = np.arange(766)
+    s32 = sums.astype(np.float32)
+    near = sums[s32 / np.float32(3) != s32 * (np.float32(1) / np.float32(3))]
+    b = np.minimum(near, 255)
+    g = np.minimum(near - b, 255)
+    pixels = np.stack([b, g, near - b - g], axis=1).astype(np.uint8)
+    return np.resize(pixels, (24 * 32, 3)).reshape(24, 32, 3)
+
+
+def test_true_division_on_a_near_tie_image(cuda):
+    """PyTorch's CUDA division by a host scalar multiplies by the
+    reciprocal.  The kernels and the plain version on the card keep the true
+    division of the CPU and of golden/, so blur + mRTV stay bit-equal and
+    the guide's argmin does not flip."""
+    img = torch.from_numpy(near_tie_image()).to(cuda)
+    f = img.float()
+    intensity = f[:, :, 0] + f[:, :, 1] + f[:, :, 2]
+    assert not torch.equal(intensity * (1.0 / 3.0), intensity / torch.tensor(3.0, device=cuda))
+    magnitude = _gradient_math(f)
+    for ksize in (3, 9):
+        blurred, rtv = cuda_btf.blur_and_rtv(img, magnitude, ksize)
+        blurred_p, rtv_p = _blur_and_rtv_math(f, magnitude, ksize)
+        blurred_c, rtv_c = _blur_and_rtv_math(f.cpu(), magnitude.cpu(), ksize)
+        for got in (blurred, blurred_p):
+            assert torch.equal(got.cpu(), blurred_c)
+        for got in (rtv, rtv_p):
+            assert torch.equal(got.cpu(), rtv_c)
+        guide = cuda_btf.guide(blurred, rtv, ksize)
+        assert torch.equal(guide, _guide_math(blurred_p, rtv_p, ksize).to(torch.uint8))
+
+
+@pytest.mark.parametrize("variant", ["cuda", "cpp"])
+def test_btf_auto_launches_4_nitr_kernels_and_equals_plain(cuda, variant):
+    src, _ = images((45, 38), cuda)
+    counts = (cuda_grad.launches, cuda_btf.blur_rtv_launches, cuda_btf.guide_launches,
+              cuda_bf.launches)
+    out = vt.bilateral_texture_filter(src, 5, 3, variant=variant)
+    after = (cuda_grad.launches, cuda_btf.blur_rtv_launches, cuda_btf.guide_launches,
+             cuda_bf.launches)
+    assert [b - a for a, b in zip(counts, after)] == [3, 3, 3, 3]
+    plain = vt.bilateral_texture_filter(src, 5, 3, impl="torch", variant=variant)
+    assert out.is_cuda and torch.equal(out, plain)
+    if variant == "cuda":
+        module = vt.BilateralTextureFilter(45, 38, 5, 3)
+        assert torch.equal(module(src), out)
+        assert cuda_bf.launches == after[3] + 3
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    img, _ = images((40, 64), cuda)
+    magnitude = cuda_grad.gradient(img)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_grad.gradient(img[:, ::2])
+    with pytest.raises(TypeError):
+        cuda_grad.gradient(img.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_btf.blur_and_rtv(img[:, ::2], magnitude[:, ::2], 3)
+    with pytest.raises(TypeError):
+        cuda_btf.blur_and_rtv(img.float(), magnitude, 3)
+    with pytest.raises(ValueError, match="must match"):
+        cuda_btf.blur_and_rtv(img, magnitude[:20], 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_btf.blur_and_rtv(img, magnitude, 301)
+    blurred, rtv = cuda_btf.blur_and_rtv(img, magnitude, 3)
+    with pytest.raises(TypeError):
+        cuda_btf.guide(blurred.double(), rtv, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_btf.guide(blurred.transpose(0, 1), rtv.t(), 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_btf.guide(blurred, rtv, 301)
+    with pytest.raises(ValueError, match="odd"):
+        cuda_btf.guide(blurred, rtv, 4)

@@ -1,5 +1,7 @@
-"""The PyTorch port's class API (``BilateralFilter``, an nn.Module whose
-tables are its state) and its bilateral-filter CLI, on the CPU."""
+"""The PyTorch port's class API (``BilateralFilter`` and
+``BilateralTextureFilter``, nn.Modules whose tables are their state) and
+its bilateral-filter, gradient and bilateral-texture-filter CLIs, on the
+CPU."""
 
 import numpy as np
 import pytest
@@ -12,6 +14,9 @@ from various_image_processings_tpu import golden  # noqa: E402
 from various_image_processings_tpu.core.luts import pre_compute_kernels  # noqa: E402
 import various_image_processings_tpu_torch as vt  # noqa: E402
 from various_image_processings_tpu_torch.cli import bilateral_filter as cli  # noqa: E402
+from various_image_processings_tpu_torch.cli import (  # noqa: E402
+    bilateral_texture_filter as cli_btf)
+from various_image_processings_tpu_torch.cli import gradient as cli_grad  # noqa: E402
 from various_image_processings_tpu_torch.core.rng import random_image  # noqa: E402
 
 
@@ -19,12 +24,13 @@ from various_image_processings_tpu_torch.core.rng import random_image  # noqa: E
 def test_module_matches_op(ksize, sigmas):
     src = random_image(37, 61)
     guide = src[::-1].copy()
-    module = vt.BilateralFilter(37, 61, ksize, *sigmas)
+    module = vt.BilateralFilter(37, 61, ksize, *sigmas, device="cpu")
     np.testing.assert_array_equal(module(src).numpy(),
-                                  vt.bilateral_filter(src, ksize, *sigmas).numpy())
+                                  vt.bilateral_filter(src, ksize, *sigmas, device="cpu").numpy())
     np.testing.assert_array_equal(module.bilateral_filter(src).numpy(), module(src).numpy())
     np.testing.assert_array_equal(module.joint_bilateral_filter(src, guide).numpy(),
-                                  vt.joint_bilateral_filter(src, guide, ksize, *sigmas).numpy())
+                                  vt.joint_bilateral_filter(src, guide, ksize, *sigmas,
+                                                           device="cpu").numpy())
 
 
 @pytest.mark.parametrize("ksize,sigmas", [(9, (10.0, 30.0)), (11, (3.0, 12.5))])
@@ -32,8 +38,8 @@ def test_from_numpy_tables_of_the_jax_package(ksize, sigmas):
     """The JAX package's host-built tables are the filter's whole state:
     carried into the module they give the module's own output, and golden's."""
     space, table = pre_compute_kernels(ksize, *sigmas)
-    carried = vt.BilateralFilter.from_numpy_tables(space, table, 41, 57)
-    own = vt.BilateralFilter(41, 57, ksize, *sigmas)
+    carried = vt.BilateralFilter.from_numpy_tables(space, table, 41, 57, device="cpu")
+    own = vt.BilateralFilter(41, 57, ksize, *sigmas, device="cpu")
     assert torch.equal(carried.taps, own.taps) and torch.equal(carried.lut, own.lut)
     src = random_image(41, 57)
     guide = src[::-1].copy()
@@ -45,7 +51,7 @@ def test_from_numpy_tables_of_the_jax_package(ksize, sigmas):
 
 
 def test_tables_are_buffers():
-    module = vt.BilateralFilter(8, 8, 5)
+    module = vt.BilateralFilter(8, 8, 5, device="cpu")
     state = module.state_dict()
     assert set(state) == {"taps", "lut"}
     assert state["taps"].dtype == torch.int32 and state["lut"].shape == (768,)
@@ -54,21 +60,21 @@ def test_tables_are_buffers():
 
 
 def test_module_rejects_wrong_input():
-    module = vt.BilateralFilter(8, 8)
+    module = vt.BilateralFilter(8, 8, device="cpu")
     with pytest.raises(ValueError, match="expected"):
         module(np.zeros((8, 9, 3), np.uint8))
     with pytest.raises(ValueError, match="expected"):
         module(np.zeros((8, 8, 3), np.float32))
     with pytest.raises(ValueError, match="odd"):
-        vt.BilateralFilter(8, 8, ksize=4)
+        vt.BilateralFilter(8, 8, ksize=4, device="cpu")
     with pytest.raises(ValueError, match="impl"):
-        vt.BilateralFilter(8, 8, impl="xla")
+        vt.BilateralFilter(8, 8, impl="xla", device="cpu")
     with pytest.raises(ValueError, match="square"):
         vt.BilateralFilter.from_numpy_tables(np.ones((3, 5), np.float32),
-                                             np.ones(768, np.float32), 8, 8)
+                                             np.ones(768, np.float32), 8, 8, device="cpu")
     with pytest.raises(ValueError, match="color_table"):
         vt.BilateralFilter.from_numpy_tables(np.ones((3, 3), np.float32),
-                                             np.ones(512, np.float32), 8, 8)
+                                             np.ones(512, np.float32), 8, 8, device="cpu")
 
 
 def test_cli_matches_golden(tmp_path, capsys):
@@ -100,3 +106,70 @@ def test_cli_default_device_needs_a_gpu(tmp_path):
     cv2.imwrite(str(in_path), random_image(8, 8))
     with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
         cli.main([str(in_path), "-o", str(tmp_path / "o.png")])
+
+
+# -- the bilateral texture filter's module and the gradient / BTF CLIs --
+
+@pytest.mark.parametrize("ksize,nitr", [(3, 2), (5, 1)])
+def test_btf_module_matches_op(ksize, nitr):
+    src = random_image(30, 23)
+    module = vt.BilateralTextureFilter(30, 23, ksize, nitr, device="cpu")
+    expected = vt.bilateral_texture_filter(src, ksize, nitr, device="cpu")
+    np.testing.assert_array_equal(module(src).numpy(), expected.numpy())
+    np.testing.assert_array_equal(module.execute(src).numpy(), expected.numpy())
+    assert set(module.state_dict()) == {"taps", "lut"}
+
+
+def test_btf_from_numpy_tables_of_the_jax_package():
+    """pre_compute_kernels(2k−1, k−1, √3) is the BTF's JBF stage: carried into
+    the module it gives the module's own tables and golden's output."""
+    ksize = 5
+    space, table = pre_compute_kernels(2 * ksize - 1, float(ksize - 1),
+                                       float(np.sqrt(np.float32(3.0))))
+    carried = vt.BilateralTextureFilter.from_numpy_tables(space, table, 40, 40, nitr=2,
+                                                          device="cpu")
+    own = vt.BilateralTextureFilter(40, 40, ksize, 2, device="cpu")
+    assert carried.ksize == ksize
+    assert torch.equal(carried.taps, own.taps) and torch.equal(carried.lut, own.lut)
+    src = random_image(40, 40)
+    np.testing.assert_array_equal(carried(src).numpy(),
+                                  golden.bilateral_texture_filter(src, ksize, 2))
+
+
+def test_btf_module_rejects_wrong_input():
+    module = vt.BilateralTextureFilter(8, 8, 3, 1, device="cpu")
+    with pytest.raises(ValueError, match="expected"):
+        module(np.zeros((8, 9, 3), np.uint8))
+    with pytest.raises(ValueError, match="nitr"):
+        vt.BilateralTextureFilter(8, 8, 3, -1, device="cpu")
+    with pytest.raises(ValueError, match="odd"):
+        vt.BilateralTextureFilter(8, 8, 4, device="cpu")
+    with pytest.raises(ValueError, match="odd window"):
+        vt.BilateralTextureFilter.from_numpy_tables(np.ones((3, 3), np.float32),
+                                                    np.ones(768, np.float32), 8, 8,
+                                                    device="cpu")
+
+
+def test_gradient_cli(tmp_path):
+    src = random_image(24, 24)
+    in_path, out_path = tmp_path / "in.png", tmp_path / "out.png"
+    cv2.imwrite(str(in_path), src)
+    assert cli_grad.main([str(in_path), "-o", str(out_path), "--device", "cpu"]) == 0
+    g = golden.gradient(src)
+    expected = (g * np.float32(255.0) / g.max()).astype(np.uint8)
+    out = cv2.imread(str(out_path), cv2.IMREAD_GRAYSCALE)
+    assert np.abs(out.astype(int) - expected.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("variant", ["cuda", "cpp"])
+def test_btf_cli(tmp_path, variant):
+    src = random_image(24, 24)
+    in_path, out_path = tmp_path / "in.png", tmp_path / "out.png"
+    cv2.imwrite(str(in_path), src)
+    assert cli_btf.main([str(in_path), "5", "2", "-o", str(out_path), "--device", "cpu",
+                         "--variant", variant]) == 0
+    out = cv2.imread(str(out_path), cv2.IMREAD_COLOR)
+    expected = vt.bilateral_texture_filter(src, 5, 2, variant=variant, device="cpu")
+    np.testing.assert_array_equal(out, expected.numpy())
+    if variant == "cuda":
+        np.testing.assert_array_equal(out, golden.bilateral_texture_filter(src, 5, 2))

@@ -6,7 +6,8 @@ the TPU is a CUDA C++ kernel written for sm_90a (``csrc/``), built with nvcc
 at first use.  The package imports neither jax nor the JAX package, which
 stays the reference the port is tested against.
 
-Ported so far: the bilateral and joint bilateral filters.
+Ported so far: the bilateral and joint bilateral filters, the gradient
+magnitude and the bilateral texture filter.
 """
 
 __version__ = "0.1.0"
@@ -15,7 +16,10 @@ from . import core as core
 from . import models as models
 from . import ops as ops
 from .models import BilateralFilter as BilateralFilter
+from .models import BilateralTextureFilter as BilateralTextureFilter
 from .ops import (
     bilateral_filter as bilateral_filter,
+    bilateral_texture_filter as bilateral_texture_filter,
+    gradient as gradient,
     joint_bilateral_filter as joint_bilateral_filter,
 )

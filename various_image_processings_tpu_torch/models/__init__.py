@@ -1,5 +1,5 @@
 """Class-style API: shape-specialized filters as ``nn.Module``s."""
 
-from .filters import BilateralFilter
+from .filters import BilateralFilter, BilateralTextureFilter
 
-__all__ = ["BilateralFilter"]
+__all__ = ["BilateralFilter", "BilateralTextureFilter"]

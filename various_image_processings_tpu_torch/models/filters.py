@@ -1,10 +1,13 @@
 """Class-style filter API.
 
 Counterpart of ``various_image_processings_tpu/models/filters.py`` and the
-reference's ``CudaBilateralFilter`` (include/cuda/bilateral_filter.hpp:7-31):
-the constructor fixes the image size and parameters and builds the tables
-once; calls then run without per-call setup.  The tap table and range LUT
-are registered buffers, so ``.to(device)`` moves them with the module.
+reference's ``CudaBilateralFilter`` (include/cuda/bilateral_filter.hpp:7-31)
+and ``CudaBilateralTextureFilter``
+(include/cuda/bilateral_texture_filter.hpp:7-19): the constructor fixes the
+image size and parameters and builds the tables once, on ``device`` (the GPU
+unless the caller passes ``device="cpu"``); calls then run without per-call
+setup.  The joint bilateral filter's tap table and range LUT are registered
+buffers, so ``.to(device)`` moves them with the module.
 """
 
 from __future__ import annotations
@@ -17,42 +20,43 @@ from ..core.luts import COLOR_TABLE_SIZE_BILATERAL, color_table, space_kernel, t
 from ..ops import _validate
 from ..ops._dispatch import check_impl, resolve_impl
 from ..ops.bilateral import _taps_math
+from ..ops.bilateral_texture import _btf, check_nitr, jbf_numpy_tables
 from ..ops.cuda import bilateral as cuda_bilateral
 
 
-class BilateralFilter(nn.Module):
-    """Bilateral / joint bilateral filter for (height, width, 3) u8 images."""
+def _check_tables(space_kernel: np.ndarray, color_table: np.ndarray):
+    """Host-built tables as the module stores them: the (k, k) f32 space
+    kernel and the (768,) f32 range table."""
+    space = np.asarray(space_kernel, np.float32)
+    table = np.asarray(color_table, np.float32)
+    if space.ndim != 2 or space.shape[0] != space.shape[1]:
+        raise ValueError(f"space_kernel must be square, got shape {space.shape}")
+    if table.shape != (COLOR_TABLE_SIZE_BILATERAL,):
+        raise ValueError(f"color_table must have shape ({COLOR_TABLE_SIZE_BILATERAL},), "
+                         f"got {table.shape}")
+    return space, table
 
-    def __init__(self, height: int, width: int, ksize: int = 9,
-                 sigma_space: float = 10.0, sigma_color: float = 30.0,
-                 impl: str = "auto"):
+
+class _TableFilter(nn.Module):
+    """A shape-specialized filter whose state is one joint bilateral filter's
+    tables: ``taps`` (core.luts.tap_table) and ``lut``."""
+
+    def __init__(self, height: int, width: int, impl: str, device,
+                 space: np.ndarray, table: np.ndarray):
         super().__init__()
-        _validate.check_ksize(ksize)
         check_impl(impl)
+        device = _validate.check_device(device)
         self.height = int(height)
         self.width = int(width)
-        self.radius = int(ksize) // 2
         self.impl = impl
-        self.register_buffer("taps", torch.from_numpy(tap_table(space_kernel(ksize, sigma_space))))
-        self.register_buffer("lut", torch.from_numpy(color_table(sigma_color)))
+        self.register_buffer("taps", torch.empty((0, 4), dtype=torch.int32, device=device))
+        self.register_buffer("lut", torch.empty(0, dtype=torch.float32, device=device))
+        self._set_tables(space, table)
 
-    @classmethod
-    def from_numpy_tables(cls, space_kernel: np.ndarray, color_table: np.ndarray,
-                          height: int, width: int, impl: str = "auto") -> "BilateralFilter":
-        """A filter from host-built tables: the (k, k) f32 space kernel and the
-        (768,) f32 range table, e.g. those of the JAX package's
-        ``core.luts.pre_compute_kernels``.  They are the filter's whole state."""
-        space = np.asarray(space_kernel, np.float32)
-        table = np.asarray(color_table, np.float32)
-        if space.ndim != 2 or space.shape[0] != space.shape[1]:
-            raise ValueError(f"space_kernel must be square, got shape {space.shape}")
-        if table.shape != (COLOR_TABLE_SIZE_BILATERAL,):
-            raise ValueError(f"color_table must have shape ({COLOR_TABLE_SIZE_BILATERAL},), "
-                             f"got {table.shape}")
-        module = cls(height, width, space.shape[0], impl=impl)
-        module.taps = torch.from_numpy(tap_table(space))
-        module.lut = torch.from_numpy(table.copy())
-        return module
+    def _set_tables(self, space: np.ndarray, table: np.ndarray) -> None:
+        space, table = _check_tables(space, table)
+        self.taps = torch.from_numpy(tap_table(space)).to(self.taps.device)
+        self.lut = torch.from_numpy(table.copy()).to(self.lut.device)
 
     def _check(self, img) -> torch.Tensor:
         img = _validate.as_tensor(img, self.lut.device)
@@ -63,6 +67,30 @@ class BilateralFilter(nn.Module):
         if img.device != self.lut.device:
             raise ValueError(f"input on {img.device}, filter on {self.lut.device}")
         return img.contiguous()
+
+
+class BilateralFilter(_TableFilter):
+    """Bilateral / joint bilateral filter for (height, width, 3) u8 images."""
+
+    def __init__(self, height: int, width: int, ksize: int = 9,
+                 sigma_space: float = 10.0, sigma_color: float = 30.0,
+                 impl: str = "auto", device="cuda"):
+        _validate.check_ksize(ksize)
+        super().__init__(height, width, impl, device,
+                         space_kernel(ksize, sigma_space), color_table(sigma_color))
+        self.radius = int(ksize) // 2
+
+    @classmethod
+    def from_numpy_tables(cls, space_kernel: np.ndarray, color_table: np.ndarray,
+                          height: int, width: int, impl: str = "auto",
+                          device="cuda") -> "BilateralFilter":
+        """A filter from host-built tables: the (k, k) f32 space kernel and the
+        (768,) f32 range table, e.g. those of the JAX package's
+        ``core.luts.pre_compute_kernels``.  They are the filter's whole state."""
+        space, table = _check_tables(space_kernel, color_table)
+        module = cls(height, width, space.shape[0], impl=impl, device=device)
+        module._set_tables(space, table)
+        return module
 
     def _filter(self, src: torch.Tensor, guide) -> torch.Tensor:
         if resolve_impl(self.impl, src) == "cuda":
@@ -79,3 +107,42 @@ class BilateralFilter(nn.Module):
 
     def joint_bilateral_filter(self, src, guide) -> torch.Tensor:
         return self._filter(self._check(src), self._check(guide))
+
+
+class BilateralTextureFilter(_TableFilter):
+    """Bilateral texture filter for (height, width, 3) u8 images: ``nitr``
+    iterations of window ``ksize``, each closed by a joint bilateral filter
+    of ksize 2k−1, σ_space k−1, σ_color √3 (the reference's CUDA pipeline:
+    replicate border, u8(x + 0.5f))."""
+
+    def __init__(self, height: int, width: int, ksize: int = 9, nitr: int = 3,
+                 impl: str = "auto", device="cuda"):
+        _validate.check_ksize(ksize)
+        check_nitr(nitr)
+        super().__init__(height, width, impl, device, *jbf_numpy_tables(ksize))
+        self.ksize = int(ksize)
+        self.nitr = int(nitr)
+
+    @classmethod
+    def from_numpy_tables(cls, space_kernel: np.ndarray, color_table: np.ndarray,
+                          height: int, width: int, nitr: int = 3, impl: str = "auto",
+                          device="cuda") -> "BilateralTextureFilter":
+        """A filter from the host-built tables of its joint bilateral stage: the
+        (2k−1, 2k−1) f32 space kernel and the (768,) f32 range table, e.g. the
+        JAX package's ``core.luts.pre_compute_kernels(2k−1, k−1, √3)``.  The
+        window k follows from the space kernel's size."""
+        space, table = _check_tables(space_kernel, color_table)
+        if (space.shape[0] + 1) % 4 != 2:
+            raise ValueError(f"space_kernel must be (2k-1, 2k-1) for an odd window k, "
+                             f"got shape {space.shape}")
+        module = cls(height, width, (space.shape[0] + 1) // 2, nitr, impl, device)
+        module._set_tables(space, table)
+        return module
+
+    def forward(self, src) -> torch.Tensor:
+        return _btf(self._check(src), self.ksize, self.nitr, self.impl, "cuda",
+                    self.taps, self.lut)
+
+    # reference method name
+    def execute(self, src) -> torch.Tensor:
+        return self.forward(src)

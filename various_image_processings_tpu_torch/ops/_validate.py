@@ -12,12 +12,22 @@ import numpy as np
 import torch
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device.  A CUDA device without a usable GPU
+    raises: the port never runs silently on the CPU in its place."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA GPU and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
 def as_tensor(img, device) -> torch.Tensor:
     """A tensor stays on its own device; anything else is copied to
     ``device`` (negative-stride NumPy views included)."""
     if isinstance(img, torch.Tensor):
         return img
-    return torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(img)).to(check_device(device))
 
 
 def check_u8_color(name: str, img: torch.Tensor) -> None:

@@ -114,11 +114,11 @@ def _filter(src: torch.Tensor, guide, ksize: int, sigma_space: float,
 
 def bilateral_filter(src, ksize: int = 9, sigma_space: float = 10.0,
                      sigma_color: float = 30.0, impl: str = "auto",
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """(H, W, 3) u8 → (H, W, 3) u8 edge-preserving smoothing.
 
     A tensor is filtered on its own device; any other array is first copied
-    to ``device``."""
+    to ``device`` (the GPU unless the caller passes ``device="cpu"``)."""
     src = _validate.as_tensor(src, device)
     _validate.check_u8_color("src", src)
     _validate.check_ksize(ksize)
@@ -128,7 +128,7 @@ def bilateral_filter(src, ksize: int = 9, sigma_space: float = 10.0,
 
 def joint_bilateral_filter(src, guide, ksize: int = 9, sigma_space: float = 10.0,
                            sigma_color: float = 30.0, impl: str = "auto",
-                           device="cpu") -> torch.Tensor:
+                           device="cuda") -> torch.Tensor:
     """(H, W, 3) u8 src smoothed with range kernel keyed off `guide`."""
     src = _validate.as_tensor(src, device)
     guide = _validate.as_tensor(guide, device)

@@ -1,10 +1,13 @@
-"""Build the package's CUDA sources and load them with ctypes.
+"""Build the package's CUDA sources, load them with ctypes, and the checks
+every kernel wrapper shares.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, at first use, into ``_build/`` beside ``csrc/``.  The
-library's name carries a hash of the sources and flags, so an edited source
-is never served by a stale build.  Nothing here falls back: a missing
-``nvcc`` or a failed build raises.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, at first use, into ``_build/`` beside ``csrc/``.  The library's
+name carries a hash of the sources and flags, so an edited source is never
+served by a stale build.  ``ptxas``'s report (registers, spills, shared
+memory of each kernel) is kept beside the library.  Nothing here falls back:
+a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -25,7 +30,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # -use_fast_math: it would turn on FTZ and approximate division, and the
 # kernels are held bit-exact to the golden layer.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# shared memory one block can use on sm_90 (227 KB)
+MAX_SMEM_BYTES = 232448
 
 
 def nvcc() -> str:
@@ -51,17 +59,85 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvip_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def ptxas_report() -> str:
+    """What ``nvcc -Xptxas -v`` said when the current library was built."""
+    return library_path().with_suffix(".log").read_text()
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise if any fails.  Every process is
+    waited for (or killed) before this returns."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outputs = [proc.communicate()[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outputs)
+
+
+def _build(lib: Path) -> None:
+    BUILD_DIR.mkdir(exist_ok=True)
+    stem = f"{lib.stem}.{os.getpid()}"  # per process: concurrent builds never share a file
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{stem}.so.tmp"
+    try:
+        log = _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if this source hash has no library yet) and load the kernels."""
     lib = library_path()
     if not lib.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
-    return ctypes.CDLL(str(lib))
+        _build(lib)
+    cdll = ctypes.CDLL(str(lib))
+    cdll.vip_cuda_error_string.argtypes = [ctypes.c_int]
+    cdll.vip_cuda_error_string.restype = ctypes.c_char_p
+    return cdll
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise if a launch returned a cudaError_t other than cudaSuccess."""
+    if err != 0:
+        msg = load_library().vip_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} (cudaError_t {err})")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtypes: tuple, ndims: tuple) -> None:
+    """A kernel argument: a contiguous CUDA tensor of one of ``dtypes`` with
+    one of ``ndims`` dimensions."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if t.ndim not in ndims:
+        raise ValueError(f"{name} must have {' or '.join(map(str, ndims))} dimensions, "
+                         f"got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_smem(kernel: str, ksize: int, smem: int) -> None:
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel} ksize {ksize}: the kernel's halo tile needs {smem} bytes "
+                         f"of shared memory, above the {MAX_SMEM_BYTES} a block can use")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as the pointer kernels take."""
+    return torch.cuda.current_stream(t.device).cuda_stream

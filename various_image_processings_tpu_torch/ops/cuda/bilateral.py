@@ -15,14 +15,12 @@ import functools
 import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_BILATERAL, color_table, space_kernel, tap_table
-from ._build import load_library
+from ._build import check_launch, check_smem, check_tensor, load_library, stream_of
 
 launches = 0
 
 BORDERS = {"replicate": 0, "reflect101": 1}
 ROUNDINGS = {"trunc": 0, "rint": 1}
-# shared memory one block can use on sm_90 (227 KB)
-MAX_SMEM_BYTES = 232448
 
 
 @functools.cache
@@ -38,20 +36,13 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_void_p,                  # smem bytes, stream
     ]
     lib.vip_bilateral_u8.restype = ctypes.c_int
-    lib.vip_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vip_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check_image(name: str, t: torch.Tensor) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got one on {t.device}")
-    if t.dtype != torch.uint8:
-        raise TypeError(f"{name} must be uint8 (u8 BGR), got {t.dtype}")
-    if t.ndim != 3 or t.shape[2] != 3:
+    check_tensor(name, t, (torch.uint8,), (3,))
+    if t.shape[2] != 3:
         raise ValueError(f"{name} must be an (H, W, 3) color image, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_table(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -84,20 +75,15 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
         raise ValueError(f"border must be one of {tuple(BORDERS)} and rounding one of "
                          f"{tuple(ROUNDINGS)}, got {border!r}, {rounding!r}")
     smem = _lib().vip_bilateral_smem_bytes(radius, int(guide is not None))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"ksize {2 * radius + 1}: the kernel's halo tile needs {smem} bytes "
-                         f"of shared memory, above the {MAX_SMEM_BYTES} a block can use")
+    check_smem("bilateral", 2 * radius + 1, smem)
     height, width, _ = src.shape
     out = torch.empty_like(src)
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
         err = _lib().vip_bilateral_u8(
             src.data_ptr(), None if guide is None else guide.data_ptr(), out.data_ptr(),
             height, width, taps.data_ptr(), taps.shape[0], lut.data_ptr(),
-            radius, BORDERS[border], ROUNDINGS[rounding], smem, stream)
-    if err != 0:
-        msg = _lib().vip_cuda_error_string(err).decode()
-        raise RuntimeError(f"bilateral kernel launch failed: {msg} (cudaError_t {err})")
+            radius, BORDERS[border], ROUNDINGS[rounding], smem, stream_of(src))
+    check_launch(err, "bilateral")
     launches += 1
     return out
 
