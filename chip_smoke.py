@@ -15,7 +15,13 @@ each kernel.  Then, for each path the port has:
   their grids, drives the path through the op, the ``BilateralTextureFilter``
   module and the CLI with every counter reset just before and read just
   after, and times each kernel, the plain versions and the whole filter at
-  600x900 and 4K.
+  600x900 and 4K;
+- the adaptive bilateral filter (4K k=9, sigma_s=10, sigma_c=30): holds the
+  kernel against its plain version over a parity grid that includes the
+  subnormal-weight and underflow points, drives the path through the op, the
+  ``AdaptiveBilateralFilter`` module and the CLI with every counter reset just
+  before and read just after, and times kernel, op and plain version at 4K
+  and 512x512.
 
 Every phase prints a line; any failure exits non-zero.  On success the line
 before the last is ``{"kernels": [...]}`` and the last is
@@ -46,6 +52,16 @@ BTF_KSIZE, BTF_NITR = 9, 3                # the reference's own configuration
 GRADIENT_SHAPES = ((1, 1), (8, 5), (37, 61))
 STAGE_KSIZES = (1, 3, 5, 9, 15)
 STAGE_SHAPES = ((1, 1), (8, 5), (37, 61), (64, 31))
+ABF_KSIZES = (1, 3, 5, 9, 15, 31)
+ABF_SHAPES = ((1, 1), (8, 5), (37, 61), (50, 50))
+# (k, sigma_s, sigma_c, h, w): every weight in the LUT's f32 subnormal band
+# (random_image inputs), then whole windows whose ws*lut products underflow
+# to 0 (np.random.default_rng(777 + i) noise); tests/test_bilateral.py:81-82, :172-175
+ABF_BAND_POINTS = ((3, 9.3, 16.3, 26, 41), (15, 22.8, 11.5, 45, 13),
+                   (11, 8.0, 21.8, 35, 56), (11, 19.6, 35.6, 33, 49))
+ABF_UNDERFLOW_POINTS = ((13, 1.13, 1.6, 50, 50), (7, 1.13, 5.14, 32, 32),
+                        (15, 0.47, 3.49, 31, 64), (13, 1.75, 5.14, 48, 48))
+ABF_SMALL_SHAPE = (512, 512)              # BASELINE.md config 2's image size
 
 # H100 SXM peaks: HBM bytes/s, f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -105,12 +121,15 @@ def main() -> int:
     import numpy as np
 
     import various_image_processings_tpu_torch as vt
+    from various_image_processings_tpu_torch.cli import adaptive_bilateral_filter as cli_abf
     from various_image_processings_tpu_torch.cli import bilateral_filter as cli_bf
     from various_image_processings_tpu_torch.cli import bilateral_texture_filter as cli_btf
     from various_image_processings_tpu_torch.core.rng import random_array, random_image
     from various_image_processings_tpu_torch.ops import bilateral_texture as obt
+    from various_image_processings_tpu_torch.ops.adaptive_bilateral import _abf_math
     from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math
     from various_image_processings_tpu_torch.ops.cuda import _build
+    from various_image_processings_tpu_torch.ops.cuda import adaptive_bilateral as kab
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
     from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
     from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
@@ -138,6 +157,7 @@ def main() -> int:
     kbf._lib()
     kgr._lib()
     kbt._lib()
+    kab._lib()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
@@ -292,7 +312,7 @@ def main() -> int:
 
     # 8. the BTF path, counted: op (impl="auto", both variants), module, CLI
     counters = ((kgr, "launches"), (kbt, "blur_rtv_launches"), (kbt, "guide_launches"),
-                (kbf, "launches"))
+                (kbf, "launches"), (kab, "launches"))
 
     def reset() -> None:
         torch.cuda.synchronize()
@@ -303,7 +323,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return [getattr(mod, attr) for mod, attr in counters]
 
-    path_launches = [0, 0, 0, 0]
+    path_launches = [0, 0, 0, 0, 0]
     btf_np = random_image(bh, bw)
     btf_in = torch.from_numpy(btf_np).to(dev)
     btf_module = vt.BilateralTextureFilter(bh, bw, BTF_KSIZE, BTF_NITR)
@@ -317,7 +337,7 @@ def main() -> int:
             op_counts = read()
             plain = vt.bilateral_texture_filter(btf_in, BTF_KSIZE, BTF_NITR, impl="torch",
                                                 variant=variant)
-            module_counts, d_module = [0, 0, 0, 0], 0
+            module_counts, d_module = [0, 0, 0, 0, 0], 0
             if variant == "cuda":  # the module is the reference's CUDA pipeline
                 reset()
                 out_module = btf_module(btf_in)
@@ -332,13 +352,15 @@ def main() -> int:
             d_plain, d_cli = max_diff(out, plain), max_diff(out.cpu(), out_cli)
             changed = float((out != btf_in).any(dim=2).float().mean().item())
             phase(f"BTF path {bh}x{bw} k={BTF_KSIZE} nitr={BTF_NITR} variant={variant}: "
-                  f"launches (gradient, blur_rtv, guide, bilateral) op {op_counts}, module "
+                  f"launches (gradient, blur_rtv, guide, bilateral, adaptive_bilateral) op "
+                  f"{op_counts}, module "
                   f"{module_counts}, CLI {cli_counts}; vs plain on the card max |diff| "
                   f"{d_plain}, module vs op {d_module}, CLI vs op {d_cli} (tolerance 0); "
                   f"share of pixels changed {changed:.4f} (must be > 0.5)")
-            if op_counts != [BTF_NITR] * 4 or (variant == "cuda" and module_counts != op_counts):
+            if (op_counts != [BTF_NITR] * 4 + [0]
+                    or (variant == "cuda" and module_counts != op_counts)):
                 raise SystemExit("BTF path did not launch exactly 4*nitr kernels per call")
-            if min(cli_counts) < 1:
+            if min(cli_counts[:4]) < 1:
                 raise SystemExit("BTF CLI did not go through every kernel")
             if (out.shape != btf_in.shape or out.dtype != torch.uint8 or d_plain or d_module
                     or d_cli or changed < 0.5):
@@ -421,6 +443,99 @@ def main() -> int:
     phase(f"4K k=31 bilateral ({k31_taps} taps): kernel {k31_ms:.4f} ms, plain "
           f"{k31_plain_ms:.4f} ms, bound {k31_bound:.4f} ms by {k31_by}")
 
+    # 11. ABF parity grid: kernel vs plain on the card and vs plain on the CPU
+    def abf_case(x_np, ak, ass, asc) -> tuple[int, int]:
+        """(max |diff| of kernel vs plain on the card and on the CPU,
+        all-zero output pixels)."""
+        x = torch.from_numpy(x_np).to(dev)
+        got = kab.adaptive_bilateral(x, ak, ass, asc)
+        d = max(max_diff(got, _abf_math(x, ak, ass, asc)),
+                max_diff(got.cpu(), _abf_math(x.cpu(), ak, ass, asc)))
+        if d:
+            raise SystemExit(f"ABF parity FAILED: {tuple(x.shape)} k={ak} sigma_s={ass} "
+                             f"sigma_c={asc}: max |diff| {d}")
+        return d, int((got == 0).all(dim=2).sum().item())
+
+    abf_worst, abf_cases = 0, 0
+    for ah, aw in ABF_SHAPES:
+        x_np = random_image(ah, aw)
+        for ak in ABF_KSIZES:
+            abf_worst = max(abf_worst, abf_case(x_np, ak, 10.0, 30.0)[0])
+            abf_cases += 1
+    band_zero = under_zero = 0
+    for ak, ass, asc, ah, aw in ABF_BAND_POINTS:
+        d, zeros = abf_case(random_image(ah, aw), ak, ass, asc)
+        abf_worst, band_zero, abf_cases = max(abf_worst, d), band_zero + zeros, abf_cases + 1
+    for i, (ak, ass, asc, ah, aw) in enumerate(ABF_UNDERFLOW_POINTS):
+        x_np = np.random.default_rng(777 + i).integers(0, 256, (ah, aw, 3), np.uint8)
+        d, zeros = abf_case(x_np, ak, ass, asc)
+        abf_worst, under_zero, abf_cases = max(abf_worst, d), under_zero + zeros, abf_cases + 1
+    phase(f"ABF parity grid: {abf_cases} cases (k {ABF_KSIZES} at sigma (10, 30) on shapes "
+          f"{ABF_SHAPES}, 4 subnormal-band and 4 underflow points): max |diff| {abf_worst} vs "
+          f"plain on the card and on the CPU (tolerance 0); all-zero output pixels: band "
+          f"points {band_zero}, underflow points {under_zero} (must be > 0)")
+    if under_zero == 0:
+        raise SystemExit("ABF underflow points gave no all-zero pixel: the sumk == 0 select "
+                         "did not run")
+
+    # 12. the ABF path, counted: op (impl="auto"), module, CLI, every counter
+    #     reset just before and read just after
+    abf_module = vt.AdaptiveBilateralFilter(h, w, k, ss, sc)
+    with tempfile.TemporaryDirectory() as tmp:
+        in_path, out_path = os.path.join(tmp, "in.png"), os.path.join(tmp, "out_abf.png")
+        imwrite(in_path, img_np)
+        reset()
+        abf_out = vt.adaptive_bilateral_filter(img, k, ss, sc)
+        abf_op_counts = read()
+        reset()
+        abf_out_module = abf_module(img)
+        abf_module_counts = read()
+        reset()
+        cli_abf.main([in_path, "-o", out_path, "--device", "cuda"])
+        abf_cli_counts = read()
+        abf_out_cli = torch.from_numpy(imread(out_path))
+    abf_launches = abf_op_counts[4] + abf_module_counts[4] + abf_cli_counts[4]
+    phase(f"ABF path {h}x{w} k={k} sigma_s={ss} sigma_c={sc}: launches (gradient, blur_rtv, "
+          f"guide, bilateral, adaptive_bilateral) op {abf_op_counts}, module "
+          f"{abf_module_counts}, CLI {abf_cli_counts}")
+    if (abf_op_counts != [0, 0, 0, 0, 1] or abf_module_counts != [0, 0, 0, 0, 1]
+            or abf_cli_counts[:4] != [0, 0, 0, 0] or abf_cli_counts[4] < 1):
+        raise SystemExit("ABF path did not go through the kernel alone")
+    if abf_out.shape != img.shape or abf_out.dtype != torch.uint8 or not abf_out.is_cuda:
+        raise SystemExit(f"bad ABF output {tuple(abf_out.shape)} {abf_out.dtype} "
+                         f"{abf_out.device}")
+    abf_d_plain = max_diff(abf_out, _abf_math(img, k, ss, sc))
+    abf_d_module = max_diff(abf_out_module, abf_out)
+    abf_d_cli = max_diff(abf_out.cpu(), abf_out_cli)
+    abf_changed = float((abf_out != img).any(dim=2).float().mean().item())
+    phase(f"ABF path vs plain on the card max |diff| {abf_d_plain}, module vs op "
+          f"{abf_d_module}, CLI vs op {abf_d_cli} (tolerance 0); share of pixels changed "
+          f"{abf_changed:.4f} (must be > 0.5)")
+    if abf_d_plain or abf_d_module or abf_d_cli or abf_changed < 0.5:
+        raise SystemExit("ABF path output wrong")
+    abf_worst = max(abf_worst, abf_d_plain, abf_d_module, abf_d_cli)
+
+    # 13. ABF times: the kernel queued behind a sleep kernel, the op with CUDA
+    #     events, the plain version; at 4K and 512x512
+    abf_times = {}
+    abf_taps, abf_lut = kab.device_tables(k, ss, sc, dev)
+    abf_n_taps = int(abf_taps.shape[0])
+    for label, x_np in (("4K", img_np), ("512x512", random_image(*ABF_SMALL_SHAPE))):
+        x = torch.from_numpy(x_np).to(dev)
+        px = x.shape[0] * x.shape[1]
+        k_ms = queued_ms(lambda: kab.adaptive_bilateral_taps(x, abf_taps, abf_lut, k // 2),
+                         20 if label == "4K" else 100)
+        o_ms = cuda_time_ms(lambda: vt.adaptive_bilateral_filter(x, k, ss, sc), iters=20)
+        p_ms = cuda_time_ms(lambda: _abf_math(x, k, ss, sc), iters=3, warmup=1)
+        # per tap: 3 (p-c), 3 (-o), 3 abs, 2 adds, ws*lut, 3 products, 4 sums;
+        # per pixel: 6(k-1) separable box adds, 3 divisions and 3 subtractions
+        # for the offset, 3 divisions, 3 adds, 3 floors and a compare to store
+        b_ms, b_by = bound(2 * px * 3, px * (19 * abf_n_taps + 6 * k + 10))
+        abf_times[label] = (k_ms, p_ms, b_ms, b_by)
+        phase(f"{label} ABF k={k}: kernel {k_ms:.4f} ms ({px / k_ms / 1e3:.1f} MP/s), op "
+              f"{o_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"({abf_n_taps} taps)")
+
     main_label = "600x900"
     entries = [{
         "name": "bilateral",
@@ -455,6 +570,21 @@ def main() -> int:
             "library_ms": None,
             "at": f"{bh}x{bw} k={BTF_KSIZE}",
         })
+    k_ms, p_ms, b_ms, b_by = abf_times["4K"]
+    entries.append({
+        "name": "adaptive_bilateral",
+        "route": "cuda",
+        "source": "various_image_processings_tpu_torch/csrc/adaptive_bilateral.cu",
+        "replaces": "various_image_processings_tpu/ops/pallas/adaptive_bilateral.py:74",
+        "launches": abf_launches,
+        "max_abs_err": abf_worst,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "at": f"{h}x{w} k={k}",
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

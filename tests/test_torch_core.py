@@ -44,6 +44,24 @@ def test_color_table_and_coeff_match_jax(sigma):
     assert bits(luts.gauss_coeff_f32(sigma)) == bits(jluts.gauss_coeff_f32(sigma))
 
 
+@pytest.mark.parametrize("ksize,sigma_space,sigma_color", [(9, 10.0, 30.0), (13, 1.13, 1.6),
+                                                           (15, 0.47, 3.49), (3, 9.3, 16.3)])
+def test_adaptive_tables_match_jax(ksize, sigma_space, sigma_color):
+    """The adaptive filter's 1536-entry table, subnormal tail included."""
+    assert luts.COLOR_TABLE_SIZE_ADAPTIVE == jluts.COLOR_TABLE_SIZE_ADAPTIVE == 1536
+    space, table = luts.pre_compute_kernels(ksize, sigma_space, sigma_color,
+                                            luts.COLOR_TABLE_SIZE_ADAPTIVE)
+    jspace, jtable = jluts.pre_compute_kernels(ksize, sigma_space, sigma_color,
+                                               jluts.COLOR_TABLE_SIZE_ADAPTIVE)
+    assert table.shape == (1536,)
+    np.testing.assert_array_equal(bits(space), bits(jspace))
+    np.testing.assert_array_equal(bits(table), bits(jtable))
+    np.testing.assert_array_equal(bits(luts.pre_compute_kernels(ksize, sigma_space,
+                                                                sigma_color)[1]),
+                                  bits(jluts.pre_compute_kernels(ksize, sigma_space,
+                                                                 sigma_color)[1]))
+
+
 @pytest.mark.parametrize("ksize,sigma", [(1, 10.0), (9, 10.0), (17, 8.0), (27, 10.0),
                                          (9, 0.2)])
 def test_tap_table_is_jax_nonzero_taps(ksize, sigma):

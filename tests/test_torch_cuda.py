@@ -13,9 +13,12 @@ torch = pytest.importorskip("torch")
 
 import various_image_processings_tpu_torch as vt  # noqa: E402
 from various_image_processings_tpu_torch.core.rng import random_array, random_image  # noqa: E402
+from various_image_processings_tpu_torch.ops.adaptive_bilateral import (  # noqa: E402
+    _abf_math, box_mean)
 from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math  # noqa: E402
 from various_image_processings_tpu_torch.ops.bilateral_texture import (  # noqa: E402
     _blur_and_rtv_math, _guide_math)
+from various_image_processings_tpu_torch.ops.cuda import adaptive_bilateral as cuda_abf  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import bilateral as cuda_bf  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as cuda_btf  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import gradient as cuda_grad  # noqa: E402
@@ -194,3 +197,82 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_btf.guide(blurred, rtv, 301)
     with pytest.raises(ValueError, match="odd"):
         cuda_btf.guide(blurred, rtv, 4)
+
+
+# -- the adaptive bilateral kernel --
+
+# (k, σs, σc, h, w): every tap's weight in the LUT's f32 subnormal band, then
+# whole windows whose ws·lut products underflow to 0 (the last four, on
+# np.random.default_rng(777 + i) noise); tests/test_bilateral.py:81-82, :172-175
+ABF_BAND_POINTS = [(3, 9.3, 16.3, 26, 41), (15, 22.8, 11.5, 45, 13),
+                   (11, 8.0, 21.8, 35, 56), (11, 19.6, 35.6, 33, 49)]
+ABF_UNDERFLOW_POINTS = [(13, 1.13, 1.6, 50, 50), (7, 1.13, 5.14, 32, 32),
+                        (15, 0.47, 3.49, 31, 64), (13, 1.75, 5.14, 48, 48)]
+
+
+def abf_bit_exact(img_np, k, ss, sc, device):
+    img = torch.from_numpy(img_np).to(device)
+    got = cuda_abf.adaptive_bilateral(img, k, ss, sc)
+    assert torch.equal(got, _abf_math(img, k, ss, sc))
+    assert torch.equal(got.cpu(), _abf_math(img.cpu(), k, ss, sc))
+    return got
+
+
+@pytest.mark.parametrize("ksize", [1, 3, 5, 9, 15, 31])
+@pytest.mark.parametrize("shape", [(1, 1), (8, 5), (37, 61), (50, 50)])
+def test_abf_kernel_bit_exact_to_plain(cuda, shape, ksize):
+    abf_bit_exact(random_image(*shape), ksize, 10.0, 30.0, cuda)
+
+
+@pytest.mark.parametrize("point", range(4))
+def test_abf_kernel_bit_exact_on_the_band_points(cuda, point):
+    k, ss, sc, h, w = ABF_BAND_POINTS[point]
+    abf_bit_exact(random_image(h, w), k, ss, sc, cuda)
+
+
+@pytest.mark.parametrize("point", range(4))
+def test_abf_kernel_bit_exact_on_the_underflow_points(cuda, point):
+    k, ss, sc, h, w = ABF_UNDERFLOW_POINTS[point]
+    img = np.random.default_rng(777 + point).integers(0, 256, (h, w, 3), np.uint8)
+    got = abf_bit_exact(img, k, ss, sc, cuda)
+    assert (got == 0).all(dim=2).any()  # the sumk == 0 select ran
+
+
+@pytest.mark.parametrize("ksize", [3, 5, 7, 9, 11, 13, 15])
+def test_abf_box_mean_division_exhaustive_on_the_card(cuda, ksize):
+    """The plain version's box / k² on the card is numpy's IEEE f32 division
+    for every reachable box value; dividing by the Python number is not."""
+    box = np.arange(0, 255 * ksize * ksize + 1, dtype=np.float32)
+    want = box / np.float32(ksize * ksize)
+    got = box_mean(torch.from_numpy(box).to(cuda), ksize)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_abf_auto_on_a_cuda_tensor_launches_the_kernel(cuda):
+    src, _ = images((50, 50), cuda)
+    before = cuda_abf.launches
+    out = vt.adaptive_bilateral_filter(src, 9, 10.0, 30.0)
+    out_module = vt.AdaptiveBilateralFilter(50, 50)(src)
+    assert cuda_abf.launches == before + 2
+    assert out.is_cuda and torch.equal(out, _abf_math(src, 9, 10.0, 30.0))
+    assert torch.equal(out_module, out)
+    np.testing.assert_array_equal(
+        out.cpu().numpy(),
+        vt.adaptive_bilateral_filter(src.cpu().numpy(), 9, 10.0, 30.0, device="cpu").numpy())
+
+
+def test_abf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    src, _ = images((40, 64), cuda)
+    view = src[:, ::2]
+    np.testing.assert_array_equal(
+        vt.adaptive_bilateral_filter(view, 5).cpu().numpy(),
+        vt.adaptive_bilateral_filter(view.cpu().numpy(), 5, device="cpu").numpy())
+    taps, lut = cuda_abf.device_tables(5, 10.0, 30.0, src.device)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_abf.adaptive_bilateral_taps(view, taps, lut, 2)
+    with pytest.raises(TypeError, match="uint8"):
+        cuda_abf.adaptive_bilateral_taps(src.float(), taps, lut, 2)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_abf.adaptive_bilateral_taps(src, taps, lut[:768].contiguous(), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_abf.adaptive_bilateral(src, 301, 10.0, 30.0)

@@ -1,7 +1,7 @@
 """The PyTorch port's class API (``BilateralFilter`` and
 ``BilateralTextureFilter``, nn.Modules whose tables are their state) and
-its bilateral-filter, gradient and bilateral-texture-filter CLIs, on the
-CPU."""
+its bilateral-filter, gradient, bilateral-texture-filter and
+adaptive-bilateral-filter CLIs, on the CPU."""
 
 import numpy as np
 import pytest
@@ -13,6 +13,8 @@ cv2 = pytest.importorskip("cv2")
 from various_image_processings_tpu import golden  # noqa: E402
 from various_image_processings_tpu.core.luts import pre_compute_kernels  # noqa: E402
 import various_image_processings_tpu_torch as vt  # noqa: E402
+from various_image_processings_tpu_torch.cli import (  # noqa: E402
+    adaptive_bilateral_filter as cli_abf)
 from various_image_processings_tpu_torch.cli import bilateral_filter as cli  # noqa: E402
 from various_image_processings_tpu_torch.cli import (  # noqa: E402
     bilateral_texture_filter as cli_btf)
@@ -173,3 +175,23 @@ def test_btf_cli(tmp_path, variant):
     np.testing.assert_array_equal(out, expected.numpy())
     if variant == "cuda":
         np.testing.assert_array_equal(out, golden.bilateral_texture_filter(src, 5, 2))
+
+
+def test_abf_cli_writes_the_ops_output(tmp_path):
+    src = random_image(24, 32)
+    in_path, out_path = tmp_path / "in.png", tmp_path / "out.png"
+    cv2.imwrite(str(in_path), src)
+    assert cli_abf.main([str(in_path), "5", "4.0", "40.0", "-o", str(out_path),
+                         "--device", "cpu"]) == 0
+    out = cv2.imread(str(out_path), cv2.IMREAD_COLOR)
+    expected = vt.adaptive_bilateral_filter(src, 5, 4.0, 40.0, device="cpu")
+    np.testing.assert_array_equal(out, expected.numpy())
+    np.testing.assert_array_equal(out, golden.adaptive_bilateral_filter(src, 5, 4.0, 40.0))
+
+
+def test_abf_cli_impl_cuda_on_cpu_device_raises(tmp_path):
+    in_path = tmp_path / "in.png"
+    cv2.imwrite(str(in_path), random_image(8, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cli_abf.main([str(in_path), "-o", str(tmp_path / "o.png"), "--device", "cpu",
+                      "--impl", "cuda"])

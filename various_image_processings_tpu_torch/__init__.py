@@ -7,7 +7,8 @@ at first use.  The package imports neither jax nor the JAX package, which
 stays the reference the port is tested against.
 
 Ported so far: the bilateral and joint bilateral filters, the gradient
-magnitude and the bilateral texture filter.
+magnitude, the bilateral texture filter, the border-replicated integral
+image and the adaptive bilateral filter.
 """
 
 __version__ = "0.1.0"
@@ -15,11 +16,15 @@ __version__ = "0.1.0"
 from . import core as core
 from . import models as models
 from . import ops as ops
+from .models import AdaptiveBilateralFilter as AdaptiveBilateralFilter
 from .models import BilateralFilter as BilateralFilter
 from .models import BilateralTextureFilter as BilateralTextureFilter
 from .ops import (
+    adaptive_bilateral_filter as adaptive_bilateral_filter,
     bilateral_filter as bilateral_filter,
     bilateral_texture_filter as bilateral_texture_filter,
     gradient as gradient,
+    integral_image as integral_image,
     joint_bilateral_filter as joint_bilateral_filter,
+    window_sums as window_sums,
 )

@@ -12,8 +12,13 @@ from __future__ import annotations
 
 import numpy as np
 
-# range-kernel table length: the L1 distance of three u8 channels (max 3*255)
+# Range-kernel table lengths: the bilateral/joint filters index by the L1
+# distance of three u8 channels (max 3*255), the adaptive filter by an
+# offset-widened distance (max 2*3*255).  Reference:
+# include/cpp/bilateral_filter.hpp:12 (256*3) and
+# include/cpp/adaptive_bilateral_filter.hpp:34 (512*3).
 COLOR_TABLE_SIZE_BILATERAL = 256 * 3
+COLOR_TABLE_SIZE_ADAPTIVE = 512 * 3
 
 
 def space_kernel(ksize: int, sigma_space: float) -> np.ndarray:
@@ -43,6 +48,12 @@ def color_table(sigma_color: float, size: int = COLOR_TABLE_SIZE_BILATERAL) -> n
     coeff = -1.0 / float(denom)
     i = np.arange(size, dtype=np.int64)
     return np.exp((i * i) * coeff).astype(np.float32)
+
+
+def pre_compute_kernels(ksize: int, sigma_space: float, sigma_color: float,
+                        color_table_size: int = COLOR_TABLE_SIZE_BILATERAL):
+    """Return (space_kernel (k,k) f32, color_table (size,) f32)."""
+    return space_kernel(ksize, sigma_space), color_table(sigma_color, color_table_size)
 
 
 def tap_table(space: np.ndarray) -> np.ndarray:

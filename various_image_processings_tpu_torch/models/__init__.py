@@ -1,5 +1,5 @@
 """Class-style API: shape-specialized filters as ``nn.Module``s."""
 
-from .filters import BilateralFilter, BilateralTextureFilter
+from .filters import AdaptiveBilateralFilter, BilateralFilter, BilateralTextureFilter
 
-__all__ = ["BilateralFilter", "BilateralTextureFilter"]
+__all__ = ["AdaptiveBilateralFilter", "BilateralFilter", "BilateralTextureFilter"]

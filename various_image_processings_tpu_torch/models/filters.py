@@ -1,13 +1,14 @@
 """Class-style filter API.
 
 Counterpart of ``various_image_processings_tpu/models/filters.py`` and the
-reference's ``CudaBilateralFilter`` (include/cuda/bilateral_filter.hpp:7-31)
+reference's ``CudaBilateralFilter`` (include/cuda/bilateral_filter.hpp:7-31),
+``CudaAdaptiveBilateralFilter`` (include/cuda/adaptive_bilateral_filter.hpp:7-26)
 and ``CudaBilateralTextureFilter``
 (include/cuda/bilateral_texture_filter.hpp:7-19): the constructor fixes the
 image size and parameters and builds the tables once, on ``device`` (the GPU
 unless the caller passes ``device="cpu"``); calls then run without per-call
-setup.  The joint bilateral filter's tap table and range LUT are registered
-buffers, so ``.to(device)`` moves them with the module.
+setup.  The tap table and range LUT are registered buffers, so
+``.to(device)`` moves them with the module.
 """
 
 from __future__ import annotations
@@ -16,30 +17,36 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.luts import COLOR_TABLE_SIZE_BILATERAL, color_table, space_kernel, tap_table
+from ..core.luts import (COLOR_TABLE_SIZE_ADAPTIVE, COLOR_TABLE_SIZE_BILATERAL, color_table,
+                         pre_compute_kernels, space_kernel, tap_table)
 from ..ops import _validate
 from ..ops._dispatch import check_impl, resolve_impl
+from ..ops.adaptive_bilateral import _abf_taps_math
 from ..ops.bilateral import _taps_math
 from ..ops.bilateral_texture import _btf, check_nitr, jbf_numpy_tables
+from ..ops.cuda import adaptive_bilateral as cuda_abf
 from ..ops.cuda import bilateral as cuda_bilateral
 
 
-def _check_tables(space_kernel: np.ndarray, color_table: np.ndarray):
+def _check_tables(space_kernel: np.ndarray, color_table: np.ndarray,
+                  table_size: int = COLOR_TABLE_SIZE_BILATERAL):
     """Host-built tables as the module stores them: the (k, k) f32 space
-    kernel and the (768,) f32 range table."""
+    kernel and the (table_size,) f32 range table."""
     space = np.asarray(space_kernel, np.float32)
     table = np.asarray(color_table, np.float32)
     if space.ndim != 2 or space.shape[0] != space.shape[1]:
         raise ValueError(f"space_kernel must be square, got shape {space.shape}")
-    if table.shape != (COLOR_TABLE_SIZE_BILATERAL,):
-        raise ValueError(f"color_table must have shape ({COLOR_TABLE_SIZE_BILATERAL},), "
-                         f"got {table.shape}")
+    if table.shape != (table_size,):
+        raise ValueError(f"color_table must have shape ({table_size},), got {table.shape}")
     return space, table
 
 
 class _TableFilter(nn.Module):
-    """A shape-specialized filter whose state is one joint bilateral filter's
-    tables: ``taps`` (core.luts.tap_table) and ``lut``."""
+    """A shape-specialized filter whose state is a space kernel's tap table
+    (``taps``, core.luts.tap_table) and a range table of ``table_size``
+    entries (``lut``)."""
+
+    table_size = COLOR_TABLE_SIZE_BILATERAL
 
     def __init__(self, height: int, width: int, impl: str, device,
                  space: np.ndarray, table: np.ndarray):
@@ -54,7 +61,7 @@ class _TableFilter(nn.Module):
         self._set_tables(space, table)
 
     def _set_tables(self, space: np.ndarray, table: np.ndarray) -> None:
-        space, table = _check_tables(space, table)
+        space, table = _check_tables(space, table, self.table_size)
         self.taps = torch.from_numpy(tap_table(space)).to(self.taps.device)
         self.lut = torch.from_numpy(table.copy()).to(self.lut.device)
 
@@ -107,6 +114,44 @@ class BilateralFilter(_TableFilter):
 
     def joint_bilateral_filter(self, src, guide) -> torch.Tensor:
         return self._filter(self._check(src), self._check(guide))
+
+
+class AdaptiveBilateralFilter(_TableFilter):
+    """Adaptive bilateral filter for (height, width, 3) u8 images."""
+
+    table_size = COLOR_TABLE_SIZE_ADAPTIVE
+
+    def __init__(self, height: int, width: int, ksize: int = 9,
+                 sigma_space: float = 10.0, sigma_color: float = 30.0,
+                 impl: str = "auto", device="cuda"):
+        _validate.check_ksize(ksize)
+        super().__init__(height, width, impl, device,
+                         *pre_compute_kernels(ksize, sigma_space, sigma_color,
+                                              COLOR_TABLE_SIZE_ADAPTIVE))
+        self.radius = int(ksize) // 2
+
+    @classmethod
+    def from_numpy_tables(cls, space_kernel: np.ndarray, color_table: np.ndarray,
+                          height: int, width: int, impl: str = "auto",
+                          device="cuda") -> "AdaptiveBilateralFilter":
+        """A filter from host-built tables: the (k, k) f32 space kernel and the
+        (1536,) f32 range table, e.g. the JAX package's
+        ``core.luts.pre_compute_kernels(k, σs, σc, COLOR_TABLE_SIZE_ADAPTIVE)``.
+        They are the filter's whole state."""
+        space, table = _check_tables(space_kernel, color_table, cls.table_size)
+        module = cls(height, width, space.shape[0], impl=impl, device=device)
+        module._set_tables(space, table)
+        return module
+
+    def forward(self, src) -> torch.Tensor:
+        src = self._check(src)
+        if resolve_impl(self.impl, src) == "cuda":
+            return cuda_abf.adaptive_bilateral_taps(src, self.taps, self.lut, self.radius)
+        return _abf_taps_math(src, self.taps, self.lut, self.radius)
+
+    # reference method name
+    def adaptive_bilateral_filter(self, src) -> torch.Tensor:
+        return self.forward(src)
 
 
 class BilateralTextureFilter(_TableFilter):

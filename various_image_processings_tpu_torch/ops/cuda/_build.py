@@ -132,6 +132,32 @@ def check_tensor(name: str, t: torch.Tensor, dtypes: tuple, ndims: tuple) -> Non
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_color_image(name: str, t: torch.Tensor) -> None:
+    """An (H, W, 3) u8 image, contiguous, on the card."""
+    check_tensor(name, t, (torch.uint8,), (3,))
+    if t.shape[2] != 3:
+        raise ValueError(f"{name} must be an (H, W, 3) color image, got shape {tuple(t.shape)}")
+
+
+def check_table(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    """A host-built table a kernel reads: contiguous, of one dtype and shape,
+    on the image's device."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}, "
+                         f"got {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def check_taps(taps: torch.Tensor, device) -> None:
+    """An (n, 4) int32 tap table (core.luts.tap_table), read as one int4 a tap."""
+    if taps.ndim != 2 or taps.shape[0] < 1:
+        raise ValueError(f"taps must be an (n, 4) tap table, got shape {tuple(taps.shape)}")
+    check_table("taps", taps, torch.int32, (taps.shape[0], 4), device)
+    if taps.data_ptr() % 16 != 0:
+        raise ValueError("taps must be 16-byte aligned (the kernel reads one int4 per tap)")
+
+
 def check_smem(kernel: str, ksize: int, smem: int) -> None:
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{kernel} ksize {ksize}: the kernel's halo tile needs {smem} bytes "

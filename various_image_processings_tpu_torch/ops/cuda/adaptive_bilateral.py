@@ -1,0 +1,73 @@
+"""Wrapper of the Hopper adaptive bilateral kernel (csrc/adaptive_bilateral.cu).
+
+Takes an (H, W, 3) u8 CUDA tensor and the filter's tables (core.luts.tap_table
+and the 1536-entry range LUT) on the same device, allocates the output and
+launches on PyTorch's current stream.  Anything the kernel does not take
+raises, including a window whose halo tile would not fit in one block's
+shared memory; a launch the runtime refuses raises.  ``launches`` counts
+successful launches, so a run can show its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ...core.luts import COLOR_TABLE_SIZE_ADAPTIVE, color_table, space_kernel, tap_table
+from ._build import (check_color_image, check_launch, check_smem, check_table, check_taps,
+                     load_library, stream_of)
+
+launches = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library()
+    lib.vip_adaptive_bilateral_smem_bytes.argtypes = [ctypes.c_int]
+    lib.vip_adaptive_bilateral_smem_bytes.restype = ctypes.c_longlong
+    lib.vip_adaptive_bilateral_u8.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,                # src, out
+        ctypes.c_int, ctypes.c_int,                      # height, width
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # taps, n_taps, lut
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,  # radius, smem bytes, stream
+    ]
+    lib.vip_adaptive_bilateral_u8.restype = ctypes.c_int
+    return lib
+
+
+def adaptive_bilateral_taps(src: torch.Tensor, taps: torch.Tensor, lut: torch.Tensor,
+                            radius: int) -> torch.Tensor:
+    """Launch the kernel with the filter's tables: the window is 2·radius+1."""
+    global launches
+    check_color_image("src", src)
+    check_taps(taps, src.device)
+    check_table("lut", lut, torch.float32, (COLOR_TABLE_SIZE_ADAPTIVE,), src.device)
+    smem = _lib().vip_adaptive_bilateral_smem_bytes(radius)
+    check_smem("adaptive_bilateral", 2 * radius + 1, smem)
+    height, width, _ = src.shape
+    out = torch.empty_like(src)
+    with torch.cuda.device(src.device):
+        err = _lib().vip_adaptive_bilateral_u8(
+            src.data_ptr(), out.data_ptr(), height, width, taps.data_ptr(), taps.shape[0],
+            lut.data_ptr(), radius, smem, stream_of(src))
+    check_launch(err, "adaptive_bilateral")
+    launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def device_tables(ksize: int, sigma_space: float, sigma_color: float,
+                  device: torch.device):
+    """(taps, lut) for one parameter set, built on the host once and kept on
+    the device."""
+    taps = torch.from_numpy(tap_table(space_kernel(ksize, sigma_space))).to(device)
+    lut = torch.from_numpy(color_table(sigma_color, COLOR_TABLE_SIZE_ADAPTIVE)).to(device)
+    return taps, lut
+
+
+def adaptive_bilateral(src: torch.Tensor, ksize: int, sigma_space: float,
+                       sigma_color: float) -> torch.Tensor:
+    taps, lut = device_tables(ksize, sigma_space, sigma_color, src.device)
+    return adaptive_bilateral_taps(src, taps, lut, ksize // 2)

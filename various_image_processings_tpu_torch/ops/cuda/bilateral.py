@@ -15,7 +15,8 @@ import functools
 import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_BILATERAL, color_table, space_kernel, tap_table
-from ._build import check_launch, check_smem, check_tensor, load_library, stream_of
+from ._build import (check_color_image, check_launch, check_smem, check_table, check_taps,
+                     load_library, stream_of)
 
 launches = 0
 
@@ -39,38 +40,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_image(name: str, t: torch.Tensor) -> None:
-    check_tensor(name, t, (torch.uint8,), (3,))
-    if t.shape[2] != 3:
-        raise ValueError(f"{name} must be an (H, W, 3) color image, got shape {tuple(t.shape)}")
-
-
-def _check_table(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}, "
-                         f"got {t.dtype} on {t.device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-
-
 def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
                     lut: torch.Tensor, radius: int, border: str = "replicate",
                     rounding: str = "trunc") -> torch.Tensor:
     """Launch the kernel.  guide=None is the self filter (range weights keyed
     off src, one tile in shared memory instead of two)."""
     global launches
-    _check_image("src", src)
+    check_color_image("src", src)
     if guide is not None:
-        _check_image("guide", guide)
+        check_color_image("guide", guide)
         if guide.shape != src.shape or guide.device != src.device:
             raise ValueError(f"guide {tuple(guide.shape)} on {guide.device} must match "
                              f"src {tuple(src.shape)} on {src.device}")
-    if taps.ndim != 2 or taps.shape[0] < 1:
-        raise ValueError(f"taps must be an (n, 4) tap table, got shape {tuple(taps.shape)}")
-    _check_table("taps", taps, torch.int32, (taps.shape[0], 4), src.device)
-    if taps.data_ptr() % 16 != 0:
-        raise ValueError("taps must be 16-byte aligned (the kernel reads one int4 per tap)")
-    _check_table("lut", lut, torch.float32, (COLOR_TABLE_SIZE_BILATERAL,), src.device)
+    check_taps(taps, src.device)
+    check_table("lut", lut, torch.float32, (COLOR_TABLE_SIZE_BILATERAL,), src.device)
     if border not in BORDERS or rounding not in ROUNDINGS:
         raise ValueError(f"border must be one of {tuple(BORDERS)} and rounding one of "
                          f"{tuple(ROUNDINGS)}, got {border!r}, {rounding!r}")
