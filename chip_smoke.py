@@ -21,7 +21,15 @@ each kernel.  Then, for each path the port has:
   subnormal-weight and underflow points, drives the path through the op, the
   ``AdaptiveBilateralFilter`` module and the CLI with every counter reset just
   before and read just after, and times kernel, op and plain version at 4K
-  and 512x512.
+  and 512x512;
+- Wexler inpainting (402x700, BASELINE.md configs 5a and 5c): holds the
+  search kernel against its plain version over a grid of shapes, target
+  counts and masks (bit-equal with image values 0..127, within a stated
+  tolerance on full-range images), drives the path through the op, the
+  ``WexlerInpainting`` module and the CLI with every counter reset just
+  before and read just after, checks the output against the plain path on
+  the card, and times the search kernel, its plain version, its bound and
+  the whole inpaint.
 
 Every phase prints a line; any failure exits non-zero.  On success the line
 before the last is ``{"kernels": [...]}`` and the last is
@@ -35,10 +43,14 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
+
+import numpy as np
 
 MAIN_SHAPE = (2160, 3840)                 # 4K, u8 BGR
 MAIN_PARAMS = (9, 10.0, 30.0)             # ksize, sigma_space, sigma_color
@@ -62,10 +74,14 @@ ABF_BAND_POINTS = ((3, 9.3, 16.3, 26, 41), (15, 22.8, 11.5, 45, 13),
 ABF_UNDERFLOW_POINTS = ((13, 1.13, 1.6, 50, 50), (7, 1.13, 5.14, 32, 32),
                         (15, 0.47, 3.49, 31, 64), (13, 1.75, 5.14, 48, 48))
 ABF_SMALL_SHAPE = (512, 512)              # BASELINE.md config 2's image size
+WEXLER_SHAPE = (402, 700)                 # mosaic_dog, BASELINE.md config 5
+SEARCH_SHAPES = ((20, 20), (33, 41), (34, 45), (64, 200), WEXLER_SHAPE)
+SEARCH_TARGETS = (1, 7, 16, 256, 1000, 1024)
 
-# H100 SXM peaks: HBM bytes/s, f32 FLOP/s
+# H100 SXM peaks: HBM bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 
 def max_diff(a, b) -> int:
@@ -81,10 +97,26 @@ def phase(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """Least ms the card could take: bytes over HBM rate vs f32 ops over peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least ms the card could take: bytes over HBM rate vs ops over peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def wexler_masks(h: int, w: int) -> dict:
+    """BASELINE.md config 5's masks (benchmarks/baseline_configs.py:234-255):
+    5a a central 64x64 hole; 5c an L, a disk of radius 18 and a 4x120 bar."""
+    cy, cx = h // 2, w // 2
+    square = np.zeros((h, w), np.uint8)
+    square[cy - 32 : cy + 32, cx - 32 : cx + 32] = 255
+    irregular = np.zeros((h, w), np.uint8)
+    irregular[cy - 40 : cy + 8, cx - 50 : cx - 30] = 255
+    irregular[cy - 8 : cy + 8, cx - 50 : cx + 10] = 255
+    yy, xx = np.mgrid[:h, :w]
+    irregular[(yy - (cy + 60)) ** 2 + (xx - (cx + 80)) ** 2 <= 18 ** 2] = 255
+    irregular[cy + 100 : cy + 104, cx - 60 : cx + 60] = 255
+    return {"5a": square, "5c": irregular}
 
 
 def ptxas_summary(report: str) -> dict:
@@ -118,13 +150,17 @@ def main() -> int:
     phase(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    import numpy as np
+    import torch.nn.functional as F
 
     import various_image_processings_tpu_torch as vt
     from various_image_processings_tpu_torch.cli import adaptive_bilateral_filter as cli_abf
     from various_image_processings_tpu_torch.cli import bilateral_filter as cli_bf
     from various_image_processings_tpu_torch.cli import bilateral_texture_filter as cli_btf
+    from various_image_processings_tpu_torch.cli import wexler_inpainting as cli_wex
+    from various_image_processings_tpu_torch.core.pad import round_up
     from various_image_processings_tpu_torch.core.rng import random_array, random_image
+    from various_image_processings_tpu_torch.models import inpainting as wexler
+    from various_image_processings_tpu_torch.ops import wexler_search as search_op
     from various_image_processings_tpu_torch.ops import bilateral_texture as obt
     from various_image_processings_tpu_torch.ops.adaptive_bilateral import _abf_math
     from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math
@@ -133,7 +169,9 @@ def main() -> int:
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
     from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
     from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
+    from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws
     from various_image_processings_tpu_torch.ops.gradient import _gradient_math
+    from various_image_processings_tpu_torch.ops.wexler_search import _search_min_math
     from various_image_processings_tpu_torch.utils.io import imread, imwrite
     from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
 
@@ -158,6 +196,7 @@ def main() -> int:
     kgr._lib()
     kbt._lib()
     kab._lib()
+    kws._lib()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
@@ -312,7 +351,9 @@ def main() -> int:
 
     # 8. the BTF path, counted: op (impl="auto", both variants), module, CLI
     counters = ((kgr, "launches"), (kbt, "blur_rtv_launches"), (kbt, "guide_launches"),
-                (kbf, "launches"), (kab, "launches"))
+                (kbf, "launches"), (kab, "launches"), (kws, "launches"))
+    counter_names = ("gradient, blur_rtv, guide, bilateral, adaptive_bilateral, "
+                     "wexler_search")
 
     def reset() -> None:
         torch.cuda.synchronize()
@@ -323,7 +364,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return [getattr(mod, attr) for mod, attr in counters]
 
-    path_launches = [0, 0, 0, 0, 0]
+    path_launches = [0] * len(counters)
     btf_np = random_image(bh, bw)
     btf_in = torch.from_numpy(btf_np).to(dev)
     btf_module = vt.BilateralTextureFilter(bh, bw, BTF_KSIZE, BTF_NITR)
@@ -337,7 +378,7 @@ def main() -> int:
             op_counts = read()
             plain = vt.bilateral_texture_filter(btf_in, BTF_KSIZE, BTF_NITR, impl="torch",
                                                 variant=variant)
-            module_counts, d_module = [0, 0, 0, 0, 0], 0
+            module_counts, d_module = [0] * len(counters), 0
             if variant == "cuda":  # the module is the reference's CUDA pipeline
                 reset()
                 out_module = btf_module(btf_in)
@@ -352,12 +393,11 @@ def main() -> int:
             d_plain, d_cli = max_diff(out, plain), max_diff(out.cpu(), out_cli)
             changed = float((out != btf_in).any(dim=2).float().mean().item())
             phase(f"BTF path {bh}x{bw} k={BTF_KSIZE} nitr={BTF_NITR} variant={variant}: "
-                  f"launches (gradient, blur_rtv, guide, bilateral, adaptive_bilateral) op "
-                  f"{op_counts}, module "
+                  f"launches ({counter_names}) op {op_counts}, module "
                   f"{module_counts}, CLI {cli_counts}; vs plain on the card max |diff| "
                   f"{d_plain}, module vs op {d_module}, CLI vs op {d_cli} (tolerance 0); "
                   f"share of pixels changed {changed:.4f} (must be > 0.5)")
-            if (op_counts != [BTF_NITR] * 4 + [0]
+            if (op_counts != [BTF_NITR] * 4 + [0, 0]
                     or (variant == "cuda" and module_counts != op_counts)):
                 raise SystemExit("BTF path did not launch exactly 4*nitr kernels per call")
             if min(cli_counts[:4]) < 1:
@@ -495,11 +535,12 @@ def main() -> int:
         abf_cli_counts = read()
         abf_out_cli = torch.from_numpy(imread(out_path))
     abf_launches = abf_op_counts[4] + abf_module_counts[4] + abf_cli_counts[4]
-    phase(f"ABF path {h}x{w} k={k} sigma_s={ss} sigma_c={sc}: launches (gradient, blur_rtv, "
-          f"guide, bilateral, adaptive_bilateral) op {abf_op_counts}, module "
+    phase(f"ABF path {h}x{w} k={k} sigma_s={ss} sigma_c={sc}: launches ({counter_names}) "
+          f"op {abf_op_counts}, module "
           f"{abf_module_counts}, CLI {abf_cli_counts}")
-    if (abf_op_counts != [0, 0, 0, 0, 1] or abf_module_counts != [0, 0, 0, 0, 1]
-            or abf_cli_counts[:4] != [0, 0, 0, 0] or abf_cli_counts[4] < 1):
+    if (abf_op_counts != [0, 0, 0, 0, 1, 0] or abf_module_counts != [0, 0, 0, 0, 1, 0]
+            or abf_cli_counts[:4] != [0, 0, 0, 0] or abf_cli_counts[4] < 1
+            or abf_cli_counts[5] != 0):
         raise SystemExit("ABF path did not go through the kernel alone")
     if abf_out.shape != img.shape or abf_out.dtype != torch.uint8 or not abf_out.is_cuda:
         raise SystemExit(f"bad ABF output {tuple(abf_out.shape)} {abf_out.dtype} "
@@ -535,6 +576,217 @@ def main() -> int:
         phase(f"{label} ABF k={k}: kernel {k_ms:.4f} ms ({px / k_ms / 1e3:.1f} MP/s), op "
               f"{o_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
               f"({abf_n_taps} taps)")
+
+    # 14. Wexler search grid: kernel vs plain on the same CUDA tensors.  With
+    #     image values 0..127 every partial sum of the masked SSD is an integer
+    #     below 2^24, so the two are held bit-equal.  On full-range images the
+    #     sums round in each order: |d energy| <= tol = max(4, 1e-6 S), S the
+    #     f64 sum of the absolute terms at the plain pick, and the picks equal
+    #     wherever the best f64 energy leads the second best by more than 2 tol
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's product stays f32
+
+    def search_inputs(shape, t, initial, seed, max_value):
+        """(p117, f13, valid): a random image with values 0..max_value, a 5x5
+        hole plus a hole pixel at (9, 9) (which every window of a 20x20 image
+        covers), and t random targets."""
+        rng = np.random.default_rng(seed)
+        sh, sw = shape
+        x = torch.from_numpy(rng.integers(0, max_value + 1, (sh, sw, 3)).astype(np.float32))
+        rem = torch.zeros((sh, sw))
+        rem[sh // 3 : sh // 3 + 5, sw // 3 : sw // 3 + 5] = 1.0
+        rem[min(9, sh - 1), min(9, sw - 1)] = 1.0
+        ty, tx = torch.from_numpy(rng.integers(0, sh, t)), torch.from_numpy(rng.integers(0, sw, t))
+        x, rem, ty, tx = (v.to(dev) for v in (x, rem, ty, tx))
+        f13, valid, _ = wexler._search_filters(x, rem, ty, tx, sh, sw, initial)
+        return wexler._build_p117(x, sw), f13, valid
+
+    def im2col(p117, f13, valid, dtype):
+        """The candidate matrix (ncand, 13*117) and the filters (13*117, T)."""
+        n_cy, n_cx = valid.shape
+        a = p117.to(dtype).unfold(0, f13.shape[0], 1).permute(0, 1, 3, 2)
+        a = a.reshape(n_cy * n_cx, -1)
+        return a, f13.to(dtype).reshape(a.shape[1], -1)
+
+    s_cases = s_none = s_clear = s_picks = 0
+    s_full_worst = 0.0
+    for shape in SEARCH_SHAPES:
+        for t in SEARCH_TARGETS:
+            for initial in (False, True):
+                for max_value in (127, 255):
+                    p117, f13, valid = search_inputs(shape, t, initial, s_cases, max_value)
+                    emin, idx = kws.search_min(p117, f13, valid)
+                    emin_p, idx_p = _search_min_math(p117, f13, valid)
+                    s_cases += 1
+                    where = f"{shape} T={t} initial={initial} values 0..{max_value}"
+                    if not valid.any():
+                        s_none += 1
+                        if not (torch.isinf(emin).all() and not idx.any()):
+                            raise SystemExit(f"search grid FAILED at {where}: no valid "
+                                             "candidate, and not (+inf, 0)")
+                    if max_value == 127 or not valid.any():
+                        if not (torch.equal(emin, emin_p) and torch.equal(idx, idx_p)):
+                            raise SystemExit(f"search grid FAILED at {where}: not bit-equal")
+                        continue
+                    a, fm = im2col(p117, f13, valid, torch.float64)
+                    tol = torch.clamp(1e-6 * (a[idx_p.long()] * fm.abs().t()).sum(1), min=4.0)
+                    d = (emin.double() - emin_p.double()).abs()
+                    two = torch.topk(torch.where(valid.reshape(-1, 1), a @ fm, torch.inf), 2,
+                                     dim=0, largest=False).values
+                    clear = (two[1] - two[0]) > 2 * tol
+                    s_full_worst = max(s_full_worst, float(d.max()))
+                    s_clear, s_picks = s_clear + int(clear.sum()), s_picks + t
+                    if (d > tol).any() or not torch.equal(idx[clear], idx_p[clear]):
+                        raise SystemExit(f"search grid FAILED at {where}: max |d energy| "
+                                         f"{float(d.max())}, picks equal where clear: "
+                                         f"{torch.equal(idx[clear], idx_p[clear])}")
+                    del a, fm, two
+    torch.cuda.synchronize()
+    phase(f"Wexler search grid: {s_cases} cases (shapes {SEARCH_SHAPES}, T {SEARCH_TARGETS}, "
+          f"initial and energy-pass masks, values 0..127 and 0..255): kernel vs plain on the "
+          f"card bit-equal in energies and picks at values 0..127 (tolerance 0); at 0..255 "
+          f"max |d energy| {s_full_worst} (tolerance max(4, 1e-6 S)), picks equal at each of "
+          f"the {s_clear} targets (of {s_picks}) whose best energy leads by more than 2 tol; "
+          f"{s_none} cases with no valid candidate gave (+inf, 0)")
+
+    # 15. the Wexler path, counted: configs 5a and 5c through op, module and
+    #     CLI on a 402x700 periodic texture of values 0..127 (the true hole
+    #     content exists elsewhere in the frame, and the search is exact)
+    wh, ww = WEXLER_SHAPE
+    wex_np = np.tile(random_image(37, 53) // 2, (-(-wh // 37), -(-ww // 53), 1))[:wh, :ww].copy()
+    wex = torch.from_numpy(wex_np).to(dev)
+    wex_masks = wexler_masks(wh, ww)
+    wex_module = vt.WexlerInpainting()
+    real_pass_core, pass_shapes = wexler._pass_core, []
+
+    def counted_pass_core(img_f, *args, **kwargs):
+        pass_shapes.append(tuple(img_f.shape[:2]))
+        return real_pass_core(img_f, *args, **kwargs)
+
+    wex_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        in_path = os.path.join(tmp, "in.png")
+        imwrite(in_path, wex_np)
+        for cfg, mask_np in wex_masks.items():
+            mask = torch.from_numpy(mask_np).to(dev)
+            mask_path = os.path.join(tmp, f"mask_{cfg}.png")
+            out_path = os.path.join(tmp, f"out_{cfg}.png")
+            imwrite(mask_path, mask_np)
+            reset()
+            search_op.plain_searches = 0
+            wexler.host_syncs = 0
+            pass_shapes.clear()
+            wexler._pass_core = counted_pass_core
+            try:
+                out = vt.inpainting_wexler(wex, mask)
+                op_counts = read()
+            finally:
+                wexler._pass_core = real_pass_core
+            syncs, passes = wexler.host_syncs, Counter(pass_shapes)
+            reset()
+            out_module = wex_module(wex, mask)
+            module_counts = read()
+            reset()
+            cli_wex.main([in_path, mask_path, "-o", out_path, "--device", "cuda"])
+            cli_counts = read()
+            plain_on_path = search_op.plain_searches
+            out_cli = torch.from_numpy(imread(out_path))
+            out_plain = vt.inpainting_wexler(wex, mask, impl="torch")
+            searches = op_counts[5]
+            per_level = ", ".join(f"{lh}x{lw} {n}" for (lh, lw), n in
+                                  sorted(passes.items(), reverse=True))
+            keep = torch.from_numpy(mask_np == 0).to(dev)
+            mse = float(((out.double() - wex.double())[~keep] ** 2).mean())
+            psnr = f"{10 * math.log10(255.0 ** 2 / mse):.2f} dB" if mse else "inf (exact)"
+            d_plain, d_module = max_diff(out, out_plain), max_diff(out_module, out)
+            d_cli = max_diff(out.cpu(), out_cli)
+            known_same = torch.equal(out[keep], wex[keep])
+            phase(f"Wexler path {cfg} {wh}x{ww} ({int((mask_np > 0).sum())} hole pixels): "
+                  f"launches ({counter_names}) op {op_counts}, module {module_counts}, CLI "
+                  f"{cli_counts} (2 calls); plain searches on the path {plain_on_path}; "
+                  f"{len(passes)} pyramid levels, passes per level {per_level}; "
+                  f"{searches} searches and {syncs} host syncs per call; hole PSNR "
+                  f"{psnr} against the true texture; vs the plain path on the card "
+                  f"max |diff| {d_plain}, module vs op {d_module}, CLI vs op {d_cli} "
+                  f"(tolerance 0); known pixels unchanged: {known_same}")
+            if (op_counts[:5] != [0] * 5 or searches < 1 or module_counts != op_counts
+                    or cli_counts[:5] != [0] * 5 or cli_counts[5] != 2 * searches
+                    or plain_on_path != 0):
+                raise SystemExit("Wexler path did not run every search through the kernel")
+            if (out.shape != wex.shape or out.dtype != torch.uint8 or not out.is_cuda
+                    or d_plain or d_module or d_cli or not known_same):
+                raise SystemExit("Wexler path output wrong")
+            wex_launches += searches + module_counts[5] + cli_counts[5]
+
+    # 16. search times at 402x700: the kernel alone on padded buffers and the
+    #     wrapper (pads and decode included), queued behind a sleep kernel;
+    #     the plain version; its bound; and for context the cuBLAS f32 product
+    #     of the im2col'd candidates by the filters alone, the (ncand, T)
+    #     matrix the kernel never writes
+    wex_times = {}
+    for t in (256, 1024):
+        p117, f13, valid = search_inputs(WEXLER_SHAPE, t, False, 7000 + t, 127)
+        n_cy, n_cx = valid.shape
+        tp = round_up(t, 128)
+        p_pad = F.pad(p117, (0, kws.K_PAD - p117.shape[2]))
+        f_pad = F.pad(f13, (0, tp - t, 0, kws.K_PAD - f13.shape[1]))
+        valid_u8 = valid.to(torch.uint8)
+        keys = torch.full((tp,), -1, dtype=torch.int64, device=dev)
+        k_ms = queued_ms(lambda: kws.launch(p_pad, f_pad, valid_u8, keys, n_cy), 20)
+        w_ms = queued_ms(lambda: kws.search_min(p117, f13, valid), 20)
+        p_ms = cuda_time_ms(lambda: _search_min_math(p117, f13, valid), iters=3, warmup=1)
+        a, fm = im2col(p117, f13, valid, torch.float32)
+        gemm_ms = cuda_time_ms(lambda: a @ fm, iters=5, warmup=1)
+        del a, fm
+        ncand, depth = n_cy * n_cx, f13.shape[0] * f13.shape[1]
+        flop = 2 * ncand * t * depth
+        b_ms, b_by = bound(p117.numel() * 2 + f13.numel() * 2 + ncand + t * 8, flop,
+                           BF16_TENSOR_OPS_PER_S)
+        wex_times[t] = (k_ms, p_ms, b_ms, b_by)
+        phase(f"{wh}x{ww} search T={t}: kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s "
+              f"useful bf16), wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"by {b_by} ({flop:.4g} FLOP at {BF16_TENSOR_OPS_PER_S:.3g}/s); context: cuBLAS "
+              f"f32 product alone {gemm_ms:.4f} ms")
+
+    # 17. whole inpaint, warm: wall time (host clock, synchronized, median of
+    #     3) and, from one profiled call, the device-busy share and the search
+    #     kernel's share of that wall time
+    def device_us(prof) -> tuple[float, float]:
+        total = search = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if us is None else us
+            total += us
+            if "wexler_search_kernel" in evt.key:
+                search += us
+        return total, search
+
+    wex_walls = {}
+    for cfg, mask_np in wex_masks.items():
+        mask = torch.from_numpy(mask_np).to(dev)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vt.inpainting_wexler(wex, mask)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            vt.inpainting_wexler(wex, mask)
+            torch.cuda.synchronize()
+        n_search = read()[5]
+        busy_us, search_us = device_us(prof)
+        wex_walls[cfg] = wall
+        shares = ("not measured (the profiler recorded no device time)" if busy_us == 0 else
+                  f"device busy {busy_us / 1e6 / wall:.3f} of the wall time, the search kernel "
+                  f"{search_us / 1e6 / wall:.3f} ({search_us / 1e3:.3f} ms in {n_search} "
+                  f"launches; all kernels {busy_us / 1e3:.3f} ms, under the profiler)")
+        phase(f"Wexler {cfg} whole inpaint {wh}x{ww}, warm: wall {wall:.4f} s (runs "
+              f"{', '.join(f'{x:.4f}' for x in walls)} s); {shares}")
 
     main_label = "600x900"
     entries = [{
@@ -584,6 +836,21 @@ def main() -> int:
         "bound_by": b_by,
         "library_ms": None,
         "at": f"{h}x{w} k={k}",
+    })
+    k_ms, p_ms, b_ms, b_by = wex_times[1024]
+    entries.append({
+        "name": "wexler_search",
+        "route": "cuda",
+        "source": "various_image_processings_tpu_torch/csrc/wexler_search.cu",
+        "replaces": "various_image_processings_tpu/ops/pallas/wexler_search.py:63",
+        "launches": wex_launches,
+        "max_abs_err": s_full_worst,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "at": f"{wh}x{ww} T=1024",
     })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

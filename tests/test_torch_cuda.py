@@ -22,6 +22,9 @@ from various_image_processings_tpu_torch.ops.cuda import adaptive_bilateral as c
 from various_image_processings_tpu_torch.ops.cuda import bilateral as cuda_bf  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as cuda_btf  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import gradient as cuda_grad  # noqa: E402
+from various_image_processings_tpu_torch.models import inpainting as wexler  # noqa: E402
+from various_image_processings_tpu_torch.ops import wexler_search as search_op  # noqa: E402
+from various_image_processings_tpu_torch.ops.cuda import wexler_search as cuda_search  # noqa: E402
 from various_image_processings_tpu_torch.ops.gradient import _gradient_math  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -276,3 +279,113 @@ def test_abf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         cuda_abf.adaptive_bilateral_taps(src, taps, lut[:768].contiguous(), 2)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_abf.adaptive_bilateral(src, 301, 10.0, 30.0)
+
+
+# -- the Wexler search kernel and the inpainting path --
+
+def search_inputs(shape, t, initial, seed, max_value, device):
+    """(p117, f13, valid) of a random image with values 0..max_value, a 5×5
+    hole and t random targets; (20, 20) gets a hole pixel at (9, 9), which
+    every 13×13 window covers."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = torch.from_numpy(rng.integers(0, max_value + 1, (h, w, 3)).astype(np.float32))
+    rem = torch.zeros((h, w))
+    rem[h // 3 : h // 3 + 5, w // 3 : w // 3 + 5] = 1.0
+    rem[min(9, h - 1), min(9, w - 1)] = 1.0
+    ty = torch.from_numpy(rng.integers(0, h, t))
+    tx = torch.from_numpy(rng.integers(0, w, t))
+    img, rem, ty, tx = (x.to(device) for x in (img, rem, ty, tx))
+    f13, valid, _ = wexler._search_filters(img, rem, ty, tx, h, w, initial)
+    return wexler._build_p117(img, w), f13, valid
+
+
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("t", [1, 7, 16, 256, 1000])
+@pytest.mark.parametrize("shape", [(20, 20), (33, 41), (34, 45), (64, 200)])
+def test_wexler_search_kernel_bit_exact_to_plain(cuda, shape, t, initial):
+    """Values 0..127: every partial sum of the masked SSD is an integer below
+    2²⁴, so any summation order gives the same bits."""
+    p117, f13, valid = search_inputs(shape, t, initial, 5, 127, cuda)
+    emin, idx = cuda_search.search_min(p117, f13, valid)
+    emin_p, idx_p = search_op._search_min_math(p117, f13, valid)
+    assert torch.equal(emin, emin_p) and torch.equal(idx, idx_p)
+    if shape == (20, 20):
+        assert not valid.any() and torch.isinf(emin).all() and not idx.any()
+
+
+@pytest.mark.parametrize("shape", [(33, 41), (64, 200)])
+def test_wexler_search_kernel_full_range_within_tolerance(cuda, shape):
+    """Values 0..255: sums pass 2²⁴ and round in each order.  Energies within
+    max(4, 1e-6·S), S the f64 sum of the absolute terms; picks equal where
+    the best energy leads the second best by more than twice that."""
+    p117, f13, valid = search_inputs(shape, 256, False, 6, 255, cuda)
+    emin, idx = cuda_search.search_min(p117, f13, valid)
+    emin_p, idx_p = search_op._search_min_math(p117, f13, valid)
+    n_cy, n_cx = valid.shape
+    a = p117.double().unfold(0, 13, 1).permute(0, 1, 3, 2).reshape(n_cy * n_cx, -1)
+    e = a @ f13.double().reshape(a.shape[1], -1)
+    s = (a @ f13.double().abs().reshape(a.shape[1], -1)).gather(0, idx_p.long()[None])[0]
+    tol = torch.clamp(1e-6 * s, min=4.0)
+    assert ((emin.double() - emin_p.double()).abs() <= tol).all()
+    e = torch.where(valid.reshape(-1, 1), e, torch.inf)
+    two = torch.topk(e, 2, dim=0, largest=False).values
+    clear = (two[1] - two[0]) > 2 * tol
+    assert clear.any() and torch.equal(idx[clear], idx_p[clear])
+
+
+def test_wexler_search_auto_launches_the_kernel(cuda):
+    p117, f13, valid = search_inputs((34, 45), 16, False, 7, 127, cuda)
+    before, plain = cuda_search.launches, search_op.plain_searches
+    emin, idx = search_op.search_min(p117, f13, valid)
+    assert cuda_search.launches == before + 1 and search_op.plain_searches == plain
+    emin_p, idx_p = search_op.search_min(p117, f13, valid, impl="torch")
+    assert search_op.plain_searches == plain + 1
+    assert torch.equal(emin, emin_p) and torch.equal(idx, idx_p)
+
+
+def test_wexler_search_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    p117, f13, valid = search_inputs((34, 45), 16, False, 8, 127, cuda)
+    with pytest.raises(TypeError):
+        cuda_search.search_min(p117.float(), f13, valid)
+    with pytest.raises(TypeError):
+        cuda_search.search_min(p117, f13, valid.int())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_search.search_min(p117.cpu(), f13, valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_search.search_min(p117[:, ::2], f13, valid[:, ::2])
+    with pytest.raises(ValueError, match="shape"):
+        cuda_search.search_min(p117, f13, valid[1:].contiguous())
+    with pytest.raises(ValueError, match="channel"):
+        cuda_search.search_min(p117, f13[:, :100].contiguous(), valid)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_search.search_min(p117, f13, valid.cpu())
+    with pytest.raises(ValueError, match="no candidate"):
+        cuda_search.search_min(p117[:12].contiguous(), f13, valid[:0])
+
+
+def stripes(size_hw, lo, hi):
+    h, w = size_hw
+    row = ((np.arange(w) // 4) % 2 * (hi - lo) + lo).astype(np.uint8)
+    return np.ascontiguousarray(np.broadcast_to(row[None, :, None], (h, w, 3)))
+
+
+@pytest.mark.parametrize("case", ["stripes72", "texture128x160"])
+def test_wexler_kernel_path_equals_plain_path(cuda, case):
+    if case == "stripes72":
+        img = stripes((72, 72), 20, 120)
+        mask = np.zeros((72, 72), np.uint8)
+        mask[30:38, 30:38] = 255
+    else:
+        img = np.tile(random_image(37, 53) // 2, (4, 4, 1))[:128, :160].copy()
+        mask = np.zeros((128, 160), np.uint8)
+        mask[50:74, 60:90] = 255
+        mask[100:104, 20:140] = 255
+    src, hole = torch.from_numpy(img).to(cuda), torch.from_numpy(mask).to(cuda)
+    before, plain = cuda_search.launches, search_op.plain_searches
+    out = vt.inpainting_wexler(src, hole)
+    assert cuda_search.launches > before and search_op.plain_searches == plain
+    ref = vt.inpainting_wexler(src, hole, impl="torch")
+    assert out.is_cuda and torch.equal(out, ref)
+    known = torch.from_numpy(mask == 0).to(cuda)
+    assert torch.equal(out[known], src[known])

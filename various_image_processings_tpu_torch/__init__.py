@@ -8,7 +8,8 @@ stays the reference the port is tested against.
 
 Ported so far: the bilateral and joint bilateral filters, the gradient
 magnitude, the bilateral texture filter, the border-replicated integral
-image and the adaptive bilateral filter.
+image, the adaptive bilateral filter, the Gaussian pyramid and Wexler
+exemplar-based inpainting.
 """
 
 __version__ = "0.1.0"
@@ -19,11 +20,13 @@ from . import ops as ops
 from .models import AdaptiveBilateralFilter as AdaptiveBilateralFilter
 from .models import BilateralFilter as BilateralFilter
 from .models import BilateralTextureFilter as BilateralTextureFilter
+from .models import WexlerInpainting as WexlerInpainting
 from .ops import (
     adaptive_bilateral_filter as adaptive_bilateral_filter,
     bilateral_filter as bilateral_filter,
     bilateral_texture_filter as bilateral_texture_filter,
     gradient as gradient,
+    inpainting_wexler as inpainting_wexler,
     integral_image as integral_image,
     joint_bilateral_filter as joint_bilateral_filter,
     window_sums as window_sums,

@@ -1,5 +1,8 @@
-"""Class-style API: shape-specialized filters as ``nn.Module``s."""
+"""Class-style API: shape-specialized filters and Wexler inpainting as
+``nn.Module``s."""
 
 from .filters import AdaptiveBilateralFilter, BilateralFilter, BilateralTextureFilter
+from .inpainting import WexlerInpainting
 
-__all__ = ["AdaptiveBilateralFilter", "BilateralFilter", "BilateralTextureFilter"]
+__all__ = ["AdaptiveBilateralFilter", "BilateralFilter", "BilateralTextureFilter",
+           "WexlerInpainting"]

@@ -1,12 +1,15 @@
 """Public ops.  Each filter takes ``impl="auto" | "torch" | "cuda"``; ``"auto"``
 runs the CUDA kernel on a CUDA tensor and the plain PyTorch version on a
-CPU tensor.  The integral image is plain PyTorch on every device."""
+CPU tensor.  The integral image is plain PyTorch on every device;
+``inpainting_wexler`` takes ``impl`` for its exemplar search."""
 
 from .adaptive_bilateral import adaptive_bilateral_filter
 from .bilateral import bilateral_filter, joint_bilateral_filter
 from .bilateral_texture import bilateral_texture_filter
 from .gradient import gradient
+from .inpainting import inpainting_wexler
 from .integral_image import integral_image, window_sums
 
 __all__ = ["adaptive_bilateral_filter", "bilateral_filter", "bilateral_texture_filter",
-           "gradient", "integral_image", "joint_bilateral_filter", "window_sums"]
+           "gradient", "inpainting_wexler", "integral_image", "joint_bilateral_filter",
+           "window_sums"]

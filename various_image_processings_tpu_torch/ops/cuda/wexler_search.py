@@ -1,0 +1,99 @@
+"""Wrapper of the Hopper Wexler search kernel (csrc/wexler_search.cu).
+
+Takes the kx-packed candidate planes p117 (H, n_cx, C ≤ 128) bf16, the
+per-target filters f13 (k, C, T) bf16 and the candidate validity map
+(n_cy, n_cx) bool or u8, all contiguous on one CUDA device.  It pads the
+channels to 128 and the targets to the kernel's tile with zeros, launches on
+PyTorch's current stream into a (Tp,) buffer of packed (energy, index) keys
+that starts at all ones, and decodes the keys with a few elementwise ops.
+Anything the kernel does not take raises, and so does a launch the runtime
+refuses.  ``launches`` counts successful launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ...core.pad import round_up
+from ._build import check_launch, check_tensor, load_library, stream_of
+
+K_PAD = 128
+_MAX_GRID_YZ = 65535
+
+launches = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library()
+    lib.vip_wexler_search_target_tile.argtypes = []
+    lib.vip_wexler_search_target_tile.restype = ctypes.c_int
+    lib.vip_wexler_search.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # p, f, valid, keys
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # window, n_cy, n_cx, tp
+        ctypes.c_void_p,                                         # stream
+    ]
+    lib.vip_wexler_search.restype = ctypes.c_int
+    return lib
+
+
+def decode_keys(keys: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(emin (t,) f32, idx (t,) int32) from the kernel's (Tp,) int64 keys:
+    high word the energy's order-preserving bits, low word the flat index; an
+    untouched key (every bit set: no valid candidate) gives (+inf, 0)."""
+    keys = keys[:t]
+    untouched = keys == -1
+    hi = (keys >> 32) & 0xFFFFFFFF
+    bits = torch.where(hi >= 0x80000000, hi - 0x80000000, 0xFFFFFFFF - hi)
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    emin = torch.where(untouched, torch.inf, bits.view(torch.float32))
+    idx = torch.where(untouched, 0, keys & 0xFFFFFFFF).to(torch.int32)
+    return emin, idx
+
+
+def search_min(p117: torch.Tensor, f13: torch.Tensor,
+               valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per target: (min energy over the valid candidates, first raster flat
+    index cy·n_cx + cx reaching it); (+inf, 0) where no candidate is valid."""
+    check_tensor("p117", p117, (torch.bfloat16,), (3,))
+    check_tensor("f13", f13, (torch.bfloat16,), (3,))
+    check_tensor("valid", valid, (torch.bool, torch.uint8), (2,))
+    height, n_cx, channels = p117.shape
+    window, f_channels, t = f13.shape
+    n_cy = height - (window - 1)
+    if f13.device != p117.device or valid.device != p117.device:
+        raise ValueError("p117, f13 and valid must be on one device")
+    if f_channels != channels or channels > K_PAD:
+        raise ValueError(f"p117 and f13 must share a channel count ≤ {K_PAD}, got "
+                         f"{channels} and {f_channels}")
+    if n_cy < 1 or n_cx < 1 or t < 1:
+        raise ValueError(f"no candidate or no target: p117 {tuple(p117.shape)}, "
+                         f"f13 {tuple(f13.shape)}")
+    if tuple(valid.shape) != (n_cy, n_cx):
+        raise ValueError(f"valid must have shape {(n_cy, n_cx)}, got {tuple(valid.shape)}")
+    if -(-n_cx // 64) > _MAX_GRID_YZ or -(-n_cy // 2) > _MAX_GRID_YZ:
+        raise ValueError(f"candidate grid {(n_cy, n_cx)} exceeds the launch grid")
+    tp = round_up(t, _lib().vip_wexler_search_target_tile())
+    p = F.pad(p117, (0, K_PAD - channels))
+    f = F.pad(f13, (0, tp - t, 0, K_PAD - channels))
+    keys = torch.full((tp,), -1, dtype=torch.int64, device=p117.device)
+    launch(p, f, valid.view(torch.uint8), keys, n_cy)
+    return decode_keys(keys, t)
+
+
+def launch(p: torch.Tensor, f: torch.Tensor, valid: torch.Tensor, keys: torch.Tensor,
+           n_cy: int) -> None:
+    """The kernel alone on padded buffers (see ``search_min``): p (H, n_cx,
+    128) bf16, f (k, 128, Tp) bf16, valid (n_cy, n_cx) u8, keys (Tp,) int64."""
+    global launches
+    window, _, tp = f.shape
+    with torch.cuda.device(p.device):
+        err = _lib().vip_wexler_search(p.data_ptr(), f.data_ptr(), valid.data_ptr(),
+                                       keys.data_ptr(), window, n_cy, p.shape[1], tp,
+                                       stream_of(p))
+    check_launch(err, "wexler_search")
+    launches += 1

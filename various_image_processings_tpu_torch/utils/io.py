@@ -15,6 +15,16 @@ def imread(path: str) -> np.ndarray:
     return np.asarray(img)
 
 
+def imread_gray(path: str) -> np.ndarray:
+    """(H, W) u8, e.g. an inpainting mask."""
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    if img is None:
+        raise FileNotFoundError(path)
+    return np.asarray(img)
+
+
 def imwrite(path: str, img: np.ndarray) -> None:
     import cv2
 
