@@ -77,6 +77,7 @@ ABF_SMALL_SHAPE = (512, 512)              # BASELINE.md config 2's image size
 WEXLER_SHAPE = (402, 700)                 # mosaic_dog, BASELINE.md config 5
 SEARCH_SHAPES = ((20, 20), (33, 41), (34, 45), (64, 200), WEXLER_SHAPE)
 SEARCH_TARGETS = (1, 7, 16, 256, 1000, 1024)
+SEARCH_TIMED_TARGETS = (16, 64, 256, 1024)  # the fill's target counts at 402x700
 
 # H100 SXM peaks: HBM bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -150,14 +151,11 @@ def main() -> int:
     phase(f"device {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    import torch.nn.functional as F
-
     import various_image_processings_tpu_torch as vt
     from various_image_processings_tpu_torch.cli import adaptive_bilateral_filter as cli_abf
     from various_image_processings_tpu_torch.cli import bilateral_filter as cli_bf
     from various_image_processings_tpu_torch.cli import bilateral_texture_filter as cli_btf
     from various_image_processings_tpu_torch.cli import wexler_inpainting as cli_wex
-    from various_image_processings_tpu_torch.core.pad import round_up
     from various_image_processings_tpu_torch.core.rng import random_array, random_image
     from various_image_processings_tpu_torch.models import inpainting as wexler
     from various_image_processings_tpu_torch.ops import wexler_search as search_op
@@ -201,6 +199,11 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
         phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    phase("shared memory per block (all dynamic): bilateral " + ", ".join(
+        f"k={2 * r + 1} {'joint' if j else 'self'} {kbf._lib().vip_bilateral_smem_bytes(r, j)} B "
+        f"({kbf._lib().vip_bilateral_pixels_per_thread(r, j)} pixels a thread)"
+        for r, j in ((4, 0), (8, 1), (15, 0), (109, 0), (74, 1)))
+        + f"; wexler_search {kws._lib().vip_wexler_search_smem_bytes()} B")
 
     # 2. parity grid: kernel vs the plain version on the same CUDA tensors,
     #    and vs the plain version on the CPU
@@ -717,35 +720,39 @@ def main() -> int:
                 raise SystemExit("Wexler path output wrong")
             wex_launches += searches + module_counts[5] + cli_counts[5]
 
-    # 16. search times at 402x700: the kernel alone on padded buffers and the
-    #     wrapper (pads and decode included), queued behind a sleep kernel;
-    #     the plain version; its bound; and for context the cuBLAS f32 product
-    #     of the im2col'd candidates by the filters alone, the (ncand, T)
-    #     matrix the kernel never writes
+    # 16. search times at 402x700 for the main path's target counts: the
+    #     kernel alone on the wrapper's padded buffers and the wrapper (pads
+    #     and decode included), queued behind a sleep kernel; the plain
+    #     version; its bound (useful work: T, not the padded tile); and for
+    #     context at T = 256 and 1024 the cuBLAS f32 and bf16 products of the
+    #     im2col'd candidates by the filters alone, the (ncand, T) matrix the
+    #     kernel never writes (the port calls neither)
     wex_times = {}
-    for t in (256, 1024):
+    for t in SEARCH_TIMED_TARGETS:
         p117, f13, valid = search_inputs(WEXLER_SHAPE, t, False, 7000 + t, 127)
         n_cy, n_cx = valid.shape
-        tp = round_up(t, 128)
-        p_pad = F.pad(p117, (0, kws.K_PAD - p117.shape[2]))
-        f_pad = F.pad(f13, (0, tp - t, 0, kws.K_PAD - f13.shape[1]))
-        valid_u8 = valid.to(torch.uint8)
-        keys = torch.full((tp,), -1, dtype=torch.int64, device=dev)
+        p_pad, f_pad, valid_u8, keys, _ = kws.prepare(p117, f13, valid)
         k_ms = queued_ms(lambda: kws.launch(p_pad, f_pad, valid_u8, keys, n_cy), 20)
         w_ms = queued_ms(lambda: kws.search_min(p117, f13, valid), 20)
         p_ms = cuda_time_ms(lambda: _search_min_math(p117, f13, valid), iters=3, warmup=1)
-        a, fm = im2col(p117, f13, valid, torch.float32)
-        gemm_ms = cuda_time_ms(lambda: a @ fm, iters=5, warmup=1)
-        del a, fm
+        context = ""
+        if t >= 256:
+            gemm = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                a, fm = im2col(p117, f13, valid, dtype)
+                gemm[dtype] = cuda_time_ms(lambda: a @ fm, iters=5, warmup=1)
+                del a, fm
+            context = (f"; context: cuBLAS f32 product alone {gemm[torch.float32]:.4f} ms, "
+                       f"bf16 {gemm[torch.bfloat16]:.4f} ms")
         ncand, depth = n_cy * n_cx, f13.shape[0] * f13.shape[1]
         flop = 2 * ncand * t * depth
         b_ms, b_by = bound(p117.numel() * 2 + f13.numel() * 2 + ncand + t * 8, flop,
                            BF16_TENSOR_OPS_PER_S)
         wex_times[t] = (k_ms, p_ms, b_ms, b_by)
-        phase(f"{wh}x{ww} search T={t}: kernel {k_ms:.4f} ms ({flop / k_ms / 1e9:.1f} TFLOP/s "
-              f"useful bf16), wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"by {b_by} ({flop:.4g} FLOP at {BF16_TENSOR_OPS_PER_S:.3g}/s); context: cuBLAS "
-              f"f32 product alone {gemm_ms:.4f} ms")
+        phase(f"{wh}x{ww} search T={t} (padded to {f_pad.shape[1]}): kernel {k_ms:.4f} ms "
+              f"({flop / k_ms / 1e9:.1f} TFLOP/s useful bf16, {b_ms / k_ms:.3f} of the bound), "
+              f"wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+              f"({flop:.4g} FLOP at {BF16_TENSOR_OPS_PER_S:.3g}/s){context}")
 
     # 17. whole inpaint, warm: wall time (host clock, synchronized, median of
     #     3) and, from one profiled call, the device-busy share and the search

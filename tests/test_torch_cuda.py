@@ -15,7 +15,8 @@ import various_image_processings_tpu_torch as vt  # noqa: E402
 from various_image_processings_tpu_torch.core.rng import random_array, random_image  # noqa: E402
 from various_image_processings_tpu_torch.ops.adaptive_bilateral import (  # noqa: E402
     _abf_math, box_mean)
-from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math  # noqa: E402
+from various_image_processings_tpu_torch.ops.bilateral import (  # noqa: E402
+    _bilateral_math, _taps_math)
 from various_image_processings_tpu_torch.ops.bilateral_texture import (  # noqa: E402
     _blur_and_rtv_math, _guide_math)
 from various_image_processings_tpu_torch.ops.cuda import adaptive_bilateral as cuda_abf  # noqa: E402
@@ -88,6 +89,52 @@ def test_too_large_a_halo_tile_raises(cuda):
     src, _ = images((8, 8), cuda)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_bf.bilateral(src, None, 301, 10.0, 30.0)
+
+
+@pytest.mark.parametrize("border,rounding", [("replicate", "trunc"), ("reflect101", "rint")])
+@pytest.mark.parametrize("shape", [(45, 129), (19, 130), (64, 200), (600, 900)])
+def test_btf_shaped_joint_filter_bit_exact_to_plain(cuda, shape, border, rounding):
+    """The BTF's JBF (k′=17, σs=8, σc=√3) on widths that are not a multiple
+    of the block's 128 columns or of the 4 pixels a thread."""
+    src, guide = images(shape, cuda)
+    sigma_color = float(np.sqrt(3.0))
+    got = cuda_bf.bilateral(src, guide, 17, 8.0, sigma_color, border, rounding)
+    assert torch.equal(got, _bilateral_math(src, guide, 17, 8.0, sigma_color, border, rounding))
+
+
+def sparse_taps(radius):
+    """A few taps spread over a (2r+1)² window, corners and centre included,
+    in (ky, kx) order: the plain version stays cheap at any radius."""
+    d = 2 * radius
+    pos = sorted({(0, 0), (0, d), (radius, radius), (radius // 3, d - 1), (d, 0), (d, d)})
+    ws = np.array([1.0, 0.5, 0.25, 0.75, 0.125, 0.875][:len(pos)], np.float32)
+    table = np.zeros((len(pos), 4), np.int32)
+    table[:, :2] = pos
+    table[:, 2] = ws.view(np.int32)
+    return table
+
+
+# (joint, radius): the largest radius each side accepts (k = 219 self, 149
+# joint), and the radii on both sides of the switch from 4 pixels a thread to 1
+@pytest.mark.parametrize("joint,radius", [(False, 109), (True, 74), (False, 88), (False, 89),
+                                          (True, 55), (True, 56)])
+def test_largest_accepted_radius_is_no_smaller_than_before(cuda, joint, radius):
+    src, guide = images((23, 37), cuda)
+    _, lut = cuda_bf.device_tables(3, 10.0, 30.0, src.device)
+    table = sparse_taps(radius)
+    taps = torch.from_numpy(table).to(cuda)
+    pixels = cuda_bf._lib().vip_bilateral_pixels_per_thread(radius, int(joint))
+    assert pixels == (4 if radius <= (55 if joint else 88) else 1)
+    for border, rounding in [("replicate", "trunc"), ("reflect101", "rint")]:
+        got = cuda_bf.joint_bilateral(src, guide if joint else None, taps, lut, radius,
+                                      border, rounding)
+        want = _taps_math(src, guide if joint else src, table, lut, radius, border, rounding)
+        assert torch.equal(got, want)
+    if radius in (109, 74):
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_bf.joint_bilateral(src, guide if joint else None,
+                                    torch.from_numpy(sparse_taps(radius + 1)).to(cuda), lut,
+                                    radius + 1)
 
 
 # -- gradient, blur + mRTV and guide kernels; the bilateral texture filter --
@@ -312,6 +359,66 @@ def test_wexler_search_kernel_bit_exact_to_plain(cuda, shape, t, initial):
     assert torch.equal(emin, emin_p) and torch.equal(idx, idx_p)
     if shape == (20, 20):
         assert not valid.any() and torch.isinf(emin).all() and not idx.any()
+
+
+def search_case(img, rem, t, initial, seed, device):
+    """(p117, f13, valid) of the image ``img`` (h, w, 3) with hole ``rem``
+    and t random targets."""
+    rng = np.random.default_rng(seed)
+    h, w, _ = img.shape
+    ty = torch.from_numpy(rng.integers(0, h, t))
+    tx = torch.from_numpy(rng.integers(0, w, t))
+    img, rem, ty, tx = (torch.as_tensor(x).to(device) for x in (img, rem, ty, tx))
+    f13, valid, _ = wexler._search_filters(img.float(), rem.float(), ty, tx, h, w, initial)
+    return wexler._build_p117(img.float(), w), f13, valid
+
+
+def assert_search_bit_equal(p117, f13, valid):
+    emin, idx = cuda_search.search_min(p117, f13, valid)
+    emin_p, idx_p = search_op._search_min_math(p117, f13, valid)
+    assert torch.equal(emin, emin_p) and torch.equal(idx, idx_p)
+    return emin, idx
+
+
+@pytest.mark.parametrize("t", [1, 16, 17, 64, 129, 1024])
+@pytest.mark.parametrize("shape", [(37, 90), (34, 45), (41, 141)])
+def test_wexler_search_kernel_bit_exact_on_tile_edges(cuda, shape, t):
+    """n_cy not a multiple of the 4 candidate rows a block, n_cx not a
+    multiple of its 64 columns, T not a multiple of its 128 targets."""
+    n_cy, n_cx = shape[0] - 12, shape[1] - 12
+    assert n_cy % 4 and n_cx % 64
+    assert_search_bit_equal(*search_inputs(shape, t, False, 11, 127, cuda))
+
+
+@pytest.mark.parametrize("t", [16, 300])
+def test_wexler_search_kernel_one_valid_candidate(cuda, t):
+    """Every block but one has no valid candidate (and returns at once); that
+    one has a single valid candidate, which every target must pick."""
+    p117, f13, valid = search_inputs((61, 200), t, False, 12, 127, cuda)
+    one = torch.zeros_like(valid)
+    one[21, 137] = True
+    emin, idx = assert_search_bit_equal(p117, f13, one)
+    assert (idx == 21 * valid.shape[1] + 137).all() and torch.isfinite(emin).all()
+
+
+@pytest.mark.parametrize("period", [(2, 3), (6, 64), (1, 1)])
+def test_wexler_search_kernel_ties_go_to_the_lowest_index(cuda, period):
+    """A periodic image: windows one period apart are equal, so every energy
+    is reached by candidates in two rows of one block (period 2), in two
+    blocks along y (period 6 > 4 rows) and along x (period 64), or
+    everywhere (a flat image).  The lowest raster index must win."""
+    py, px = period
+    rng = np.random.default_rng(13)
+    cell = rng.integers(0, 128, (py, px, 3))
+    img = np.tile(cell, (-(-90 // py), -(-200 // px), 1))[:90, :200].astype(np.float32)
+    rem = np.zeros((90, 200), np.float32)
+    rem[40:46, 90:97] = 1.0
+    for initial in (False, True):
+        p117, f13, valid = search_case(img, rem, 256, initial, 14, cuda)
+        emin, idx = assert_search_bit_equal(p117, f13, valid)
+        n_cx = valid.shape[1]
+        cy, cx = idx.long() // n_cx, idx.long() % n_cx
+        assert valid[cy, cx].all()
 
 
 @pytest.mark.parametrize("shape", [(33, 41), (64, 200)])

@@ -11,12 +11,18 @@
 // covers every k, and the host side of ops/pallas/_stencil.py (tiling,
 // padding, planar relayout) becomes this kernel's own halo load.
 //
-// Per block: a (TH+2r) x (TW+2r) halo tile of the guide (and of the source,
-// for the joint filter) is read straight from the HWC u8 image into shared
-// memory, one 32-bit word per pixel (b, g, r, 0), with the border folded in
+// Per block: 8 rows of 32 x P pixels, P = 4 pixels a thread along x (32
+// apart, so a warp's shared-memory reads of one tap stay on 32 distinct
+// banks), or P = 1 for the radii whose P = 4 halo tile would not fit in
+// shared memory.  A (8 + 2r) x (32 P + 2r) halo tile of the guide is read
+// straight from the HWC u8 image into shared memory, one 32-bit word per
+// pixel (b, g, r, 0); the joint filter keeps each guide word beside the
+// source pixel's, so one 8-byte load brings both.  The border is folded in
 // the load: clamped for replicate, reflected (repeatedly, as
-// cv::borderInterpolate) for reflect-101.  So there is no separate pad pass.
-// The 768-entry f32 range LUT goes to shared memory beside it.
+// cv::borderInterpolate) for reflect-101, so there is no separate pad pass.
+// The 768-entry f32 range LUT goes to shared memory beside it, and the tap
+// table follows in chunks of 256 taps as (byte offset in the tile, ws)
+// pairs: each tap is one broadcast 8-byte shared load for P pixels.
 //
 // Per pixel, for each tap (dy, dx, ws) in the reference's (ky, kx) order:
 //   d  = sum_c |g(p+t) - g(p)|     (one __vsadu4 on the packed words)
@@ -26,7 +32,12 @@
 // Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, which
 // nvcc never contracts into FMAs) and the division is a true IEEE division
 // (__fdiv_rn): contraction and reciprocal-multiplies are what flipped u8
-// results on the JAX side (PARITY.md D1b/D1c).
+// results on the JAX side (PARITY.md D1b/D1c).  A channel byte becomes a
+// float exactly and without I2F: __byte_perm puts it under the exponent of
+// 2^23 (0x4B0000bb is 2^23 + b) and one subtraction of 2^23 leaves b.  The
+// TPU kernel's pair symmetry (one weight for the taps t and -t, added to
+// both pixels) is left out: it adds each pixel's taps in another order, and
+// f32 sums in another order are other bits.
 //
 // Why the LUT and not the TPU's exp: the TPU kernels recompute the range
 // weight as exp2(d^2 * coeff * log2e + log2 ws) because gathers serialize
@@ -35,11 +46,16 @@
 // the reference's own CUDA kernel does, and with the same f64-built table
 // and the same op order the result is bit-exact to golden/bilateral.py.
 //
-// What bounds it on the card: at 4K and k=9, 49 taps x ~20 instructions x
-// 8.29 M pixels is about 8 G thread-instructions against ~50 MB of device
-// memory traffic, so it is bound by instruction issue (ALU, byte-to-float
-// conversions, two shared-memory loads per tap), not by bandwidth.  Pair
-// symmetry, several pixels per thread and TMA halo loads are left for later.
+// What bounds it on the card: per tap and pixel about 18 instructions (a
+// tile word and a LUT gather from shared memory, __vsadu4, 3 byte
+// extractions and 3 exact subtractions, 4 products and 4 sums), against 8
+// f32 operations counted in the bound.  At 4K and k=9, 49 taps x 8.29 M
+// pixels is ~7 G thread-instructions against ~50 MB of device memory
+// traffic, so instruction issue binds, not bandwidth; the LUT gather's bank
+// conflicts do not (a flat image, where every lane reads one entry, runs no
+// faster).  The first version spent ~30 instructions a tap and pixel: a
+// 16-byte tap load per thread, an I2F per channel (a quarter-rate
+// conversion) and loop overhead for one pixel.
 
 #include <cuda_runtime.h>
 
@@ -47,10 +63,12 @@
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
-constexpr int kThreads = kTileW * kTileH;
+constexpr int kLanes = 32;
+constexpr int kRowsPerBlock = 8;
+constexpr int kThreads = kLanes * kRowsPerBlock;
 constexpr int kLutSize = 256 * 3;
+constexpr int kTapChunk = 256;           // taps staged in shared memory at a time
+constexpr long long kMaxSmem = 232448;   // dynamic shared memory one block can use (227 KB)
 
 constexpr int kBorderReplicate = 0;
 constexpr int kRoundingRint = 1;
@@ -70,8 +88,37 @@ __device__ __forceinline__ uint32_t load_pixel(const uint8_t* p) {
          (static_cast<uint32_t>(p[2]) << 16);
 }
 
-__device__ __forceinline__ float channel(uint32_t word, int c) {
-  return static_cast<float>((word >> (8 * c)) & 0xffu);
+// A halo tile word: the guide pixel, and for the joint filter the source
+// pixel after it.
+template <bool kJoint>
+struct TileWord {
+  using type = uint32_t;
+};
+template <>
+struct TileWord<true> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ uint32_t guide_of(uint32_t w) { return w; }
+__device__ __forceinline__ uint32_t source_of(uint32_t w) { return w; }
+__device__ __forceinline__ uint32_t guide_of(uint2 w) { return w.x; }
+__device__ __forceinline__ uint32_t source_of(uint2 w) { return w.y; }
+
+template <bool kJoint>
+__device__ __forceinline__ typename TileWord<kJoint>::type tile_word(const uint8_t* guide,
+                                                                     const uint8_t* src) {
+  if constexpr (kJoint) {
+    return make_uint2(load_pixel(guide), load_pixel(src));
+  } else {
+    return load_pixel(guide);
+  }
+}
+
+// Byte c of a packed pixel as an exact float: 2^23 + b, less 2^23.
+template <int kChannel>
+__device__ __forceinline__ float channel(uint32_t word) {
+  const uint32_t biased = __byte_perm(word, 0x4B000000u, 0x7540 + kChannel);
+  return __fsub_rn(__uint_as_float(biased), 8388608.0f);
 }
 
 __device__ __forceinline__ uint8_t store_u8(float sum, float sumk, int rounding) {
@@ -80,102 +127,167 @@ __device__ __forceinline__ uint8_t store_u8(float sum, float sumk, int rounding)
   return static_cast<uint8_t>(static_cast<int>(r));
 }
 
-template <bool kJoint>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr long long tile_words(int radius, int pixels) {
+  return static_cast<long long>(kLanes * pixels + 2 * radius) * (kRowsPerBlock + 2 * radius);
+}
+
+// LUT, tap chunk and the halo tile of 32-bit (self) or 64-bit (joint) words.
+long long smem_bytes(int radius, bool joint, int pixels) {
+  return kLutSize * 4LL + kTapChunk * 8LL + (joint ? 2 : 1) * tile_words(radius, pixels) * 4;
+}
+
+int pixels_per_thread(int radius, bool joint) {
+  return smem_bytes(radius, joint, 4) <= kMaxSmem ? 4 : 1;
+}
+
+template <bool kJoint, int kPix>
+__global__ void __launch_bounds__(kThreads, 4)
 bilateral_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ guide,
                  uint8_t* __restrict__ out, int height, int width,
                  const int4* __restrict__ taps, int n_taps,
                  const float* __restrict__ lut, int radius, int border, int rounding) {
+  using Word = typename TileWord<kJoint>::type;
+  constexpr int kTileW = kLanes * kPix;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_lut = reinterpret_cast<float*>(smem);
-  uint32_t* s_guide = reinterpret_cast<uint32_t*>(s_lut + kLutSize);
+  int2* s_taps = reinterpret_cast<int2*>(s_lut + kLutSize);
+  Word* s_tile = reinterpret_cast<Word*>(s_taps + kTapChunk);
   const int tile_w = kTileW + 2 * radius;
-  const int tile_n = tile_w * (kTileH + 2 * radius);
-  uint32_t* s_src = kJoint ? s_guide + tile_n : s_guide;
+  const int tile_h = kRowsPerBlock + 2 * radius;
 
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  // taps t0 .. t0 + n - 1 as (byte offset in the tile, bits of ws)
+  auto stage_taps = [&](int t0, int n) {
+    for (int i = tid; i < n; i += kThreads) {
+      const int4 tap = __ldg(taps + t0 + i);  // (dy, dx, bits of ws, 0)
+      s_taps[i] = make_int2((tap.x * tile_w + tap.y) * static_cast<int>(sizeof(Word)), tap.z);
+    }
+  };
   for (int i = tid; i < kLutSize; i += kThreads) s_lut[i] = lut[i];
+  stage_taps(0, min(kTapChunk, n_taps));
 
   const int x0 = blockIdx.x * kTileW - radius;
-  const int y0 = blockIdx.y * kTileH - radius;
-  for (int i = tid; i < tile_n; i += kThreads) {
-    const int ly = i / tile_w;
-    const int lx = i - ly * tile_w;
-    const size_t p = (static_cast<size_t>(fold(y0 + ly, height, border)) * width +
-                      fold(x0 + lx, width, border)) * 3;
-    s_guide[i] = load_pixel(guide + p);
-    if (kJoint) s_src[i] = load_pixel(src + p);
+  const int y0 = blockIdx.y * kRowsPerBlock - radius;
+  for (int ly = threadIdx.y; ly < tile_h; ly += kRowsPerBlock) {
+    const size_t row = static_cast<size_t>(fold(y0 + ly, height, border)) * width;
+    for (int lx = threadIdx.x; lx < tile_w; lx += kLanes) {
+      const size_t p = (row + fold(x0 + lx, width, border)) * 3;
+      s_tile[ly * tile_w + lx] = tile_word<kJoint>(guide + p, src + p);
+    }
   }
   __syncthreads();
 
-  const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y = blockIdx.y * kTileH + threadIdx.y;
-  if (x >= width || y >= height) return;
-
+  // pixel k of this thread is column threadIdx.x + 32 k of the block
   const int base = threadIdx.y * tile_w + threadIdx.x;
-  const uint32_t center = s_guide[base + radius * tile_w + radius];
-  float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f, sumk = 0.0f;
-  for (int t = 0; t < n_taps; ++t) {
-    const int4 tap = __ldg(taps + t);  // (dy, dx, bits of ws, 0), same for every thread
-    const int off = base + tap.x * tile_w + tap.y;
-    const uint32_t g = s_guide[off];
-    const float wk = __fmul_rn(__int_as_float(tap.z), s_lut[__vsadu4(g, center)]);
-    const uint32_t s = kJoint ? s_src[off] : g;
-    sum0 = __fadd_rn(sum0, __fmul_rn(channel(s, 0), wk));
-    sum1 = __fadd_rn(sum1, __fmul_rn(channel(s, 1), wk));
-    sum2 = __fadd_rn(sum2, __fmul_rn(channel(s, 2), wk));
-    sumk = __fadd_rn(sumk, wk);
+  uint32_t center[kPix];
+  float sum0[kPix], sum1[kPix], sum2[kPix], sumk[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    center[k] = guide_of(s_tile[base + radius * tile_w + radius + kLanes * k]);
+    sum0[k] = sum1[k] = sum2[k] = sumk[k] = 0.0f;
   }
-  uint8_t* o = out + (static_cast<size_t>(y) * width + x) * 3;
-  o[0] = store_u8(sum0, sumk, rounding);
-  o[1] = store_u8(sum1, sumk, rounding);
-  o[2] = store_u8(sum2, sumk, rounding);
+  for (int t0 = 0;;) {
+    const int n = min(kTapChunk, n_taps - t0);
+#pragma unroll 2
+    for (int t = 0; t < n; ++t) {
+      const int2 tap = s_taps[t];  // the same for every thread: a broadcast
+      const float ws = __int_as_float(tap.y);
+      const Word* at = reinterpret_cast<const Word*>(
+          reinterpret_cast<const unsigned char*>(s_tile + base) + tap.x);
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const Word word = at[kLanes * k];
+        const float wk = __fmul_rn(ws, s_lut[__vsadu4(guide_of(word), center[k])]);
+        const uint32_t sw = source_of(word);
+        sum0[k] = __fadd_rn(sum0[k], __fmul_rn(channel<0>(sw), wk));
+        sum1[k] = __fadd_rn(sum1[k], __fmul_rn(channel<1>(sw), wk));
+        sum2[k] = __fadd_rn(sum2[k], __fmul_rn(channel<2>(sw), wk));
+        sumk[k] = __fadd_rn(sumk[k], wk);
+      }
+    }
+    t0 += kTapChunk;
+    if (t0 >= n_taps) break;
+    __syncthreads();  // every thread is done with this chunk
+    stage_taps(t0, min(kTapChunk, n_taps - t0));
+    __syncthreads();
+  }
+
+  const int y = blockIdx.y * kRowsPerBlock + threadIdx.y;
+  if (y >= height) return;
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const int x = blockIdx.x * kTileW + threadIdx.x + kLanes * k;
+    if (x >= width) continue;
+    uint8_t* o = out + (static_cast<size_t>(y) * width + x) * 3;
+    o[0] = store_u8(sum0[k], sumk[k], rounding);
+    o[1] = store_u8(sum1[k], sumk[k], rounding);
+    o[2] = store_u8(sum2[k], sumk[k], rounding);
+  }
 }
 
-template <bool kJoint>
+template <bool kJoint, int kPix>
 int launch(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
            const int4* taps, int n_taps, const float* lut, int radius, int border,
-           int rounding, long long smem, cudaStream_t stream) {
+           int rounding, cudaStream_t stream) {
+  const long long smem = smem_bytes(radius, kJoint, kPix);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bilateral_kernel<kJoint>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bilateral_kernel<kJoint, kPix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
-  bilateral_kernel<kJoint><<<grid, block, static_cast<size_t>(smem), stream>>>(
+  const int tile_w = kLanes * kPix;
+  const dim3 block(kLanes, kRowsPerBlock);
+  const dim3 grid((width + tile_w - 1) / tile_w, (height + kRowsPerBlock - 1) / kRowsPerBlock);
+  bilateral_kernel<kJoint, kPix><<<grid, block, static_cast<size_t>(smem), stream>>>(
       src, guide, out, height, width, taps, n_taps, lut, radius, border, rounding);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kJoint>
+int launch_any(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
+               const int4* taps, int n_taps, const float* lut, int radius, int border,
+               int rounding, cudaStream_t stream) {
+  if (pixels_per_thread(radius, kJoint) == 4) {
+    return launch<kJoint, 4>(src, guide, out, height, width, taps, n_taps, lut, radius, border,
+                             rounding, stream);
+  }
+  return launch<kJoint, 1>(src, guide, out, height, width, taps, n_taps, lut, radius, border,
+                           rounding, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block: the LUT and one (self) or two (joint)
-// halo tiles of 32-bit pixels.
+// Dynamic shared memory of one block at this radius (the wrapper refuses a
+// radius whose tile does not fit).
 long long vip_bilateral_smem_bytes(int radius, int joint) {
-  const long long tile = static_cast<long long>(kTileW + 2 * radius) * (kTileH + 2 * radius);
-  return kLutSize * 4LL + (joint ? 2 : 1) * tile * 4;
+  return smem_bytes(radius, joint != 0, pixels_per_thread(radius, joint != 0));
 }
 
-// guide == nullptr: the self filter.  taps: n_taps int4 (dy, dx, f32 bits of
-// ws, 0) in (ky, kx) order, dy/dx in [0, 2*radius].  lut: 768 f32.
+// Pixels each thread computes at this radius: 4, or 1 where a 4-pixel halo
+// tile would not fit in shared memory.
+int vip_bilateral_pixels_per_thread(int radius, int joint) {
+  return pixels_per_thread(radius, joint != 0);
+}
+
+// guide == nullptr: the self filter.  taps: n_taps >= 1 int4 (dy, dx, f32
+// bits of ws, 0) in (ky, kx) order, dy/dx in [0, 2*radius].  lut: 768 f32.
 // Returns the launch's cudaError_t (0 on success).
 int vip_bilateral_u8(const void* src, const void* guide, void* out, int height, int width,
                      const void* taps, int n_taps, const void* lut, int radius, int border,
-                     int rounding, long long smem, void* stream) {
+                     int rounding, void* stream) {
   const auto* s = static_cast<const uint8_t*>(src);
   const auto* t = static_cast<const int4*>(taps);
   const auto* l = static_cast<const float*>(lut);
   auto* o = static_cast<uint8_t*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   if (guide == nullptr) {
-    return launch<false>(s, s, o, height, width, t, n_taps, l, radius, border, rounding, smem, st);
+    return launch_any<false>(s, s, o, height, width, t, n_taps, l, radius, border, rounding, st);
   }
-  return launch<true>(s, static_cast<const uint8_t*>(guide), o, height, width, t, n_taps, l,
-                      radius, border, rounding, smem, st);
+  return launch_any<true>(s, static_cast<const uint8_t*>(guide), o, height, width, t, n_taps, l,
+                          radius, border, rounding, st);
 }
 
 const char* vip_cuda_error_string(int err) {

@@ -29,12 +29,14 @@ def _lib() -> ctypes.CDLL:
     lib = load_library()
     lib.vip_bilateral_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.vip_bilateral_smem_bytes.restype = ctypes.c_longlong
+    lib.vip_bilateral_pixels_per_thread.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.vip_bilateral_pixels_per_thread.restype = ctypes.c_int
     lib.vip_bilateral_u8.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # src, guide, out
         ctypes.c_int, ctypes.c_int,                          # height, width
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,      # taps, n_taps, lut
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # radius, border, rounding
-        ctypes.c_longlong, ctypes.c_void_p,                  # smem bytes, stream
+        ctypes.c_void_p,                                     # stream
     ]
     lib.vip_bilateral_u8.restype = ctypes.c_int
     return lib
@@ -65,7 +67,7 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
         err = _lib().vip_bilateral_u8(
             src.data_ptr(), None if guide is None else guide.data_ptr(), out.data_ptr(),
             height, width, taps.data_ptr(), taps.shape[0], lut.data_ptr(),
-            radius, BORDERS[border], ROUNDINGS[rounding], smem, stream_of(src))
+            radius, BORDERS[border], ROUNDINGS[rounding], stream_of(src))
     check_launch(err, "bilateral")
     launches += 1
     return out

@@ -2,12 +2,14 @@
 
 Takes the kx-packed candidate planes p117 (H, n_cx, C ≤ 128) bf16, the
 per-target filters f13 (k, C, T) bf16 and the candidate validity map
-(n_cy, n_cx) bool or u8, all contiguous on one CUDA device.  It pads the
-channels to 128 and the targets to the kernel's tile with zeros, launches on
-PyTorch's current stream into a (Tp,) buffer of packed (energy, index) keys
-that starts at all ones, and decodes the keys with a few elementwise ops.
-Anything the kernel does not take raises, and so does a launch the runtime
-refuses.  ``launches`` counts successful launches.
+(n_cy, n_cx) bool or u8, all contiguous on one CUDA device.  ``prepare``
+pads the channels to 128 and the targets to the kernel's tile with zeros and
+stores the filters target-major, (k, Tp, 128), so that the kernel's TMA
+loads both operands K-major; ``launch`` runs the kernel on PyTorch's current
+stream into a (Tp,) buffer of packed (energy, index) keys that starts at all
+ones; ``decode_keys`` turns the keys into energies and indices with a few
+elementwise ops.  Anything the kernel does not take raises, and so does a
+launch the runtime refuses.  ``launches`` counts successful launches.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ launches = 0
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library()
-    lib.vip_wexler_search_target_tile.argtypes = []
-    lib.vip_wexler_search_target_tile.restype = ctypes.c_int
+    for name in ("vip_wexler_search_target_tile", "vip_wexler_search_row_tile",
+                 "vip_wexler_search_smem_bytes"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.vip_wexler_search.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # p, f, valid, keys
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # window, n_cy, n_cx, tp
@@ -55,10 +59,10 @@ def decode_keys(keys: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]
     return emin, idx
 
 
-def search_min(p117: torch.Tensor, f13: torch.Tensor,
-               valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per target: (min energy over the valid candidates, first raster flat
-    index cy·n_cx + cx reaching it); (+inf, 0) where no candidate is valid."""
+def prepare(p117: torch.Tensor, f13: torch.Tensor, valid: torch.Tensor):
+    """Checked, padded buffers for ``launch``: (p (H, n_cx, 128), f (k, Tp,
+    128) target-major, valid (n_cy, n_cx) u8, keys (Tp,) int64 all ones,
+    n_cy)."""
     check_tensor("p117", p117, (torch.bfloat16,), (3,))
     check_tensor("f13", f13, (torch.bfloat16,), (3,))
     check_tensor("valid", valid, (torch.bool, torch.uint8), (2,))
@@ -75,22 +79,33 @@ def search_min(p117: torch.Tensor, f13: torch.Tensor,
                          f"f13 {tuple(f13.shape)}")
     if tuple(valid.shape) != (n_cy, n_cx):
         raise ValueError(f"valid must have shape {(n_cy, n_cx)}, got {tuple(valid.shape)}")
-    if -(-n_cx // 64) > _MAX_GRID_YZ or -(-n_cy // 2) > _MAX_GRID_YZ:
+    if (-(-n_cx // 64) > _MAX_GRID_YZ
+            or -(-n_cy // _lib().vip_wexler_search_row_tile()) > _MAX_GRID_YZ):
         raise ValueError(f"candidate grid {(n_cy, n_cx)} exceeds the launch grid")
     tp = round_up(t, _lib().vip_wexler_search_target_tile())
-    p = F.pad(p117, (0, K_PAD - channels))
-    f = F.pad(f13, (0, tp - t, 0, K_PAD - channels))
+    p = F.pad(p117, (0, K_PAD - channels)).contiguous()
+    f = F.pad(f13.transpose(1, 2), (0, K_PAD - channels, 0, tp - t)).contiguous()
     keys = torch.full((tp,), -1, dtype=torch.int64, device=p117.device)
-    launch(p, f, valid.view(torch.uint8), keys, n_cy)
-    return decode_keys(keys, t)
+    return p, f, valid.view(torch.uint8), keys, n_cy
+
+
+def search_min(p117: torch.Tensor, f13: torch.Tensor,
+               valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per target: (min energy over the valid candidates, first raster flat
+    index cy·n_cx + cx reaching it); (+inf, 0) where no candidate is valid."""
+    p, f, valid_u8, keys, n_cy = prepare(p117, f13, valid)
+    launch(p, f, valid_u8, keys, n_cy)
+    return decode_keys(keys, f13.shape[2])
 
 
 def launch(p: torch.Tensor, f: torch.Tensor, valid: torch.Tensor, keys: torch.Tensor,
            n_cy: int) -> None:
-    """The kernel alone on padded buffers (see ``search_min``): p (H, n_cx,
-    128) bf16, f (k, 128, Tp) bf16, valid (n_cy, n_cx) u8, keys (Tp,) int64."""
+    """The kernel alone on the buffers of ``prepare``: p (H, n_cx, 128) bf16,
+    f (k, Tp, 128) bf16, valid (n_cy, n_cx) u8, keys (Tp,) int64."""
     global launches
-    window, _, tp = f.shape
+    window, tp, _ = f.shape
+    if p.data_ptr() % 16 or f.data_ptr() % 16:
+        raise ValueError("p and f must be 16-byte aligned (the kernel's TMA loads need it)")
     with torch.cuda.device(p.device):
         err = _lib().vip_wexler_search(p.data_ptr(), f.data_ptr(), valid.data_ptr(),
                                        keys.data_ptr(), window, n_cy, p.shape[1], tp,
