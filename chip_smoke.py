@@ -31,6 +31,13 @@ each kernel.  Then, for each path the port has:
   the card, and times the search kernel, its plain version, its bound and
   the whole inpaint.
 
+Then it holds every kernel against its plain version past the radii whose
+halo tile fits one block (the tiles go through shared memory in bands),
+runs a k=77 bilateral texture filter on the card against the plain path,
+and fills a full-range (0..255) textured 402x700 image through the search
+kernel and through the plain path, holding the kernel path's hole PSNR to
+the plain path's less 2 dB.
+
 Every phase prints a line; any failure exits non-zero.  On success the line
 before the last is ``{"kernels": [...]}`` and the last is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
@@ -78,6 +85,29 @@ WEXLER_SHAPE = (402, 700)                 # mosaic_dog, BASELINE.md config 5
 SEARCH_SHAPES = ((20, 20), (33, 41), (34, 45), (64, 200), WEXLER_SHAPE)
 SEARCH_TARGETS = (1, 7, 16, 256, 1000, 1024)
 SEARCH_TIMED_TARGETS = (16, 64, 256, 1024)  # the fill's target counts at 402x700
+# the first k past each kernel's one-tile limit (BF self 219, JBF 149, ABF
+# 177, blur + mRTV 119, guide 221), and 301
+LARGE_BF_RADII = ((False, 110), (False, 150), (True, 75), (True, 150))
+LARGE_ABF_RADII = (89, 150)
+LARGE_STAGE_KSIZES = (121, 223, 301)
+LARGE_SHAPE = (23, 37)
+BTF_LARGE_KSIZE = 77                      # its JBF runs at k' = 153, past 149
+# the parent's times, for the lines that print beside them (PERF.md sections
+# 5-6: chip_smoke.py runs of the parent, NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_MS = {
+    "bilateral 4K k=9": "0.3002-0.3024",
+    "JBF 600x900 k=17": "0.0935-0.0941",
+    ("600x900", "gradient"): "0.0057-0.0060",
+    ("600x900", "blur_rtv"): "0.0391-0.0393",
+    ("600x900", "guide"): "0.0241-0.0243",
+    ("600x900", "bilateral"): "0.0935-0.0941",
+    ("4K", "gradient"): "0.0577-0.0580",
+    ("4K", "blur_rtv"): "0.5204-0.5207",
+    ("4K", "guide"): "0.3093-0.3096",
+    ("4K", "bilateral"): "1.0954-1.0956",
+    ("ABF", "4K"): "0.6118-0.6162",
+    ("ABF", "512x512"): "0.0251",
+}
 
 # H100 SXM peaks: HBM bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -134,6 +164,33 @@ def ptxas_summary(report: str) -> dict:
         if m and name:
             out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
     return out
+
+
+def sass_loops(lib: str, name_part: str) -> list[tuple[str, int, Counter]]:
+    """(kernel, instructions, opcode counts) of every loop (a backward
+    branch) of at least 16 instructions in the kernels whose mangled name
+    holds ``name_part``, from ``cuobjdump -sass``; [] without cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return []
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    loops = []
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if name_part not in name:
+            continue
+        code = [(int(a, 16), t.strip())
+                for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        for addr, text in code:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [t for a, t in code if int(m.group(1), 16) <= a <= addr]
+            if len(body) >= 16:
+                ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body)
+                loops.append((name, len(body), ops))
+    return loops
 
 
 def main() -> int:
@@ -199,11 +256,33 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
         phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    phase("shared memory per block (all dynamic): bilateral " + ", ".join(
-        f"k={2 * r + 1} {'joint' if j else 'self'} {kbf._lib().vip_bilateral_smem_bytes(r, j)} B "
-        f"({kbf._lib().vip_bilateral_pixels_per_thread(r, j)} pixels a thread)"
-        for r, j in ((4, 0), (8, 1), (15, 0), (109, 0), (74, 1)))
-        + f"; wexler_search {kws._lib().vip_wexler_search_smem_bytes()} B")
+    for part, what in (("bilateral_kernelILb0ELi4E", "bilateral self, 4 pixels a thread"),
+                       ("adaptive_bilateral_kernel", "adaptive bilateral"),
+                       ("blur_rtv_kernelILi9ELb0E", "blur + mRTV, k=9")):
+        for name, n, ops in sass_loops(str(_build.library_path()), part):
+            top = ", ".join(f"{op} {c}" for op, c in ops.most_common(12))
+            phase(f"SASS loop of {what} ({name}): {n} instructions: {top}")
+    lb = kbf._lib()
+    phase("shared memory per block (all dynamic), as (bytes, tap rows x tap columns a band): "
+          "bilateral " + ", ".join(
+              f"k={2 * r + 1} {'joint' if j else 'self'} {lb.vip_bilateral_smem_bytes(r, j)} B "
+              f"{lb.vip_bilateral_pixels_per_thread(r, j)} px/thread "
+              f"{lb.vip_bilateral_band(r, j, 0)}x{lb.vip_bilateral_band(r, j, 1)}"
+              for r, j in ((4, 0), (8, 1), (15, 0), (109, 0), (110, 0), (74, 1), (75, 1),
+                           (150, 1)))
+          + "; adaptive bilateral " + ", ".join(
+              f"k={2 * r + 1} {kab._lib().vip_adaptive_bilateral_smem_bytes(r)} B "
+              f"{kab._lib().vip_adaptive_bilateral_band(r, 0)}x"
+              f"{kab._lib().vip_adaptive_bilateral_band(r, 1)}" for r in (4, 88, 89, 150))
+          + "; blur + mRTV " + ", ".join(
+              f"k={2 * r + 1} {kbt._lib().vip_blur_rtv_smem_bytes(r)} B "
+              f"{kbt._lib().vip_blur_rtv_band(r, 0)}x{kbt._lib().vip_blur_rtv_band(r, 1)}"
+              for r in (4, 59, 60, 150))
+          + "; guide " + ", ".join(
+              f"k={2 * r + 1} {kbt._lib().vip_guide_smem_bytes(r)} B "
+              f"{kbt._lib().vip_guide_band(r, 0)}x{kbt._lib().vip_guide_band(r, 1)}"
+              for r in (4, 110, 111, 150))
+          + f"; wexler_search {kws._lib().vip_wexler_search_smem_bytes()} B")
 
     # 2. parity grid: kernel vs the plain version on the same CUDA tensors,
     #    and vs the plain version on the CPU
@@ -276,7 +355,8 @@ def main() -> int:
     op_ms = cuda_time_ms(lambda: vt.bilateral_filter(img, k, ss, sc), iters=50)
     plain_ms = cuda_time_ms(lambda: _bilateral_math(img, img, k, ss, sc), iters=10)
     mp = h * w / 1e6
-    phase(f"4K k=9 bilateral: kernel {ms:.4f} ms ({mp / ms * 1e3:.1f} MP/s), "
+    phase(f"4K k=9 bilateral: kernel {ms:.4f} ms ({mp / ms * 1e3:.1f} MP/s; parent "
+          f"{PARENT_MS['bilateral 4K k=9']} ms), "
           f"op {op_ms:.4f} ms ({mp / op_ms * 1e3:.1f} MP/s), "
           f"plain {plain_ms:.4f} ms ({mp / plain_ms * 1e3:.1f} MP/s)")
     n_taps = int(taps.shape[0])
@@ -299,7 +379,8 @@ def main() -> int:
     jbf_plain_ms = cuda_time_ms(lambda: _bilateral_math(src, guide, bk, bss, bsc,
                                                         "reflect101", "rint"), iters=10)
     phase(f"BTF-shaped JBF {bh}x{bw} k={bk}: max |diff| {d_btf} (tolerance 0), "
-          f"kernel {jbf_ms:.4f} ms, plain {jbf_plain_ms:.4f} ms")
+          f"kernel {jbf_ms:.4f} ms (parent {PARENT_MS['JBF 600x900 k=17']} ms), plain "
+          f"{jbf_plain_ms:.4f} ms")
 
     # 6. gradient grid: u8 and f32, 1 and 3 channels; kernel vs plain on the
     #    card and vs plain on the CPU
@@ -447,8 +528,8 @@ def main() -> int:
             k_ms = queued_ms(kernel, 50 if label == "600x900" else 20)
             p_ms = cuda_time_ms(plain_fn, iters=3, warmup=1)
             times[(label, name)] = (k_ms, p_ms, b_ms, b_by)
-            phase(f"{label} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms by {b_by}")
+            phase(f"{label} {name}: kernel {k_ms:.4f} ms (parent {PARENT_MS[(label, name)]} "
+                  f"ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
         op = lambda: vt.bilateral_texture_filter(x, BTF_KSIZE, BTF_NITR)  # noqa: E731
         dev_ms = queued_ms(op, 20 if label == "600x900" else 5)
         op_ms = cuda_time_ms(op, iters=10, warmup=2)
@@ -562,12 +643,11 @@ def main() -> int:
     # 13. ABF times: the kernel queued behind a sleep kernel, the op with CUDA
     #     events, the plain version; at 4K and 512x512
     abf_times = {}
-    abf_taps, abf_lut = kab.device_tables(k, ss, sc, dev)
-    abf_n_taps = int(abf_taps.shape[0])
+    abf_n_taps = int(kab.device_tables(k, ss, sc, dev)[0].shape[0])
     for label, x_np in (("4K", img_np), ("512x512", random_image(*ABF_SMALL_SHAPE))):
         x = torch.from_numpy(x_np).to(dev)
         px = x.shape[0] * x.shape[1]
-        k_ms = queued_ms(lambda: kab.adaptive_bilateral_taps(x, abf_taps, abf_lut, k // 2),
+        k_ms = queued_ms(lambda: kab.adaptive_bilateral(x, k, ss, sc),
                          20 if label == "4K" else 100)
         o_ms = cuda_time_ms(lambda: vt.adaptive_bilateral_filter(x, k, ss, sc), iters=20)
         p_ms = cuda_time_ms(lambda: _abf_math(x, k, ss, sc), iters=3, warmup=1)
@@ -576,9 +656,17 @@ def main() -> int:
         # for the offset, 3 divisions, 3 adds, 3 floors and a compare to store
         b_ms, b_by = bound(2 * px * 3, px * (19 * abf_n_taps + 6 * k + 10))
         abf_times[label] = (k_ms, p_ms, b_ms, b_by)
-        phase(f"{label} ABF k={k}: kernel {k_ms:.4f} ms ({px / k_ms / 1e3:.1f} MP/s), op "
+        phase(f"{label} ABF k={k}: kernel {k_ms:.4f} ms ({px / k_ms / 1e3:.1f} MP/s; parent "
+              f"{PARENT_MS[('ABF', label)]} ms), op "
               f"{o_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
               f"({abf_n_taps} taps)")
+
+    regs = ptxas_summary(_build.ptxas_report())
+    for part in ("adaptive_bilateral_kernel", "blur_rtv_kernelILi9ELb0E"):
+        for name, (r, st, ld) in regs.items():
+            if part in name:
+                phase(f"redesigned kernel {name}: {r} registers, spill stores {st} B, spill "
+                      f"loads {ld} B (ptxas)")
 
     # 14. Wexler search grid: kernel vs plain on the same CUDA tensors.  With
     #     image values 0..127 every partial sum of the masked SSD is an integer
@@ -794,6 +882,105 @@ def main() -> int:
                   f"launches; all kernels {busy_us / 1e3:.3f} ms, under the profiler)")
         phase(f"Wexler {cfg} whole inpaint {wh}x{ww}, warm: wall {wall:.4f} s (runs "
               f"{', '.join(f'{x:.4f}' for x in walls)} s); {shares}")
+
+    # 18. past the one-tile limits: each kernel against its plain version at
+    #     the first k whose halo tile does not fit one block and at 301 (the
+    #     tiles go in bands), on a small image; sparse tap tables with taps
+    #     on both sides of a band edge keep the plain versions cheap
+    def band_taps(radius, rows):
+        d = 2 * radius
+        ys = sorted(y for y in {0, radius, d, rows - 1, rows, 2 * rows} if y <= d)
+        pos = [(y, x) for y in ys for x in (0, radius, d)]
+        table = np.zeros((len(pos), 4), np.int32)
+        table[:, :2] = pos
+        table[:, 2] = (0.125 + np.arange(len(pos)) / len(pos)).astype(np.float32).view(np.int32)
+        return table
+
+    from various_image_processings_tpu_torch.core.luts import color_table
+    from various_image_processings_tpu_torch.ops.adaptive_bilateral import _abf_taps_math
+    from various_image_processings_tpu_torch.ops.bilateral import _taps_math
+    lx_np = random_image(*LARGE_SHAPE)
+    lx, lg = torch.from_numpy(lx_np).to(dev), torch.from_numpy(lx_np[::-1].copy()).to(dev)
+    large, large_worst = [], 0
+    _, bf_lut = kbf.device_tables(3, 10.0, 30.0, dev)
+    for joint, r in LARGE_BF_RADII:
+        table = band_taps(r, kbf._lib().vip_bilateral_band(r, int(joint), 0))
+        d = 0
+        for border, rounding in GRID_MODES:
+            got = kbf.joint_bilateral(lx, lg if joint else None, torch.from_numpy(table).to(dev),
+                                      bf_lut, r, border, rounding)
+            d = max(d, max_diff(got, _taps_math(lx, lg if joint else lx, table, bf_lut, r,
+                                                border, rounding)))
+        large_worst = max(large_worst, d)
+        large.append(f"bilateral {'joint' if joint else 'self'} k={2 * r + 1} "
+                     f"({kbf._lib().vip_bilateral_band(r, int(joint), 0)} tap rows a band) {d}")
+    abf_lut = torch.from_numpy(color_table(sc, 1536)).to(dev)
+    for r in LARGE_ABF_RADII:
+        table = band_taps(r, kab._lib().vip_adaptive_bilateral_band(r, 0))
+        got = kab.adaptive_bilateral_taps(lx, torch.from_numpy(table).to(dev), abf_lut, r)
+        d = max_diff(got, _abf_taps_math(lx, table, abf_lut, r))
+        large_worst = max(large_worst, d)
+        large.append(f"adaptive_bilateral k={2 * r + 1} "
+                     f"({kab._lib().vip_adaptive_bilateral_band(r, 0)} tap rows a band) {d}")
+    lmag = _gradient_math(lx.float())
+    for sk in LARGE_STAGE_KSIZES:
+        blurred, rtv = kbt.blur_and_rtv(lx, lmag, sk)
+        bp, rp = obt._blur_and_rtv_math(lx.float(), lmag, sk)
+        ds = max(max_abs(blurred, bp), max_abs(rtv, rp))
+        dg = max_diff(kbt.guide(blurred, rtv, sk), obt._guide_math(bp, rp, sk))
+        large_worst = max(large_worst, ds, dg)
+        large.append(f"blur_rtv k={sk} ({kbt._lib().vip_blur_rtv_band(sk // 2, 0)} tap rows a "
+                     f"band) {ds}, guide k={sk} ({kbt._lib().vip_guide_band(sk // 2, 0)}) {dg}")
+    bk_in = torch.from_numpy(random_image(20, 30)).to(dev)
+    out_auto = vt.bilateral_texture_filter(bk_in, BTF_LARGE_KSIZE, 1)
+    d_btf77 = max_diff(out_auto, vt.bilateral_texture_filter(bk_in, BTF_LARGE_KSIZE, 1,
+                                                             impl="torch"))
+    large_worst = max(large_worst, d_btf77)
+    torch.cuda.synchronize()
+    phase(f"past the one-tile limits, {LARGE_SHAPE[0]}x{LARGE_SHAPE[1]} image, kernel vs plain "
+          f"max |diff| (tolerance 0): {'; '.join(large)}; BTF k={BTF_LARGE_KSIZE} nitr=1 "
+          f"(JBF k'={2 * BTF_LARGE_KSIZE - 1}) impl=auto vs impl=torch {d_btf77}")
+    if large_worst:
+        raise SystemExit("a kernel differs from its plain version past its one-tile limit")
+
+    # 19. full-range fills: the 5a hole in images with values 0..255, where
+    #     the search's sums pass 2^24 and round in the kernel's order: a tile
+    #     of random_image(37, 53) (the true content repeats elsewhere) and a
+    #     smooth field (a bicubic upsampling of random_image(26, 44): no
+    #     exact repeat, so near-ties decide).  The kernel path's hole PSNR
+    #     against the true image must be no more than 2 dB below the plain
+    #     path's (PARITY.md's window for the JAX fill against the reference)
+    coarse = torch.from_numpy(random_image(26, 44)).to(dev).permute(2, 0, 1)[None].float()
+    smooth = torch.nn.functional.interpolate(coarse, size=(wh, ww), mode="bicubic",
+                                             align_corners=False)
+    fills = {
+        "tiled texture": torch.from_numpy(np.tile(random_image(37, 53), (
+            -(-wh // 37), -(-ww // 53), 1))[:wh, :ww].copy()).to(dev),
+        "smooth field": smooth.round().clamp(0, 255)[0].permute(1, 2, 0).to(torch.uint8)
+                              .contiguous(),
+    }
+    mask_5a = torch.from_numpy(wex_masks["5a"]).to(dev)
+    hole = mask_5a > 0
+    for label, full in fills.items():
+        reset()
+        full_out = vt.inpainting_wexler(full, mask_5a)
+        full_counts = read()
+        full_plain = vt.inpainting_wexler(full, mask_5a, impl="torch")
+
+        def hole_psnr(x) -> float:
+            mse = float(((x.double() - full.double())[hole] ** 2).mean())
+            return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+        psnr_k, psnr_p = hole_psnr(full_out), hole_psnr(full_plain)
+        changed = int((full_out != full_plain).any(dim=2).sum().item())
+        phase(f"full-range fill 5a {wh}x{ww}, {label} (values 0..255): {full_counts[5]} "
+              f"searches through the kernel; hole PSNR kernel path {psnr_k:.2f} dB, plain path "
+              f"{psnr_p:.2f} dB (must be >= plain - 2 dB); pixels that differ between the "
+              f"paths {changed}; known pixels unchanged: "
+              f"{torch.equal(full_out[~hole], full[~hole])}")
+        if (full_counts[5] < 1 or psnr_k < psnr_p - 2.0
+                or not torch.equal(full_out[~hole], full[~hole])):
+            raise SystemExit("full-range fill outside the hole-PSNR window")
 
     main_label = "600x900"
     entries = [{

@@ -13,8 +13,10 @@ torch = pytest.importorskip("torch")
 
 import various_image_processings_tpu_torch as vt  # noqa: E402
 from various_image_processings_tpu_torch.core.rng import random_array, random_image  # noqa: E402
+from various_image_processings_tpu_torch.core.luts import (  # noqa: E402
+    COLOR_TABLE_SIZE_ADAPTIVE, color_table)
 from various_image_processings_tpu_torch.ops.adaptive_bilateral import (  # noqa: E402
-    _abf_math, box_mean)
+    _abf_math, _abf_taps_math, box_mean)
 from various_image_processings_tpu_torch.ops.bilateral import (  # noqa: E402
     _bilateral_math, _taps_math)
 from various_image_processings_tpu_torch.ops.bilateral_texture import (  # noqa: E402
@@ -86,9 +88,13 @@ def test_op_makes_views_contiguous_and_wrapper_rejects_them(cuda):
 
 
 def test_too_large_a_halo_tile_raises(cuda):
-    src, _ = images((8, 8), cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_bf.bilateral(src, None, 301, 10.0, 30.0)
+    """A window whose halo tile does not fit one block's shared memory does
+    not raise: the kernel streams the tile through in bands, bit-equal to
+    the plain version."""
+    src, guide = images((8, 8), cuda)
+    for g in (None, guide):
+        got = cuda_bf.bilateral(src, g, 301, 10.0, 30.0)
+        assert torch.equal(got, _bilateral_math(src, src if g is None else g, 301, 10.0, 30.0))
 
 
 @pytest.mark.parametrize("border,rounding", [("replicate", "trunc"), ("reflect101", "rint")])
@@ -114,8 +120,9 @@ def sparse_taps(radius):
     return table
 
 
-# (joint, radius): the largest radius each side accepts (k = 219 self, 149
-# joint), and the radii on both sides of the switch from 4 pixels a thread to 1
+# (joint, radius): the largest radius whose whole tile fits (k = 219 self,
+# 149 joint), and the radii on both sides of the switch from 4 pixels a
+# thread to 1
 @pytest.mark.parametrize("joint,radius", [(False, 109), (True, 74), (False, 88), (False, 89),
                                           (True, 55), (True, 56)])
 def test_largest_accepted_radius_is_no_smaller_than_before(cuda, joint, radius):
@@ -130,11 +137,13 @@ def test_largest_accepted_radius_is_no_smaller_than_before(cuda, joint, radius):
                                       border, rounding)
         want = _taps_math(src, guide if joint else src, table, lut, radius, border, rounding)
         assert torch.equal(got, want)
-    if radius in (109, 74):
-        with pytest.raises(ValueError, match="shared memory"):
-            cuda_bf.joint_bilateral(src, guide if joint else None,
-                                    torch.from_numpy(sparse_taps(radius + 1)).to(cuda), lut,
-                                    radius + 1)
+    if radius in (109, 74):  # one radius more: the tile goes in bands, bit-equal all the same
+        assert cuda_bf._lib().vip_bilateral_band(radius, int(joint), 0) == 2 * radius + 1
+        assert cuda_bf._lib().vip_bilateral_band(radius + 1, int(joint), 0) < 2 * radius + 3
+        table = sparse_taps(radius + 1)
+        got = cuda_bf.joint_bilateral(src, guide if joint else None,
+                                      torch.from_numpy(table).to(cuda), lut, radius + 1)
+        assert torch.equal(got, _taps_math(src, guide if joint else src, table, lut, radius + 1))
 
 
 # -- gradient, blur + mRTV and guide kernels; the bilateral texture filter --
@@ -236,15 +245,13 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_btf.blur_and_rtv(img.float(), magnitude, 3)
     with pytest.raises(ValueError, match="must match"):
         cuda_btf.blur_and_rtv(img, magnitude[:20], 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_btf.blur_and_rtv(img, magnitude, 301)
+    with pytest.raises(ValueError, match="odd"):
+        cuda_btf.blur_and_rtv(img, magnitude, 8)
     blurred, rtv = cuda_btf.blur_and_rtv(img, magnitude, 3)
     with pytest.raises(TypeError):
         cuda_btf.guide(blurred.double(), rtv, 3)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_btf.guide(blurred.transpose(0, 1), rtv.t(), 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_btf.guide(blurred, rtv, 301)
     with pytest.raises(ValueError, match="odd"):
         cuda_btf.guide(blurred, rtv, 4)
 
@@ -324,8 +331,145 @@ def test_abf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         cuda_abf.adaptive_bilateral_taps(src.float(), taps, lut, 2)
     with pytest.raises(ValueError, match="shape"):
         cuda_abf.adaptive_bilateral_taps(src, taps, lut[:768].contiguous(), 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_abf.adaptive_bilateral(src, 301, 10.0, 30.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_abf.adaptive_bilateral_taps(src.cpu(), taps, lut, 2)
+
+
+# -- every radius: halo tiles that do not fit one block go through in bands --
+
+def band_taps(radius, rows=None, cols=None):
+    """A sparse (ky, kx)-ordered tap table over a (2r+1)² window with taps on
+    both sides of the band edges: tap rows rows−1, rows, 2·rows−1 and
+    2·rows, and where one tap row is cut into segments of ``cols`` columns,
+    tap columns cols−1 and cols."""
+    d = 2 * radius
+    ys = {0, radius, d} | ({rows - 1, rows, 2 * rows - 1, 2 * rows} if rows else set())
+    xs = {0, radius, d} | ({cols - 1, cols} if cols else set())
+    pos = sorted((y, x) for y in ys for x in xs if y <= d and x <= d)
+    ws = (0.125 + np.arange(len(pos)) / len(pos)).astype(np.float32)
+    table = np.zeros((len(pos), 4), np.int32)
+    table[:, :2] = pos
+    table[:, 2] = ws.view(np.int32)
+    return table
+
+
+def bf_case(src, guide, table, radius, cuda, modes=(("replicate", "trunc"),
+                                                    ("reflect101", "rint"))):
+    _, lut = cuda_bf.device_tables(3, 10.0, 30.0, cuda)
+    for border, rounding in modes:
+        got = cuda_bf.joint_bilateral(src, guide, torch.from_numpy(table).to(cuda), lut, radius,
+                                      border, rounding)
+        want = _taps_math(src, src if guide is None else guide, table, lut, radius, border,
+                          rounding)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("joint,ksize", [(False, 221), (True, 151)])
+def test_bilateral_bit_exact_just_past_the_one_tile_limit(cuda, joint, ksize):
+    """The first k whose one-pixel tile does not fit (old limit 219 self,
+    149 joint), with the filter's whole tap table: chunk edges fall inside
+    and across bands."""
+    src, guide = images((23, 37), cuda)
+    assert cuda_bf._lib().vip_bilateral_band(ksize // 2, int(joint), 0) < ksize
+    mode = ("reflect101", "rint") if joint else ("replicate", "trunc")
+    got = cuda_bf.bilateral(src, guide if joint else None, ksize, 10.0, 30.0, *mode)
+    assert torch.equal(got, _bilateral_math(src, guide if joint else src, ksize, 10.0, 30.0,
+                                            *mode))
+
+
+@pytest.mark.parametrize("joint", [False, True])
+@pytest.mark.parametrize("radius", [75, 110, 150, 200])
+def test_bilateral_bit_exact_at_band_edges(cuda, joint, radius):
+    src, guide = images((23, 37), cuda)
+    rows = cuda_bf._lib().vip_bilateral_band(radius, int(joint), 0)
+    bf_case(src, guide if joint else None, band_taps(radius, rows=min(rows, 2 * radius)),
+            radius, cuda)
+
+
+def first_cut_radius(band, start):
+    """The smallest radius ≥ start whose band is a segment of one tap row."""
+    lo, hi = start, 8 * start
+    assert band(hi, 1) < 2 * hi + 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if band(mid, 1) < 2 * mid + 1 else (mid, hi)
+    return hi
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_bilateral_bit_exact_on_column_segments(cuda, joint):
+    """Past k ≈ 3521 (joint) and 7073 (self) one tap row of the tile does not
+    fit: a band is a segment of one tap row."""
+    lib = cuda_bf._lib()
+    radius = first_cut_radius(lambda r, w: lib.vip_bilateral_band(r, int(joint), w), 1000)
+    assert lib.vip_bilateral_band(radius, int(joint), 0) == 1
+    cols = lib.vip_bilateral_band(radius, int(joint), 1)
+    src, guide = images((23, 37), cuda)
+    bf_case(src, guide if joint else None, band_taps(radius, rows=1, cols=cols), radius, cuda,
+            modes=(("replicate", "trunc"),))
+
+
+def abf_taps_case(src, table, radius, cuda):
+    lut = torch.from_numpy(color_table(30.0, COLOR_TABLE_SIZE_ADAPTIVE)).to(cuda)
+    got = cuda_abf.adaptive_bilateral_taps(src, torch.from_numpy(table).to(cuda), lut, radius)
+    assert torch.equal(got, _abf_taps_math(src, table, lut, radius))
+
+
+def test_abf_bit_exact_just_past_the_one_tile_limit(cuda):
+    """k = 179 (old limit 177) with the filter's whole tap table."""
+    assert cuda_abf._lib().vip_adaptive_bilateral_band(89, 0) < 179
+    abf_bit_exact(random_image(23, 37), 179, 10.0, 30.0, cuda)
+
+
+@pytest.mark.parametrize("radius", [89, 110, 150, 200])
+def test_abf_bit_exact_at_band_edges(cuda, radius):
+    src, _ = images((23, 37), cuda)
+    rows = cuda_abf._lib().vip_adaptive_bilateral_band(radius, 0)
+    abf_taps_case(src, band_taps(radius, rows=min(rows, 2 * radius)), radius, cuda)
+
+
+def test_abf_bit_exact_on_column_segments(cuda):
+    """Past k ≈ 6497 a band is a segment of one tap row, for the box sums
+    and the taps alike."""
+    lib = cuda_abf._lib()
+    radius = first_cut_radius(lib.vip_adaptive_bilateral_band, 1000)
+    assert lib.vip_adaptive_bilateral_band(radius, 0) == 1
+    src, _ = images((23, 37), cuda)
+    abf_taps_case(src, band_taps(radius, rows=1,
+                                 cols=lib.vip_adaptive_bilateral_band(radius, 1)),
+                  radius, cuda)
+
+
+@pytest.mark.parametrize("ksize,bright", [(121, False), (223, False), (257, True), (301, True)])
+def test_blur_rtv_and_guide_bit_exact_in_bands(cuda, ksize, bright):
+    """Past k = 119 (blur + mRTV) and 221 (guide) the tiles go in bands.
+    Past k = 255 a window's box sum can pass 2²⁴, where the plain version's
+    f32 sum rounds in (ky, kx) order, and so does the kernel's: a bright
+    image (values 250..255) makes it round."""
+    assert cuda_btf._lib().vip_blur_rtv_band(ksize // 2, 0) < ksize
+    img_np = random_image(19, 29)
+    if bright:
+        img_np = (250 + img_np % 6).astype(np.uint8)
+    img = torch.from_numpy(img_np).to(cuda)
+    magnitude = _gradient_math(img.float())
+    blurred, rtv = cuda_btf.blur_and_rtv(img, magnitude, ksize)
+    blurred_p, rtv_p = _blur_and_rtv_math(img.float(), magnitude, ksize)
+    assert torch.equal(blurred, blurred_p) and torch.equal(rtv, rtv_p)
+    guide = cuda_btf.guide(blurred, rtv, ksize)
+    assert torch.equal(guide, _guide_math(blurred, rtv, ksize).to(torch.uint8))
+
+
+def test_btf_k77_auto_equals_plain(cuda):
+    """A BTF at k = 77 runs its JBF at k′ = 153, past the one-tile limit of
+    149: on the card it launches its four kernels and equals impl="torch"."""
+    src, _ = images((20, 30), cuda)
+    counts = (cuda_grad.launches, cuda_btf.blur_rtv_launches, cuda_btf.guide_launches,
+              cuda_bf.launches)
+    out = vt.bilateral_texture_filter(src, 77, 1)
+    after = (cuda_grad.launches, cuda_btf.blur_rtv_launches, cuda_btf.guide_launches,
+             cuda_bf.launches)
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 1, 1]
+    assert torch.equal(out, vt.bilateral_texture_filter(src, 77, 1, impl="torch"))
 
 
 # -- the Wexler search kernel and the inpainting path --
@@ -496,3 +640,35 @@ def test_wexler_kernel_path_equals_plain_path(cuda, case):
     assert out.is_cuda and torch.equal(out, ref)
     known = torch.from_numpy(mask == 0).to(cuda)
     assert torch.equal(out[known], src[known])
+
+
+def hole_psnr(out, truth, hole):
+    mse = float(((out.double() - truth.double())[hole] ** 2).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.parametrize("image", ["tiled", "smooth"])
+def test_wexler_full_range_fill_within_the_psnr_window(cuda, image):
+    """Values 0..255: the search's sums pass 2²⁴ and round in the kernel's
+    order, so the kernel path may pick other candidates than the plain path
+    on near-ties.  The fill of the 402×700 config-5a hole must stay within
+    the window PARITY.md sets for the JAX fill against the reference: hole
+    PSNR (against the true image) no more than 2 dB below the plain path's.
+    A tile of random_image(37, 53) holds the true content elsewhere; a
+    bicubic upsampling of random_image(26, 44) holds no exact repeat."""
+    if image == "tiled":
+        src = torch.from_numpy(np.tile(random_image(37, 53), (11, 14, 1))[:402, :700].copy())
+        src = src.to(cuda)
+    else:
+        coarse = torch.from_numpy(random_image(26, 44)).to(cuda).permute(2, 0, 1)[None].float()
+        smooth = torch.nn.functional.interpolate(coarse, size=(402, 700), mode="bicubic",
+                                                 align_corners=False)
+        src = smooth.round().clamp(0, 255)[0].permute(1, 2, 0).to(torch.uint8).contiguous()
+    mask = np.zeros((402, 700), np.uint8)
+    mask[201 - 32 : 201 + 32, 350 - 32 : 350 + 32] = 255
+    hole = torch.from_numpy(mask).to(cuda)
+    out = vt.inpainting_wexler(src, hole)
+    ref = vt.inpainting_wexler(src, hole, impl="torch")
+    inside = hole > 0
+    assert torch.equal(out[~inside], src[~inside])
+    assert hole_psnr(out, src, inside) >= hole_psnr(ref, src, inside) - 2.0

@@ -14,10 +14,16 @@
 // Per block: 8 rows of 32 x P pixels, P = 4 pixels a thread along x (32
 // apart, so a warp's shared-memory reads of one tap stay on 32 distinct
 // banks), or P = 1 for the radii whose P = 4 halo tile would not fit in
-// shared memory.  A (8 + 2r) x (32 P + 2r) halo tile of the guide is read
-// straight from the HWC u8 image into shared memory, one 32-bit word per
-// pixel (b, g, r, 0); the joint filter keeps each guide word beside the
-// source pixel's, so one 8-byte load brings both.  The border is folded in
+// shared memory (k > 177 self, 111 joint).  Where the P = 1 tile does not
+// fit either (k > 219 self, 149 joint), it is streamed through shared
+// memory in bands of tap rows (past k ~ 3521 joint, 7073 self, segments of
+// one tap row), in (ky, kx) order: each band takes the taps before its end,
+// with the sums held in registers, so every pixel adds its taps in the
+// same order and every bit stays the same.  A (8 + 2r) x (32 P + 2r) halo
+// tile of the guide is read straight from the HWC u8 image into shared
+// memory, one 32-bit word per pixel (b, g, r, 0); the joint filter keeps
+// each guide word beside the source pixel's, so one 8-byte load brings
+// both.  The border is folded in
 // the load: clamped for replicate, reflected (repeatedly, as
 // cv::borderInterpolate) for reflect-101, so there is no separate pad pass.
 // The 768-entry f32 range LUT goes to shared memory beside it, and the tap
@@ -140,6 +146,35 @@ int pixels_per_thread(int radius, bool joint) {
   return smem_bytes(radius, joint, 4) <= kMaxSmem ? 4 : 1;
 }
 
+// The one-pixel path's halo tile in bands.  A band covers tap rows
+// [d0, d0 + rows) and tap columns [e0, e0 + cols): every column of a tap
+// row where (rows + 7) full tile rows fit, else one tap row cut into
+// column segments.  Its tile is (rows + 7) x (cols + 31) words.
+struct BandPlan {
+  int rows;
+  int cols;
+  long long smem;
+};
+
+BandPlan band_plan(int radius, bool joint) {
+  const long long word = joint ? 8 : 4;
+  const long long fixed = kLutSize * 4LL + kTapChunk * 8LL;
+  const int ksize = 2 * radius + 1;
+  auto bytes = [&](int rows, int cols) {
+    return fixed + static_cast<long long>(rows + kRowsPerBlock - 1) * (cols + kLanes - 1) * word;
+  };
+  int rows = ksize, cols = ksize;
+  if (bytes(rows, cols) > kMaxSmem) {
+    rows = static_cast<int>((kMaxSmem - fixed) / ((cols + kLanes - 1) * word)) -
+           (kRowsPerBlock - 1);
+    if (rows < 1) {
+      rows = 1;
+      cols = static_cast<int>((kMaxSmem - fixed) / (kRowsPerBlock * word)) - (kLanes - 1);
+    }
+  }
+  return {rows, cols, bytes(rows, cols)};
+}
+
 template <bool kJoint, int kPix>
 __global__ void __launch_bounds__(kThreads, 4)
 bilateral_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ guide,
@@ -225,51 +260,151 @@ bilateral_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ gu
   }
 }
 
-template <bool kJoint, int kPix>
-int launch(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
-           const int4* taps, int n_taps, const float* lut, int radius, int border,
-           int rounding, cudaStream_t stream) {
-  const long long smem = smem_bytes(radius, kJoint, kPix);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bilateral_kernel<kJoint, kPix>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Radii whose 4-pixel tile does not fit: one pixel a thread, the halo tile
+// streamed through shared memory band by band (BandPlan).  Bands go in
+// (ky, kx) order, and each takes the taps before its end in that order,
+// so every sum adds the same taps in the same order as the one-tile path.
+template <bool kJoint>
+__global__ void __launch_bounds__(kThreads)
+bilateral_band_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict__ guide,
+                      uint8_t* __restrict__ out, int height, int width,
+                      const int4* __restrict__ taps, int n_taps,
+                      const float* __restrict__ lut, int radius, int border, int rounding,
+                      int band_rows, int band_cols) {
+  using Word = typename TileWord<kJoint>::type;
+  static_assert(kThreads == kTapChunk, "each thread stages one tap of a chunk");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_lut = reinterpret_cast<float*>(smem);
+  int2* s_taps = reinterpret_cast<int2*>(s_lut + kLutSize);
+  Word* s_tile = reinterpret_cast<Word*>(s_taps + kTapChunk);
+  const int ksize = 2 * radius + 1;
+  const int tile_w = kLanes - 1 + band_cols;
+
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int i = tid; i < kLutSize; i += kThreads) s_lut[i] = lut[i];
+
+  const int x = blockIdx.x * kLanes + threadIdx.x;
+  const int y = blockIdx.y * kRowsPerBlock + threadIdx.y;
+  // the centre may lie in any band: read it from the image (folded, so a
+  // thread past the edge reads a pixel too)
+  const uint32_t center =
+      load_pixel(guide + (static_cast<size_t>(fold(y, height, border)) * width +
+                          fold(x, width, border)) * 3);
+  const Word* at0 = s_tile + threadIdx.y * tile_w + threadIdx.x;
+  float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f, sumk = 0.0f;
+  int t0 = 0;  // first tap not yet added
+  for (int d0 = 0; d0 < ksize; d0 += band_rows) {
+    const int d1 = min(d0 + band_rows, ksize);
+    for (int e0 = 0; e0 < ksize; e0 += band_cols) {
+      const int e1 = min(e0 + band_cols, ksize);
+      __syncthreads();  // every thread is done with the previous band's tile and taps
+      const int rows = d1 - d0 + kRowsPerBlock - 1;
+      const int cols = e1 - e0 + kLanes - 1;
+      const int gy0 = blockIdx.y * kRowsPerBlock - radius + d0;
+      const int gx0 = blockIdx.x * kLanes - radius + e0;
+      for (int ly = threadIdx.y; ly < rows; ly += kRowsPerBlock) {
+        const size_t row = static_cast<size_t>(fold(gy0 + ly, height, border)) * width;
+        for (int lx = threadIdx.x; lx < cols; lx += kLanes) {
+          const size_t p = (row + fold(gx0 + lx, width, border)) * 3;
+          s_tile[ly * tile_w + lx] = tile_word<kJoint>(guide + p, src + p);
+        }
+      }
+      // the band's taps, those before (d1 - 1, e1) in (ky, kx) order, a
+      // chunk at a time
+      for (;;) {
+        int in_band = 0;
+        if (t0 + tid < n_taps) {
+          const int4 tap = __ldg(taps + t0 + tid);  // (dy, dx, bits of ws, 0)
+          in_band = tap.x < d1 - 1 || (tap.x == d1 - 1 && tap.y < e1);
+          if (in_band) {
+            s_taps[tid] = make_int2(
+                ((tap.x - d0) * tile_w + tap.y - e0) * static_cast<int>(sizeof(Word)), tap.z);
+          }
+        }
+        // the taps are sorted, so the band's are the first n; the barrier
+        // also makes the tile and the staged taps visible
+        const int n = __syncthreads_count(in_band);
+#pragma unroll 2
+        for (int t = 0; t < n; ++t) {
+          const int2 tap = s_taps[t];
+          const Word word = *reinterpret_cast<const Word*>(
+              reinterpret_cast<const unsigned char*>(at0) + tap.x);
+          const float wk = __fmul_rn(__int_as_float(tap.y),
+                                     s_lut[__vsadu4(guide_of(word), center)]);
+          const uint32_t sw = source_of(word);
+          sum0 = __fadd_rn(sum0, __fmul_rn(channel<0>(sw), wk));
+          sum1 = __fadd_rn(sum1, __fmul_rn(channel<1>(sw), wk));
+          sum2 = __fadd_rn(sum2, __fmul_rn(channel<2>(sw), wk));
+          sumk = __fadd_rn(sumk, wk);
+        }
+        t0 += n;
+        if (n < kTapChunk) break;
+        __syncthreads();  // every thread is done with this chunk
+      }
+    }
   }
-  const int tile_w = kLanes * kPix;
-  const dim3 block(kLanes, kRowsPerBlock);
-  const dim3 grid((width + tile_w - 1) / tile_w, (height + kRowsPerBlock - 1) / kRowsPerBlock);
-  bilateral_kernel<kJoint, kPix><<<grid, block, static_cast<size_t>(smem), stream>>>(
-      src, guide, out, height, width, taps, n_taps, lut, radius, border, rounding);
-  return static_cast<int>(cudaGetLastError());
+  if (x >= width || y >= height) return;
+  uint8_t* o = out + (static_cast<size_t>(y) * width + x) * 3;
+  o[0] = store_u8(sum0, sumk, rounding);
+  o[1] = store_u8(sum1, sumk, rounding);
+  o[2] = store_u8(sum2, sumk, rounding);
+}
+
+int set_smem(const void* kernel, long long smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
 template <bool kJoint>
-int launch_any(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
-               const int4* taps, int n_taps, const float* lut, int radius, int border,
-               int rounding, cudaStream_t stream) {
+int launch(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
+           const int4* taps, int n_taps, const float* lut, int radius, int border,
+           int rounding, cudaStream_t stream) {
+  const dim3 block(kLanes, kRowsPerBlock);
+  const int grid_y = (height + kRowsPerBlock - 1) / kRowsPerBlock;
   if (pixels_per_thread(radius, kJoint) == 4) {
-    return launch<kJoint, 4>(src, guide, out, height, width, taps, n_taps, lut, radius, border,
-                             rounding, stream);
+    constexpr int kPix = 4;
+    const long long smem = smem_bytes(radius, kJoint, kPix);
+    const int err = set_smem(reinterpret_cast<const void*>(bilateral_kernel<kJoint, kPix>), smem);
+    if (err != 0) return err;
+    const int tile_w = kLanes * kPix;
+    const dim3 grid((width + tile_w - 1) / tile_w, grid_y);
+    bilateral_kernel<kJoint, kPix><<<grid, block, static_cast<size_t>(smem), stream>>>(
+        src, guide, out, height, width, taps, n_taps, lut, radius, border, rounding);
+    return static_cast<int>(cudaGetLastError());
   }
-  return launch<kJoint, 1>(src, guide, out, height, width, taps, n_taps, lut, radius, border,
-                           rounding, stream);
+  const BandPlan plan = band_plan(radius, kJoint);
+  const int err = set_smem(reinterpret_cast<const void*>(bilateral_band_kernel<kJoint>), plan.smem);
+  if (err != 0) return err;
+  const dim3 grid((width + kLanes - 1) / kLanes, grid_y);
+  bilateral_band_kernel<kJoint><<<grid, block, static_cast<size_t>(plan.smem), stream>>>(
+      src, guide, out, height, width, taps, n_taps, lut, radius, border, rounding, plan.rows,
+      plan.cols);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block at this radius (the wrapper refuses a
-// radius whose tile does not fit).
+// Dynamic shared memory of one block at this radius: the 4-pixel tile, or
+// one band of the 1-pixel path's tile.
 long long vip_bilateral_smem_bytes(int radius, int joint) {
-  return smem_bytes(radius, joint != 0, pixels_per_thread(radius, joint != 0));
+  if (pixels_per_thread(radius, joint != 0) == 4) return smem_bytes(radius, joint != 0, 4);
+  return band_plan(radius, joint != 0).smem;
 }
 
 // Pixels each thread computes at this radius: 4, or 1 where a 4-pixel halo
 // tile would not fit in shared memory.
 int vip_bilateral_pixels_per_thread(int radius, int joint) {
   return pixels_per_thread(radius, joint != 0);
+}
+
+// The 1-pixel path's band: tap rows (which == 0) or tap columns (which ==
+// 1) a band covers; 2r + 1 of both where the whole tile fits.
+int vip_bilateral_band(int radius, int joint, int which) {
+  const BandPlan plan = band_plan(radius, joint != 0);
+  return which == 0 ? plan.rows : plan.cols;
 }
 
 // guide == nullptr: the self filter.  taps: n_taps >= 1 int4 (dy, dx, f32
@@ -284,9 +419,9 @@ int vip_bilateral_u8(const void* src, const void* guide, void* out, int height, 
   auto* o = static_cast<uint8_t*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   if (guide == nullptr) {
-    return launch_any<false>(s, s, o, height, width, t, n_taps, l, radius, border, rounding, st);
+    return launch<false>(s, s, o, height, width, t, n_taps, l, radius, border, rounding, st);
   }
-  return launch_any<true>(s, static_cast<const uint8_t*>(guide), o, height, width, t, n_taps, l,
+  return launch<true>(s, static_cast<const uint8_t*>(guide), o, height, width, t, n_taps, l,
                           radius, border, rounding, st);
 }
 

@@ -159,9 +159,11 @@ def check_taps(taps: torch.Tensor, device) -> None:
 
 
 def check_smem(kernel: str, ksize: int, smem: int) -> None:
+    """A guard: every kernel plans its shared memory (the whole halo tile, or
+    one band of it) to fit, for every ksize."""
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{kernel} ksize {ksize}: the kernel's halo tile needs {smem} bytes "
-                         f"of shared memory, above the {MAX_SMEM_BYTES} a block can use")
+        raise ValueError(f"{kernel} ksize {ksize}: the kernel planned {smem} bytes of shared "
+                         f"memory a block, above the {MAX_SMEM_BYTES} a block can use")
 
 
 def stream_of(t: torch.Tensor) -> int:

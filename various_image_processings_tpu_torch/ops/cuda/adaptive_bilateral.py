@@ -2,9 +2,10 @@
 
 Takes an (H, W, 3) u8 CUDA tensor and the filter's tables (core.luts.tap_table
 and the 1536-entry range LUT) on the same device, allocates the output and
-launches on PyTorch's current stream.  Anything the kernel does not take
-raises, including a window whose halo tile would not fit in one block's
-shared memory; a launch the runtime refuses raises.  ``launches`` counts
+launches on PyTorch's current stream.  Every radius is taken: where the
+halo tile does not fit in one block's shared memory, the kernel streams it
+through in bands.  Anything the kernel does not take raises; a launch the
+runtime refuses raises.  ``launches`` counts
 successful launches, so a run can show its main path went through the kernel.
 """
 
@@ -27,11 +28,13 @@ def _lib() -> ctypes.CDLL:
     lib = load_library()
     lib.vip_adaptive_bilateral_smem_bytes.argtypes = [ctypes.c_int]
     lib.vip_adaptive_bilateral_smem_bytes.restype = ctypes.c_longlong
+    lib.vip_adaptive_bilateral_band.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.vip_adaptive_bilateral_band.restype = ctypes.c_int
     lib.vip_adaptive_bilateral_u8.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,                # src, out
         ctypes.c_int, ctypes.c_int,                      # height, width
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # taps, n_taps, lut
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,  # radius, smem bytes, stream
+        ctypes.c_int, ctypes.c_void_p,                   # radius, stream
     ]
     lib.vip_adaptive_bilateral_u8.restype = ctypes.c_int
     return lib
@@ -39,7 +42,8 @@ def _lib() -> ctypes.CDLL:
 
 def adaptive_bilateral_taps(src: torch.Tensor, taps: torch.Tensor, lut: torch.Tensor,
                             radius: int) -> torch.Tensor:
-    """Launch the kernel with the filter's tables: the window is 2·radius+1."""
+    """Launch the kernel with the filter's tables: the window is 2·radius+1.
+    The taps must be in (ky, kx) order, as core.luts.tap_table gives them."""
     global launches
     check_color_image("src", src)
     check_taps(taps, src.device)
@@ -51,7 +55,7 @@ def adaptive_bilateral_taps(src: torch.Tensor, taps: torch.Tensor, lut: torch.Te
     with torch.cuda.device(src.device):
         err = _lib().vip_adaptive_bilateral_u8(
             src.data_ptr(), out.data_ptr(), height, width, taps.data_ptr(), taps.shape[0],
-            lut.data_ptr(), radius, smem, stream_of(src))
+            lut.data_ptr(), radius, stream_of(src))
     check_launch(err, "adaptive_bilateral")
     launches += 1
     return out

@@ -2,7 +2,10 @@
 
 Takes (H, W, 3) u8 CUDA tensors and the filter's tables (core.luts.tap_table
 and the 768-entry range LUT) on the same device, allocates the output and
-launches on PyTorch's current stream.  Anything the kernel does not take
+launches on PyTorch's current stream.  Every radius is taken: where the
+halo tile of 4 pixels a thread does not fit in one block's shared memory,
+the kernel takes 1 pixel a thread and, where that tile does not fit
+either, streams it through in bands.  Anything the kernel does not take
 raises; a launch the runtime refuses raises.  ``launches`` counts successful
 launches, so a run can show its main path went through the kernel.
 """
@@ -31,6 +34,8 @@ def _lib() -> ctypes.CDLL:
     lib.vip_bilateral_smem_bytes.restype = ctypes.c_longlong
     lib.vip_bilateral_pixels_per_thread.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.vip_bilateral_pixels_per_thread.restype = ctypes.c_int
+    lib.vip_bilateral_band.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.vip_bilateral_band.restype = ctypes.c_int
     lib.vip_bilateral_u8.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # src, guide, out
         ctypes.c_int, ctypes.c_int,                          # height, width
@@ -46,7 +51,8 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
                     lut: torch.Tensor, radius: int, border: str = "replicate",
                     rounding: str = "trunc") -> torch.Tensor:
     """Launch the kernel.  guide=None is the self filter (range weights keyed
-    off src, one tile in shared memory instead of two)."""
+    off src, one tile in shared memory instead of two).  The taps must be in
+    (ky, kx) order, as core.luts.tap_table gives them."""
     global launches
     check_color_image("src", src)
     if guide is not None:

@@ -2,9 +2,10 @@
 (csrc/bilateral_texture.cu): blur + mRTV, and the guide.
 
 Each takes CUDA tensors in the layouts the kernels read, allocates the
-outputs and launches on PyTorch's current stream.  Anything the kernels do
-not take raises, including a window whose halo tile would not fit in one
-block's shared memory; a launch the runtime refuses raises.
+outputs and launches on PyTorch's current stream.  Every odd window is
+taken: where a halo tile does not fit in one block's shared memory, the
+kernel streams it through in bands.  Anything the kernels do not take
+raises; a launch the runtime refuses raises.
 ``blur_rtv_launches`` and ``guide_launches`` count successful launches, so a
 run can show its main path went through the kernels.
 """
@@ -32,17 +33,20 @@ def _lib() -> ctypes.CDLL:
     for name in ("vip_blur_rtv_smem_bytes", "vip_guide_smem_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_longlong
+    for name in ("vip_blur_rtv_band", "vip_guide_band"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     lib.vip_blur_rtv.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p,             # img, magnitude
         ctypes.c_void_p, ctypes.c_void_p,             # blurred, rtv
         ctypes.c_int, ctypes.c_int, ctypes.c_int,     # height, width, ksize
-        ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p,  # epsilon, smem bytes, stream
+        ctypes.c_float, ctypes.c_void_p,              # epsilon, stream
     ]
     lib.vip_blur_rtv.restype = ctypes.c_int
     lib.vip_guide.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # blurred, rtv, guide
         ctypes.c_int, ctypes.c_int, ctypes.c_int,            # height, width, ksize
-        ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p,  # sigma_alpha, smem bytes, stream
+        ctypes.c_float, ctypes.c_void_p,                     # sigma_alpha, stream
     ]
     lib.vip_guide.restype = ctypes.c_int
     return lib
@@ -77,7 +81,7 @@ def blur_and_rtv(img: torch.Tensor, magnitude: torch.Tensor, ksize: int):
     rtv = torch.empty((height, width), dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
         err = _lib().vip_blur_rtv(img.data_ptr(), magnitude.data_ptr(), blurred.data_ptr(),
-                                  rtv.data_ptr(), height, width, ksize, float(EPSILON), smem,
+                                  rtv.data_ptr(), height, width, ksize, float(EPSILON),
                                   stream_of(img))
     check_launch(err, "blur_rtv")
     blur_rtv_launches += 1
@@ -96,7 +100,7 @@ def guide(blurred: torch.Tensor, rtv: torch.Tensor, ksize: int) -> torch.Tensor:
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=blurred.device)
     with torch.cuda.device(blurred.device):
         err = _lib().vip_guide(blurred.data_ptr(), rtv.data_ptr(), out.data_ptr(), height,
-                               width, ksize, float(sigma_alpha(ksize)), smem, stream_of(blurred))
+                               width, ksize, float(sigma_alpha(ksize)), stream_of(blurred))
     check_launch(err, "guide")
     guide_launches += 1
     return out
