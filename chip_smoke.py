@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 Builds the port's CUDA kernels from ``various_image_processings_tpu_torch/csrc``
 with nvcc (one process per source, in parallel) and prints what ptxas says of
@@ -12,10 +12,11 @@ each kernel.  Then, for each path the port has:
   before, and times kernel and plain version;
 - the bilateral texture filter (600x900 k=9 nitr=3, both variants): holds the
   gradient, blur + mRTV and guide kernels against their plain versions over
-  their grids, drives the path through the op, the ``BilateralTextureFilter``
-  module and the CLI with every counter reset just before and read just
-  after, and times each kernel, the plain versions and the whole filter at
-  600x900 and 4K;
+  their grids (the gradient's over 1-4 channels and rows that are not whole
+  words, the guide's over a grid of ties as well), drives the path through
+  the op, the ``BilateralTextureFilter`` module and the CLI with every
+  counter reset just before and read just after, and times each kernel,
+  the plain versions and the whole filter at 600x900 and 4K;
 - the adaptive bilateral filter (4K k=9, sigma_s=10, sigma_c=30): holds the
   kernel against its plain version over a parity grid that includes the
   subnormal-weight and underflow points, drives the path through the op, the
@@ -37,6 +38,12 @@ runs a k=77 bilateral texture filter on the card against the plain path,
 and fills a full-range (0..255) textured 402x700 image through the search
 kernel and through the plain path, holding the kernel path's hole PSNR to
 the plain path's less 2 dB.
+
+With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
+commit's, unpacked with ``git archive``) it also builds those sources and
+times their guide and gradient kernels in turns with this tree's (parent,
+change, change, parent), and a BTF call whose gradient and guide are the
+parent's, in the same process on the same card.
 
 Every phase prints a line; any failure exits non-zero.  On success the line
 before the last is ``{"kernels": [...]}`` and the last is
@@ -68,9 +75,14 @@ GRID_SHAPES = ((50, 50), (37, 61), (8, 5), (1, 1))
 GRID_MODES = (("replicate", "trunc"), ("reflect101", "rint"))
 
 BTF_KSIZE, BTF_NITR = 9, 3                # the reference's own configuration
-GRADIENT_SHAPES = ((1, 1), (8, 5), (37, 61))
+# rows that are whole words or not (3 * 61, 183), one row, one column, a
+# ragged last warp (260 = 2 * 128 + 4), the BTF's 600x900
+GRADIENT_SHAPES = ((1, 1), (8, 5), (37, 61), (5, 183), (1, 64), (64, 1), (13, 260), (600, 900))
+GRADIENT_CHANNELS = (1, 2, 3, 4)
 STAGE_KSIZES = (1, 3, 5, 9, 15)
 STAGE_SHAPES = ((1, 1), (8, 5), (37, 61), (64, 31))
+TIE_KSIZES = (1, 3, 9, 15, 223)
+TIE_SHAPES = ((37, 61), (20, 132), (64, 200))  # scalar and vector paths, a ragged last block
 ABF_KSIZES = (1, 3, 5, 9, 15, 31)
 ABF_SHAPES = ((1, 1), (8, 5), (37, 61), (50, 50))
 # (k, sigma_s, sigma_c, h, w): every weight in the LUT's f32 subnormal band
@@ -86,27 +98,29 @@ SEARCH_SHAPES = ((20, 20), (33, 41), (34, 45), (64, 200), WEXLER_SHAPE)
 SEARCH_TARGETS = (1, 7, 16, 256, 1000, 1024)
 SEARCH_TIMED_TARGETS = (16, 64, 256, 1024)  # the fill's target counts at 402x700
 # the first k past each kernel's one-tile limit (BF self 219, JBF 149, ABF
-# 177, blur + mRTV 119, guide 221), and 301
+# 177, blur + mRTV 119, guide 109), and 301
 LARGE_BF_RADII = ((False, 110), (False, 150), (True, 75), (True, 150))
 LARGE_ABF_RADII = (89, 150)
-LARGE_STAGE_KSIZES = (121, 223, 301)
+LARGE_STAGE_KSIZES = (111, 121, 223, 301)
 LARGE_SHAPE = (23, 37)
 BTF_LARGE_KSIZE = 77                      # its JBF runs at k' = 153, past 149
 # the parent's times, for the lines that print beside them (PERF.md sections
 # 5-6: chip_smoke.py runs of the parent, NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_MS = {
-    "bilateral 4K k=9": "0.3002-0.3024",
-    "JBF 600x900 k=17": "0.0935-0.0941",
-    ("600x900", "gradient"): "0.0057-0.0060",
-    ("600x900", "blur_rtv"): "0.0391-0.0393",
+    "bilateral 4K k=9": "0.3023-0.3025",
+    "JBF 600x900 k=17": "0.1036-0.1044",
+    ("600x900", "gradient"): "0.0057",
+    ("600x900", "blur_rtv"): "0.0176-0.0178",
     ("600x900", "guide"): "0.0241-0.0243",
-    ("600x900", "bilateral"): "0.0935-0.0941",
-    ("4K", "gradient"): "0.0577-0.0580",
-    ("4K", "blur_rtv"): "0.5204-0.5207",
-    ("4K", "guide"): "0.3093-0.3096",
-    ("4K", "bilateral"): "1.0954-1.0956",
-    ("ABF", "4K"): "0.6118-0.6162",
-    ("ABF", "512x512"): "0.0251",
+    ("600x900", "bilateral"): "0.0933-0.0940",
+    ("4K", "gradient"): "0.0579-0.0582",
+    ("4K", "blur_rtv"): "0.1903-0.1912",
+    ("4K", "guide"): "0.3093-0.3115",
+    ("4K", "bilateral"): "1.0873-1.0955",
+    ("BTF", "600x900"): "0.4268-0.5512 ms per call",
+    ("BTF", "4K"): "1668.7-1681.2 MP/s",
+    ("ABF", "4K"): "0.5239-0.5279",
+    ("ABF", "512x512"): "0.0225",
 }
 
 # H100 SXM peaks: HBM bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s
@@ -150,6 +164,24 @@ def wexler_masks(h: int, w: int) -> dict:
     return {"5a": square, "5c": irregular}
 
 
+def tie_inputs(h: int, w: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(blurred (h, w, 3), rtv (h, w)) f32 full of ties for the guide: rtv
+    takes 4 levels far apart (so |alpha| is near 1), with the minimum (as
+    +0 and -0) sprinkled so that windows hold equal minima in different rows
+    and in different columns, and a flat block of whole flat windows;
+    blurred differs by tap (13 a column, 23 a row, within 96..160, so the
+    blend does not clamp), so a wrong pick moves the output."""
+    rng = np.random.default_rng(seed)
+    rtv = np.array([500.0, 1000.0, 3000.0], np.float32)[rng.integers(0, 3, (h, w))]
+    rtv[rng.random((h, w)) < 0.04] = 0.0
+    rtv[rng.random((h, w)) < 0.02] = -0.0
+    rtv[h // 4 : h // 4 + h // 2, w // 4 : w // 4 + w // 3] = 1000.0
+    yy, xx = np.mgrid[:h, :w]
+    blurred = np.stack([96 + (23 * yy + 13 * xx + 7 * c) % 64 + (xx * yy % 8) / 8
+                        for c in range(3)], axis=2).astype(np.float32)
+    return blurred, rtv
+
+
 def ptxas_summary(report: str) -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes)} from nvcc -Xptxas -v."""
     out, name = {}, None
@@ -166,31 +198,61 @@ def ptxas_summary(report: str) -> dict:
     return out
 
 
-def sass_loops(lib: str, name_part: str) -> list[tuple[str, int, Counter]]:
-    """(kernel, instructions, opcode counts) of every loop (a backward
-    branch) of at least 16 instructions in the kernels whose mangled name
-    holds ``name_part``, from ``cuobjdump -sass``; [] without cuobjdump."""
+def sass_functions(lib: str) -> dict[str, list[tuple[int, str]]]:
+    """{kernel: [(address, instruction)]} from ``cuobjdump -sass``; {}
+    without cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     if not os.path.exists(tool):
-        return []
+        return {}
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
                           check=True).stdout
+    return {func.split("\n", 1)[0].strip():
+            [(int(a, 16), t.strip())
+             for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+            for func in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def opcodes(body: list[str]) -> Counter:
+    return Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body)
+
+
+def sass_loops(funcs: dict, name_part: str) -> list[tuple[str, int, Counter]]:
+    """(kernel, instructions, opcode counts) of every loop (a backward
+    branch) of at least 16 instructions in the kernels whose mangled name
+    holds ``name_part``."""
     loops = []
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = func.split("\n", 1)[0].strip()
+    for name, code in funcs.items():
         if name_part not in name:
             continue
-        code = [(int(a, 16), t.strip())
-                for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
         for addr, text in code:
             m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
             if not m or int(m.group(1), 16) >= addr:
                 continue
             body = [t for a, t in code if int(m.group(1), 16) <= a <= addr]
             if len(body) >= 16:
-                ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body)
-                loops.append((name, len(body), ops))
+                loops.append((name, len(body), opcodes(body)))
     return loops
+
+
+def build_parent(csrc: str):
+    """The guide and gradient kernels of another tree's csrc/ (the
+    parent's), built with this tree's nvcc flags, as a ctypes library."""
+    import ctypes
+
+    from various_image_processings_tpu_torch.ops.cuda import _build
+    out = _build.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    srcs = [os.path.join(csrc, f) for f in ("bilateral_texture.cu", "gradient.cu")]
+    objs = [str(out / (os.path.basename(f) + ".o")) for f in srcs]
+    nvcc = _build.nvcc()
+    _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, f] for f, o in zip(srcs, objs)])
+    lib = str(out / "libparent.so")
+    _build._run_all([[nvcc, "-shared", "-o", lib, *objs]])
+    cdll = ctypes.CDLL(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    cdll.vip_guide.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
+    cdll.vip_gradient.argtypes = [p, p, i, i, i, i, p]
+    return cdll
 
 
 def main() -> int:
@@ -256,12 +318,48 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
         phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    funcs = sass_functions(str(_build.library_path()))
     for part, what in (("bilateral_kernelILb0ELi4E", "bilateral self, 4 pixels a thread"),
                        ("adaptive_bilateral_kernel", "adaptive bilateral"),
-                       ("blur_rtv_kernelILi9ELb0E", "blur + mRTV, k=9")):
-        for name, n, ops in sass_loops(str(_build.library_path()), part):
+                       ("blur_rtv_kernelILi9ELb0E", "blur + mRTV, k=9"),
+                       ("guide_kernelILi9E", "guide, k=9")):
+        for name, n, ops in sass_loops(funcs, part):
             top = ", ".join(f"{op} {c}" for op, c in ops.most_common(12))
             phase(f"SASS loop of {what} ({name}): {n} instructions: {top}")
+    for part, what in (("guide_kernelILi9E", "guide, k=9 (4 pixels a thread)"),
+                       ("gradient_words_kernelILi3E", "gradient, u8 C=3 (4 pixels x 2 rows "
+                                                      "a thread)")):
+        for name, code in funcs.items():
+            if part in name:
+                top = ", ".join(f"{op} {c}" for op, c in
+                                opcodes([t for _, t in code]).most_common(14))
+                phase(f"SASS of the whole {what} kernel ({name}): {len(code)} instructions: "
+                      f"{top}")
+    parent = None
+    if "--parent-csrc" in sys.argv:
+        t0 = time.perf_counter()
+        parent = build_parent(sys.argv[sys.argv.index("--parent-csrc") + 1])
+        phase(f"built the parent's guide and gradient kernels in "
+              f"{time.perf_counter() - t0:.2f} s")
+    def parent_gradient(src):
+        out = torch.empty(src.shape[:2], dtype=torch.float32, device=src.device)
+        err = parent.vip_gradient(src.data_ptr(), out.data_ptr(), src.shape[0], src.shape[1],
+                                  src.shape[2], int(src.dtype == torch.float32),
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"the parent's gradient kernel did not launch: cudaError_t {err}")
+        return out
+
+    def parent_guide(blurred, rtv):
+        out = torch.empty(blurred.shape, dtype=torch.uint8, device=blurred.device)
+        err = parent.vip_guide(blurred.data_ptr(), rtv.data_ptr(), out.data_ptr(),
+                               rtv.shape[0], rtv.shape[1], BTF_KSIZE,
+                               float(kbt.sigma_alpha(BTF_KSIZE)),
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"the parent's guide kernel did not launch: cudaError_t {err}")
+        return out
+
     lb = kbf._lib()
     phase("shared memory per block (all dynamic), as (bytes, tap rows x tap columns a band): "
           "bilateral " + ", ".join(
@@ -281,7 +379,7 @@ def main() -> int:
           + "; guide " + ", ".join(
               f"k={2 * r + 1} {kbt._lib().vip_guide_smem_bytes(r)} B "
               f"{kbt._lib().vip_guide_band(r, 0)}x{kbt._lib().vip_guide_band(r, 1)}"
-              for r in (4, 110, 111, 150))
+              for r in (4, 54, 55, 110, 150))
           + f"; wexler_search {kws._lib().vip_wexler_search_smem_bytes()} B")
 
     # 2. parity grid: kernel vs the plain version on the same CUDA tensors,
@@ -382,18 +480,20 @@ def main() -> int:
           f"kernel {jbf_ms:.4f} ms (parent {PARENT_MS['JBF 600x900 k=17']} ms), plain "
           f"{jbf_plain_ms:.4f} ms")
 
-    # 6. gradient grid: u8 and f32, 1 and 3 channels; kernel vs plain on the
-    #    card and vs plain on the CPU
+    # 6. gradient grid: u8 and f32, 1 to 4 channels (1 and 3 at 4K), rows
+    #    that are whole words and rows that are not, and a u8 image one byte
+    #    off a word boundary; kernel vs plain on the card and vs plain on
+    #    the CPU
     g_worst, g_cases = 0, 0
     grad_inputs = []
     for gh, gw in GRADIENT_SHAPES:
-        n = gh * gw * 3
-        grad_inputs.append(torch.from_numpy(random_array(n).reshape(gh, gw, 3)))
-        grad_inputs.append(torch.from_numpy(random_array(n, 255.0, np.float32)
-                                            .reshape(gh, gw, 3)))
-    grad_inputs += [torch.from_numpy(img_np), torch.from_numpy(img_np).float()]
-    for x in grad_inputs:
-        for c in (1, 3):
+        n = gh * gw * 4
+        grad_inputs += [(torch.from_numpy(random_array(n).reshape(gh, gw, 4)), GRADIENT_CHANNELS),
+                        (torch.from_numpy(random_array(n, 255.0, np.float32).reshape(gh, gw, 4)),
+                         GRADIENT_CHANNELS)]
+    grad_inputs += [(torch.from_numpy(img_np), (1, 3)), (torch.from_numpy(img_np).float(), (1, 3))]
+    for x, channels in grad_inputs:
+        for c in channels:
             xc = x[:, :, :c].contiguous()
             got = kgr.gradient(xc.to(dev))
             d = max(max_abs(got, _gradient_math(xc.to(dev).float())),
@@ -403,8 +503,16 @@ def main() -> int:
                 raise SystemExit(f"gradient parity FAILED: {tuple(xc.shape)} {xc.dtype}: "
                                  f"max |diff| {d}")
             g_worst = max(g_worst, d)
-    phase(f"gradient grid: {g_cases} cases (u8/f32, C 1 and 3, shapes "
-          f"{GRADIENT_SHAPES} and {MAIN_SHAPE}): max |diff| {g_worst} (tolerance 0)")
+    odd = torch.from_numpy(random_array(37 * 64 * 3 + 1))
+    x_odd = odd.to(dev)[1:].view(37, 64, 3)  # contiguous, one byte past a word boundary
+    d = max(max_abs(kgr.gradient(x_odd), _gradient_math(x_odd.float())),
+            max_abs(kgr.gradient(x_odd).cpu(), _gradient_math(odd[1:].view(37, 64, 3).float())))
+    g_cases += 1
+    if d:
+        raise SystemExit(f"gradient parity FAILED on an unaligned u8 image: max |diff| {d}")
+    phase(f"gradient grid: {g_cases} cases (u8/f32, C {GRADIENT_CHANNELS} on shapes "
+          f"{GRADIENT_SHAPES}, C 1 and 3 at {MAIN_SHAPE}, an unaligned u8 (37, 64, 3)): "
+          f"max |diff| {g_worst} (tolerance 0)")
 
     # 7. blur + mRTV and guide grid: kernel vs plain on the card (and blur +
     #    mRTV vs plain on the CPU); the guide is held to 0 on the card
@@ -432,6 +540,23 @@ def main() -> int:
           f"the CPU (tolerance 0); guide "
           f"max |diff| {guide_worst} vs plain on the card (tolerance 0), {guide_cpu} vs "
           f"plain on the CPU (torch.exp on the CPU is another implementation)")
+
+    # 7. (continued) the guide on ties: rtv planes of 4 levels with equal
+    #    minima in different rows and columns of a window and whole flat
+    #    windows, and a blurred image that differs by tap, so a wrong pick
+    #    moves the output; kernel vs plain on the card
+    tie_worst, tie_cases = 0, 0
+    for th_, tw_ in TIE_SHAPES:
+        blurred, rtv = (torch.from_numpy(a).to(dev) for a in tie_inputs(th_, tw_, th_ * tw_))
+        for tk in TIE_KSIZES:
+            d = max_diff(kbt.guide(blurred, rtv, tk), obt._guide_math(blurred, rtv, tk))
+            tie_cases += 1
+            if d:
+                raise SystemExit(f"guide tie parity FAILED: {th_}x{tw_} k={tk}: max |diff| {d}")
+            tie_worst = max(tie_worst, d)
+    guide_worst = max(guide_worst, tie_worst)
+    phase(f"guide tie grid: {tie_cases} cases (k {TIE_KSIZES}, shapes {TIE_SHAPES}): max "
+          f"|diff| {tie_worst} vs plain on the card (tolerance 0)")
 
     # 8. the BTF path, counted: op (impl="auto", both variants), module, CLI
     counters = ((kgr, "launches"), (kbt, "blur_rtv_launches"), (kbt, "guide_launches"),
@@ -530,6 +655,20 @@ def main() -> int:
             times[(label, name)] = (k_ms, p_ms, b_ms, b_by)
             phase(f"{label} {name}: kernel {k_ms:.4f} ms (parent {PARENT_MS[(label, name)]} "
                   f"ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+        if parent is not None:
+            parent_rows = {
+                "gradient": (lambda: parent_gradient(x), rows["gradient"][0]),
+                "guide": (lambda: parent_guide(blurred, rtv), rows["guide"][0]),
+            }
+            if not (torch.equal(parent_gradient(x), mag)
+                    and torch.equal(parent_guide(blurred, rtv), gd)):
+                raise SystemExit("the parent's kernels and this tree's differ")
+            n_ab = 50 if label == "600x900" else 20
+            for name, (old, new) in parent_rows.items():
+                ab = [queued_ms(f, n_ab) for f in (old, new, new, old)]
+                phase(f"{label} {name} A/B in turns (parent, change, change, parent): "
+                      f"{', '.join(f'{t:.4f}' for t in ab)} ms; bound "
+                      f"{times[(label, name)][2]:.4f} ms")
         op = lambda: vt.bilateral_texture_filter(x, BTF_KSIZE, BTF_NITR)  # noqa: E731
         dev_ms = queued_ms(op, 20 if label == "600x900" else 5)
         op_ms = cuda_time_ms(op, iters=10, warmup=2)
@@ -542,7 +681,24 @@ def main() -> int:
         phase(f"{label} BTF k={BTF_KSIZE} nitr={BTF_NITR}: op {op_ms:.4f} ms per call "
               f"({px / op_ms / 1e3:.1f} MP/s), device {dev_ms:.4f} ms back to back "
               f"({px / dev_ms / 1e3:.1f} MP/s), sum of its 12 kernels {kernel_sum:.4f} ms; "
-              f"plain {plain_s * 1e3:.1f} ms (one call, host clock)")
+              f"plain {plain_s * 1e3:.1f} ms (one call, host clock); parent "
+              f"{PARENT_MS[('BTF', label)]}")
+        if parent is not None:
+            def parent_btf():
+                """The BTF call with the parent's gradient and guide kernels."""
+                y = x
+                for _ in range(BTF_NITR):
+                    b, r_ = kbt.blur_and_rtv(y, parent_gradient(y), BTF_KSIZE)
+                    y = kbf.joint_bilateral(y, parent_guide(b, r_), jt, jl, BTF_KSIZE - 1)
+                return y
+
+            if not torch.equal(parent_btf(), op()):
+                raise SystemExit("the BTF with the parent's kernels differs from this tree's")
+            n_ab = 20 if label == "600x900" else 5
+            ab = [queued_ms(f, n_ab) for f in (parent_btf, op, op, parent_btf)]
+            phase(f"{label} BTF A/B, device back to back in turns (parent's gradient and guide, "
+                  f"change, change, parent): {', '.join(f'{t:.4f}' for t in ab)} ms "
+                  f"({', '.join(f'{px / t / 1e3:.1f}' for t in ab)} MP/s)")
         if label == "600x900":
             n_calls = 100
             torch.cuda.synchronize()
@@ -662,7 +818,8 @@ def main() -> int:
               f"({abf_n_taps} taps)")
 
     regs = ptxas_summary(_build.ptxas_report())
-    for part in ("adaptive_bilateral_kernel", "blur_rtv_kernelILi9ELb0E"):
+    for part in ("adaptive_bilateral_kernel", "blur_rtv_kernelILi9ELb0E", "guide_kernelILi9E",
+                 "gradient_words_kernelILi3E"):
         for name, (r, st, ld) in regs.items():
             if part in name:
                 phase(f"redesigned kernel {name}: {r} registers, spill stores {st} B, spill "

@@ -29,6 +29,7 @@ from various_image_processings_tpu_torch.models import inpainting as wexler  # n
 from various_image_processings_tpu_torch.ops import wexler_search as search_op  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import wexler_search as cuda_search  # noqa: E402
 from various_image_processings_tpu_torch.ops.gradient import _gradient_math  # noqa: E402
+from guide_ties import tie_inputs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -151,9 +152,13 @@ def test_largest_accepted_radius_is_no_smaller_than_before(cuda, joint, radius):
 STAGE_SHAPES = [(1, 1), (8, 5), (37, 61), (64, 31)]
 
 
+# rows that are whole words (width % 4 == 0, the u8 word kernel) and rows
+# that are not (3 * 61 = 183 bytes), one row, one column, a ragged last
+# warp (260 = 2 * 128 + 4), the BTF's 600x900
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-@pytest.mark.parametrize("channels", [1, 3])
-@pytest.mark.parametrize("shape", [(1, 1), (8, 5), (37, 61)])
+@pytest.mark.parametrize("channels", [1, 3, 2, 4])
+@pytest.mark.parametrize("shape", [(1, 1), (8, 5), (37, 61), (5, 183), (600, 900), (1, 64),
+                                   (64, 1), (13, 260)])
 def test_gradient_kernel_bit_exact_to_plain(cuda, shape, channels, dtype):
     n = shape[0] * shape[1] * channels
     if dtype == torch.float32:
@@ -161,6 +166,17 @@ def test_gradient_kernel_bit_exact_to_plain(cuda, shape, channels, dtype):
     else:
         src_np = random_array(n).reshape(*shape, channels)
     src = torch.from_numpy(src_np).to(cuda)
+    got = cuda_grad.gradient(src)
+    assert torch.equal(got, _gradient_math(src.float()))
+    assert torch.equal(got.cpu(), _gradient_math(src.cpu().float()))
+
+
+def test_gradient_kernel_on_an_unaligned_u8_image(cuda):
+    """A contiguous u8 image one byte past a word boundary goes to the
+    general kernel, bit-equal all the same."""
+    flat = torch.from_numpy(random_array(37 * 64 * 3 + 1)).to(cuda)
+    src = flat[1:].view(37, 64, 3)
+    assert src.is_contiguous() and src.data_ptr() % 4 != 0
     got = cuda_grad.gradient(src)
     assert torch.equal(got, _gradient_math(src.float()))
     assert torch.equal(got.cpu(), _gradient_math(src.cpu().float()))
@@ -213,6 +229,19 @@ def test_true_division_on_a_near_tie_image(cuda):
             assert torch.equal(got.cpu(), rtv_c)
         guide = cuda_btf.guide(blurred, rtv, ksize)
         assert torch.equal(guide, _guide_math(blurred_p, rtv_p, ksize).to(torch.uint8))
+
+
+# widths that are not a multiple of 4 (the guide's scalar path), that leave
+# a ragged last block of 4 columns, and whole 16-byte rows
+@pytest.mark.parametrize("ksize", [1, 3, 9, 15, 223])
+@pytest.mark.parametrize("shape", [(37, 61), (20, 132), (64, 200)])
+def test_guide_kernel_bit_exact_on_ties(cuda, shape, ksize):
+    """Windows with equal minima in different rows and columns, and whole
+    flat windows: the separable argmin keeps the first minimum in (ky, kx)
+    order, as the plain version's scan does."""
+    blurred, rtv = (torch.from_numpy(a).to(cuda) for a in tie_inputs(*shape, shape[0] * shape[1]))
+    got = cuda_btf.guide(blurred, rtv, ksize)
+    assert torch.equal(got, _guide_math(blurred, rtv, ksize).to(torch.uint8))
 
 
 @pytest.mark.parametrize("variant", ["cuda", "cpp"])
@@ -442,11 +471,12 @@ def test_abf_bit_exact_on_column_segments(cuda):
 
 @pytest.mark.parametrize("ksize,bright", [(121, False), (223, False), (257, True), (301, True)])
 def test_blur_rtv_and_guide_bit_exact_in_bands(cuda, ksize, bright):
-    """Past k = 119 (blur + mRTV) and 221 (guide) the tiles go in bands.
+    """Past k = 119 (blur + mRTV) and 109 (guide) the tiles go in bands.
     Past k = 255 a window's box sum can pass 2²⁴, where the plain version's
     f32 sum rounds in (ky, kx) order, and so does the kernel's: a bright
     image (values 250..255) makes it round."""
     assert cuda_btf._lib().vip_blur_rtv_band(ksize // 2, 0) < ksize
+    assert cuda_btf._lib().vip_guide_band(ksize // 2, 0) < ksize
     img_np = random_image(19, 29)
     if bright:
         img_np = (250 + img_np % 6).astype(np.uint8)

@@ -5,7 +5,7 @@
 // Replaces two TPU kernels in
 // various_image_processings_tpu/ops/pallas/bilateral_texture.py:
 //   _make_blur_rtv_kernel (:39)   -> blur_rtv_kernel
-//   _make_guide_kernel    (:137)  -> guide_kernel, guide_band_kernel
+//   _make_guide_kernel    (:137)  -> guide_kernel
 // Both read a k x k window with the border replicated, from a halo tile in
 // shared memory with the border clamped in the load (no pad pass).
 //
@@ -34,15 +34,26 @@
 //   alpha = 2 / (1 + exp(sigma_alpha * (rtv_center - rtv_min))) - 1,
 //   guide_c = clamp(trunc(alpha * blurred_c[argmin]
 //                         + (1 - alpha) * blurred_c[center] + 0.5), 0, 255).
-// One pixel a thread, all k^2 taps.  Only rtv is tiled: the blurred values
-// are read once per pixel from global memory, at the centre and at the
-// argmin.
+// 8 rows of 128 pixels a block, 4 adjacent pixels a thread.  Separable, as
+// the TPU kernel is: a row pass over the tile rows keeps, for each output
+// column, the row's first minimum over the window's k columns (strict <,
+// kx order) and its column; a column pass takes those k results in ky
+// order with strict <.  Strict < in both passes picks the tap the (ky, kx)
+// scan picks: ties keep the earlier row, within a row the earlier column,
+// and the passes only select, so the values are the plain version's.  For
+// the BTF's k = 9 the window is compiled in and the row pass takes 4
+// adjacent columns an item, sharing the first minimum of the columns the 4
+// windows have in common.  Only rtv is tiled: the blurred values are read
+// from global memory, the centre's as 16-byte vectors, the argmin's once a
+// pixel.  The output bytes go through shared memory so that each warp
+// stores its row of the block in whole words.
 //
 // Every window: where a whole halo tile does not fit in shared memory
-// (blur + mRTV past k = 119, the guide past k = 221), the tile is streamed
+// (blur + mRTV past k = 119, the guide past k = 109), the tile is streamed
 // through in bands of tap rows (past a few thousand columns, segments of
 // one tap row), in (ky, kx) order, with every accumulator in registers: the
-// ordered sums and the strict-< argmin see their taps in the one-tile order.
+// ordered sums and the strict-< argmin see their taps in the one-tile order
+// (the guide's column pass carries its best across bands and segments).
 //
 // Exactness (PARITY.md D1b/D1c: each of these moved the JAX side by tens
 // of u8 once the guide's argmin flipped):
@@ -60,8 +71,13 @@
 // taps, ~12 instructions each): the row pass ~40 an item of 4 columns, the
 // column pass and the 81-add chain of sum G ~20 a pixel and tap row, the
 // tile load and the divisions the rest; so instruction issue and the
-// latency of the tile load still bind, not bandwidth.  The guide still
-// walks all k^2 taps (~6 instructions each).
+// latency of the tile load still bind, not bandwidth.  The guide's first
+// version walked all k^2 taps (~6 instructions each, 6.6x its byte bound);
+// separable, at k = 9 the row pass takes 22 compare-and-selects an item of
+// 4 columns and tile row (87 SASS instructions), the column pass one a
+// pixel and tap row, so the exp, the division, the blend and the argmin's
+// gather (~60 instructions a pixel) are much of what is left: 0.083 ms at
+// 4K, 1.77x its byte bound (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -75,6 +91,8 @@ constexpr int kRows = 8;
 constexpr int kThreads = kLanes * kRows;
 constexpr int kBlurPix = 4;                   // blur + mRTV: adjacent pixels a thread
 constexpr int kBlurW = kLanes * kBlurPix;     // blur + mRTV: output columns of a block
+constexpr int kGuidePix = 4;                  // guide: adjacent pixels a thread
+constexpr int kGuideW = kLanes * kGuidePix;   // guide: output columns of a block
 constexpr long long kMaxSmem = 232448;        // dynamic shared memory one block can use (227 KB)
 constexpr int kMaxIntBoxK = 255;              // 255 k^2 < 2^24: the f32 box sum is exact
 
@@ -134,9 +152,17 @@ long long blur_bytes(int rows, int cols) {
 
 BandPlan blur_plan(int ksize) { return band_plan(ksize, blur_bytes); }
 
-// guide: the band's tile of (rows + 7) x (cols + 31) rtv values.
+// guide: the band's tile rows hold guide_pitch(cols) rtv values (the
+// 4-wide reads of the k=9 row pass run up to 3 columns past the 127 + cols
+// a row needs; a multiple of 4 keeps every row 16-byte aligned), then two
+// planes of 128 row-pass results a tile row: the first minimum and its tile
+// column.
+__host__ __device__ constexpr int guide_pitch(int cols) {
+  return (cols + kGuideW - 1 + 3) / 4 * 4;
+}
+
 long long guide_bytes(int rows, int cols) {
-  return static_cast<long long>(rows + kRows - 1) * (cols + kLanes - 1) * 4;
+  return static_cast<long long>(rows + kRows - 1) * (guide_pitch(cols) * 4LL + kGuideW * 8LL);
 }
 
 BandPlan guide_plan(int ksize) { return band_plan(ksize, guide_bytes); }
@@ -386,119 +412,215 @@ __device__ __forceinline__ uint8_t blend(float alpha, float one_m, float bmin, f
   return static_cast<uint8_t>(static_cast<int>(fminf(fmaxf(truncf(v), 0.0f), 255.0f)));
 }
 
-// The blend of one pixel, from the window's first minimum of rtv.
-__device__ __forceinline__ void guide_pixel(const float* __restrict__ blurred,
-                                            uint8_t* __restrict__ guide, int height, int width,
-                                            int radius, float sigma_alpha, int x, int y,
-                                            float center, float best, int best_ky, int best_kx) {
-  const float e = expf(__fmul_rn(sigma_alpha, __fsub_rn(center, best)));
-  const float alpha = __fsub_rn(__fdiv_rn(2.0f, __fadd_rn(1.0f, e)), 1.0f);
-  const float one_m = __fsub_rn(1.0f, alpha);
-
-  const int64_t p = static_cast<int64_t>(y) * width + x;
-  const int64_t q = static_cast<int64_t>(clamp_index(y + best_ky - radius, height)) * width +
-                    clamp_index(x + best_kx - radius, width);
-  for (int c = 0; c < 3; ++c) {
-    // no window value below FLT_MAX: the blend takes 0, as the plain version does
-    const float bmin = best_ky < 0 ? 0.0f : blurred[3 * q + c];
-    guide[3 * p + c] = blend(alpha, one_m, bmin, blurred[3 * p + c]);
+// Strict <: a later value replaces the best only if it is smaller, so the
+// first minimum in scan order is kept, with its value (only selects).
+__device__ __forceinline__ void take_first_min(float v, int at, float& best, int& best_at) {
+  if (v < best) {
+    best = v;
+    best_at = at;
   }
 }
 
-// Windows whose (8 + 2r) x (32 + 2r) tile fits: the whole tile at once.
+// kK: the window at compile time (0: taken from ksize at run time, in
+// bands).  vec: width % 4 == 0 and 16-byte aligned planes, so the tile and
+// the centres are read as 16-byte vectors and the output stored in words.
+template <int kK>
 __global__ void __launch_bounds__(kThreads)
 guide_kernel(const float* __restrict__ blurred, const float* __restrict__ rtv,
-             uint8_t* __restrict__ guide, int height, int width, int ksize, float sigma_alpha) {
+             uint8_t* __restrict__ guide, int height, int width, int ksize, float sigma_alpha,
+             int band_rows, int band_cols, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (kK != 0) ksize = band_rows = band_cols = kK;  // one tile, one pass
   const int radius = ksize / 2;
-  const int tile_w = kLanes + 2 * radius;
-  const int tile_n = tile_w * (kRows + 2 * radius);
+  const int pitch = guide_pitch(band_cols);
+  const int groups = pitch / 4;  // 4-value groups a tile row
+  const int tile_h = band_rows + kRows - 1;
   float* s_rtv = reinterpret_cast<float*>(smem);
+  float* s_min = s_rtv + tile_h * pitch;                               // row pass: first minimum
+  int* s_col = reinterpret_cast<int*>(s_min + tile_h * kGuideW);       // and its tile column
 
   const int tid = threadIdx.y * kLanes + threadIdx.x;
-  const int x0 = blockIdx.x * kLanes - radius;
-  const int y0 = blockIdx.y * kRows - radius;
-  for (int i = tid; i < tile_n; i += kThreads) {
-    const int ly = i / tile_w;
-    const int lx = i - ly * tile_w;
-    s_rtv[i] = rtv[static_cast<int64_t>(clamp_index(y0 + ly, height)) * width +
-                   clamp_index(x0 + lx, width)];
-  }
-  __syncthreads();
-
-  const int x = blockIdx.x * kLanes + threadIdx.x;
-  const int y = blockIdx.y * kRows + threadIdx.y;
-  if (x >= width || y >= height) return;
-
-  const int base = threadIdx.y * tile_w + threadIdx.x;
-  float best = FLT_MAX;
-  int best_ky = -1, best_kx = 0;
-  for (int ky = 0; ky < ksize; ++ky) {
-    const int row = base + ky * tile_w;
-    for (int kx = 0; kx < ksize; ++kx) {
-      const float v = s_rtv[row + kx];
-      if (v < best) {  // strict: the first minimum in (ky, kx) order wins
-        best = v;
-        best_ky = ky;
-        best_kx = kx;
-      }
-    }
-  }
-  guide_pixel(blurred, guide, height, width, radius, sigma_alpha, x, y,
-              s_rtv[base + radius * tile_w + radius], best, best_ky, best_kx);
-}
-
-// Larger windows: the tile in bands (guide_plan), scanned in (ky, kx)
-// order, so the strict < still keeps the first minimum.
-__global__ void __launch_bounds__(kThreads)
-guide_band_kernel(const float* __restrict__ blurred, const float* __restrict__ rtv,
-                  uint8_t* __restrict__ guide, int height, int width, int ksize,
-                  float sigma_alpha, int band_rows, int band_cols) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int radius = ksize / 2;
-  const int tile_w = kLanes - 1 + band_cols;
-  float* s_rtv = reinterpret_cast<float*>(smem);
-
   const int lane = threadIdx.x;
   const int ty = threadIdx.y;
-  const float* at0 = s_rtv + ty * tile_w + lane;
-  float best = FLT_MAX;
-  int best_ky = -1, best_kx = 0;
+  const int bx = blockIdx.x * kGuideW;
+  const int by = blockIdx.y * kRows;
+
+  // pixel p of this thread is column bx + 4 lane + p of row by + ty
+  float best[kGuidePix];
+  int best_ky[kGuidePix], best_kx[kGuidePix];
+#pragma unroll
+  for (int p = 0; p < kGuidePix; ++p) {
+    best[p] = FLT_MAX;  // no value below FLT_MAX: best_ky stays -1
+    best_ky[p] = -1;
+    best_kx[p] = 0;
+  }
   for (int d0 = 0; d0 < ksize; d0 += band_rows) {
     const int d1 = min(d0 + band_rows, ksize);
     for (int e0 = 0; e0 < ksize; e0 += band_cols) {
-      const int e1 = min(e0 + band_cols, ksize);
-      __syncthreads();  // every thread is done with the previous band
+      const int n_cols = min(band_cols, ksize - e0);
       const int n_rows = d1 - d0 + kRows - 1;
-      const int n_cols = e1 - e0 + kLanes - 1;
-      const int gy0 = blockIdx.y * kRows - radius + d0;
-      const int gx0 = blockIdx.x * kLanes - radius + e0;
-      for (int ly = ty; ly < n_rows; ly += kRows) {
-        const int64_t row = static_cast<int64_t>(clamp_index(gy0 + ly, height)) * width;
-        for (int lx = lane; lx < n_cols; lx += kLanes) {
-          s_rtv[ly * tile_w + lx] = rtv[row + clamp_index(gx0 + lx, width)];
+      __syncthreads();  // every thread is done with the previous band
+      // tile column lx holds image column gx0 + lx: tap column e0 + lx - c
+      // of output column c of the block
+      const int gy0 = by - radius + d0;
+      const int gx0 = bx - radius + e0;
+      const bool vec_tile = vec && gx0 % 4 == 0;
+      for (int i = tid; i < n_rows * groups; i += kThreads) {
+        const int ly = i / groups;
+        const int gx = gx0 + 4 * (i - ly * groups);
+        const float* row = rtv + static_cast<int64_t>(clamp_index(gy0 + ly, height)) * width;
+        float4 v;
+        if (vec_tile && gx >= 0 && gx + 3 < width) {
+          v = *reinterpret_cast<const float4*>(row + gx);
+        } else {
+          v = make_float4(row[clamp_index(gx, width)], row[clamp_index(gx + 1, width)],
+                          row[clamp_index(gx + 2, width)], row[clamp_index(gx + 3, width)]);
+        }
+        *reinterpret_cast<float4*>(s_rtv + ly * pitch + (gx - gx0)) = v;
+      }
+      __syncthreads();
+      // row pass: for each tile row and output column, the first minimum
+      // over the band's tap columns and its tile column
+      if constexpr (kK != 0) {
+        // 4 adjacent output columns an item, read as 16-byte vectors: the 4
+        // windows share the tap columns [3, kK), whose first minimum is
+        // taken once; each window then folds its columns left of it, that
+        // minimum and its columns right of it, in kx order
+        constexpr int kVals = kK + kGuidePix - 1;
+        constexpr int kVec = (kVals + 3) / 4;
+        static_assert(kK >= 3 && kGuidePix == 4, "the 4 windows share columns [3, kK)");
+        for (int i = tid; i < n_rows * kLanes; i += kThreads) {
+          const int ly = i / kLanes;
+          const int oc = (i - ly * kLanes) * kGuidePix;
+          float v[4 * kVec];
+#pragma unroll
+          for (int u = 0; u < kVec; ++u) {
+            const float4 f = *reinterpret_cast<const float4*>(s_rtv + ly * pitch + oc + 4 * u);
+            v[4 * u] = f.x;
+            v[4 * u + 1] = f.y;
+            v[4 * u + 2] = f.z;
+            v[4 * u + 3] = f.w;
+          }
+          float mid = FLT_MAX;
+          int mid_at = 0;
+#pragma unroll
+          for (int j = 3; j < kK; ++j) take_first_min(v[j], j, mid, mid_at);
+          float m[kGuidePix];
+          int at[kGuidePix];
+#pragma unroll
+          for (int q = 0; q < kGuidePix; ++q) {
+            m[q] = FLT_MAX;
+            at[q] = 0;
+#pragma unroll
+            for (int j = q; j < 3; ++j) take_first_min(v[j], j, m[q], at[q]);
+            take_first_min(mid, mid_at, m[q], at[q]);
+#pragma unroll
+            for (int j = kK; j < q + kK; ++j) take_first_min(v[j], j, m[q], at[q]);
+          }
+          const int e = ly * kGuideW + oc;
+          *reinterpret_cast<float4*>(s_min + e) = make_float4(m[0], m[1], m[2], m[3]);
+          *reinterpret_cast<int4*>(s_col + e) =
+              make_int4(oc + at[0], oc + at[1], oc + at[2], oc + at[3]);
+        }
+      } else {  // one output column an item
+        for (int i = tid; i < n_rows * kGuideW; i += kThreads) {
+          const int ly = i / kGuideW;
+          const int c = i - ly * kGuideW;
+          const float* row = s_rtv + ly * pitch + c;
+          float m = FLT_MAX;
+          int at = 0;
+          for (int j = 0; j < n_cols; ++j) take_first_min(row[j], j, m, at);
+          s_min[i] = m;
+          s_col[i] = c + at;
         }
       }
       __syncthreads();
-      for (int ky = d0; ky < d1; ++ky) {
-        const float* row = at0 + (ky - d0) * tile_w;
-        for (int kx = e0; kx < e1; ++kx) {
-          const float v = row[kx - e0];
-          if (v < best) {  // strict: the first minimum in (ky, kx) order wins
-            best = v;
-            best_ky = ky;
-            best_kx = kx;
-          }
+      // column pass: the band's tap rows in ky order, one 16-byte read for
+      // the 4 pixels; the tap column is read once a band, for the pixels
+      // whose best moved into it
+      int sel[kGuidePix];
+#pragma unroll
+      for (int p = 0; p < kGuidePix; ++p) sel[p] = -1;
+#pragma unroll
+      for (int dy = 0; dy < d1 - d0; ++dy) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(s_min + (ty + dy) * kGuideW + kGuidePix * lane);
+        take_first_min(f.x, dy, best[0], sel[0]);
+        take_first_min(f.y, dy, best[1], sel[1]);
+        take_first_min(f.z, dy, best[2], sel[2]);
+        take_first_min(f.w, dy, best[3], sel[3]);
+      }
+#pragma unroll
+      for (int p = 0; p < kGuidePix; ++p) {
+        if (sel[p] >= 0) {
+          const int c = kGuidePix * lane + p;
+          best_ky[p] = d0 + sel[p];
+          best_kx[p] = e0 + s_col[(ty + sel[p]) * kGuideW + c] - c;
         }
       }
     }
   }
 
-  const int x = blockIdx.x * kLanes + lane;
-  const int y = blockIdx.y * kRows + ty;
-  if (x >= width || y >= height) return;
-  guide_pixel(blurred, guide, height, width, radius, sigma_alpha, x, y,
-              rtv[static_cast<int64_t>(y) * width + x], best, best_ky, best_kx);
+  // the centres: three 16-byte reads of blurred and one of rtv for the 4
+  // pixels where the rows are whole vectors
+  const int y = by + ty;
+  const int x0 = bx + kGuidePix * lane;
+  const int64_t at0 = static_cast<int64_t>(min(y, height - 1)) * width;
+  float c_rtv[kGuidePix], c_blur[3 * kGuidePix];
+  if (vec && x0 < width) {  // width % 4 == 0: the 4 pixels are inside
+    const float4 r4 = *reinterpret_cast<const float4*>(rtv + at0 + x0);
+    const float4* b4 = reinterpret_cast<const float4*>(blurred + 3 * (at0 + x0));
+    const float4 b0 = b4[0], b1 = b4[1], b2 = b4[2];
+    const float rv[kGuidePix] = {r4.x, r4.y, r4.z, r4.w};
+    const float bv[3 * kGuidePix] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y,
+                                      b1.z, b1.w, b2.x, b2.y, b2.z, b2.w};
+#pragma unroll
+    for (int p = 0; p < kGuidePix; ++p) c_rtv[p] = rv[p];
+#pragma unroll
+    for (int i = 0; i < 3 * kGuidePix; ++i) c_blur[i] = bv[i];
+  } else {
+#pragma unroll
+    for (int p = 0; p < kGuidePix; ++p) {
+      const int64_t q = at0 + clamp_index(x0 + p, width);
+      c_rtv[p] = rtv[q];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) c_blur[3 * p + c] = blurred[3 * q + c];
+    }
+  }
+  // the blend of each pixel, from its window's first minimum; the 12 bytes
+  // of the 4 pixels as 3 words
+  uint32_t words[3] = {0u, 0u, 0u};
+#pragma unroll
+  for (int p = 0; p < kGuidePix; ++p) {
+    const float e = expf(__fmul_rn(sigma_alpha, __fsub_rn(c_rtv[p], best[p])));
+    const float alpha = __fsub_rn(__fdiv_rn(2.0f, __fadd_rn(1.0f, e)), 1.0f);
+    const float one_m = __fsub_rn(1.0f, alpha);
+    const int64_t q = static_cast<int64_t>(clamp_index(y + best_ky[p] - radius, height)) * width +
+                      clamp_index(x0 + p + best_kx[p] - radius, width);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      // no window value below FLT_MAX: the blend takes 0, as the plain version does
+      const float bmin = best_ky[p] < 0 ? 0.0f : blurred[3 * q + c];
+      const uint32_t u = blend(alpha, one_m, bmin, c_blur[3 * p + c]);
+      words[(3 * p + c) / 4] |= u << (8 * ((3 * p + c) % 4));
+    }
+  }
+  // the outputs go through shared memory (the planes' room), so that each
+  // warp writes its row of the block contiguously
+  __syncthreads();  // every thread is done with the planes
+  uint32_t* s_out = reinterpret_cast<uint32_t*>(s_min) + ty * (3 * kGuideW / 4);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) s_out[3 * lane + j] = words[j];
+  __syncwarp();  // a warp writes the row it staged
+  if (y >= height) return;
+  const int n = min(kGuideW, width - bx);
+  uint8_t* g_out = guide + (static_cast<int64_t>(y) * width + bx) * 3;
+  if (vec) {  // 3n bytes from a 4-byte aligned start: whole words
+    for (int i = lane; i < 3 * n / 4; i += kLanes) reinterpret_cast<uint32_t*>(g_out)[i] = s_out[i];
+  } else {
+    const uint8_t* s_bytes = reinterpret_cast<const uint8_t*>(s_out);
+    for (int i = lane; i < 3 * n; i += kLanes) g_out[i] = s_bytes[i];
+  }
 }
 
 int set_smem(const void* kernel, long long smem) {
@@ -518,6 +640,22 @@ int launch_blur_rtv(const uint8_t* img, const float* magnitude, float* blurred, 
   const dim3 grid((width + kBlurW - 1) / kBlurW, (height + kRows - 1) / kRows);
   blur_rtv_kernel<kK, kOrderedBox><<<grid, block, static_cast<size_t>(plan.smem), stream>>>(
       img, magnitude, blurred, rtv, height, width, ksize, epsilon, plan.rows, plan.cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int kK>
+int launch_guide(const float* blurred, const float* rtv, uint8_t* guide, int height, int width,
+                 int ksize, float sigma_alpha, cudaStream_t stream) {
+  const BandPlan plan = guide_plan(ksize);
+  const int err = set_smem(reinterpret_cast<const void*>(guide_kernel<kK>), plan.smem);
+  if (err != 0) return err;
+  const bool vec = width % 4 == 0 && aligned16(blurred) && aligned16(rtv) && aligned16(guide);
+  const dim3 block(kLanes, kRows);
+  const dim3 grid((width + kGuideW - 1) / kGuideW, (height + kRows - 1) / kRows);
+  guide_kernel<kK><<<grid, block, static_cast<size_t>(plan.smem), stream>>>(
+      blurred, rtv, guide, height, width, ksize, sigma_alpha, plan.rows, plan.cols, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,26 +697,14 @@ int vip_blur_rtv(const void* img, const void* magnitude, void* blurred, void* rt
 // guide: (height, width, 3) u8.  Returns the launch's cudaError_t.
 int vip_guide(const void* blurred, const void* rtv, void* guide, int height, int width,
               int ksize, float sigma_alpha, void* stream) {
-  const BandPlan plan = guide_plan(ksize);
-  const dim3 block(kLanes, kRows);
-  const dim3 grid((width + kLanes - 1) / kLanes, (height + kRows - 1) / kRows);
   const auto* b = static_cast<const float*>(blurred);
   const auto* r = static_cast<const float*>(rtv);
   auto* g = static_cast<uint8_t*>(guide);
   const auto st = static_cast<cudaStream_t>(stream);
-  const bool one_tile = plan.rows == ksize && plan.cols == ksize;
-  const int err = set_smem(one_tile ? reinterpret_cast<const void*>(guide_kernel)
-                                    : reinterpret_cast<const void*>(guide_band_kernel),
-                           plan.smem);
-  if (err != 0) return err;
-  if (one_tile) {
-    guide_kernel<<<grid, block, static_cast<size_t>(plan.smem), st>>>(b, r, g, height, width,
-                                                                       ksize, sigma_alpha);
-  } else {
-    guide_band_kernel<<<grid, block, static_cast<size_t>(plan.smem), st>>>(
-        b, r, g, height, width, ksize, sigma_alpha, plan.rows, plan.cols);
+  if (ksize == 9 && guide_plan(9).rows == 9) {  // the BTF's window: its columns at compile time
+    return launch_guide<9>(b, r, g, height, width, ksize, sigma_alpha, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_guide<0>(b, r, g, height, width, ksize, sigma_alpha, st);
 }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
 """Wrapper of the Hopper gradient-magnitude kernel (csrc/gradient.cu).
 
 Takes an (H, W, C) u8 or f32 CUDA tensor, allocates the (H, W) f32 output
-and launches on PyTorch's current stream.  Anything the kernel does not take
-raises; a launch the runtime refuses raises.  ``launches`` counts successful
+and launches on PyTorch's current stream.  The source picks the kernel by
+dtype, channel count, width and alignment (u8 rows of whole words take the
+word kernel; everything else the general one), never by catching an error.
+Anything the kernels do not take raises; a launch the runtime refuses
+raises.  ``launches`` counts successful
 launches, so a run can show its main path went through the kernel.
 """
 
