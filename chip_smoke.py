@@ -39,6 +39,17 @@ and fills a full-range (0..255) textured 402x700 image through the search
 kernel and through the plain path, holding the kernel path's hole PSNR to
 the plain path's less 2 dB.
 
+Last come SLIC superpixels, which have no kernel of their own (plain
+PyTorch k-means on the card, native C++ connectivity on the host): the
+card's exact Lab against cv2 and the CPU path on all 2^24 colors; SLIC at
+512x512 (BASELINE.md config 4: S=26, 10 iterations, m=20) on a random and a
+smooth image through the op, the ``SuperpixelSLIC`` module and the CLI, the
+labels bit-equal to the CPU path; the same at 2160x3840 (invariants only);
+CIEDE2000 within its tolerance of the CPU.  Each prints a call's wall time,
+its split (Lab, k-means, the copies, the host connectivity) and counters
+(iterations, host syncs, launches an iteration, device-busy share, peak
+memory, superpixels), and a ``{"slic": ...}`` line holds them.
+
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
 times their guide and gradient kernels in turns with this tree's (parent,
@@ -104,6 +115,10 @@ LARGE_ABF_RADII = (89, 150)
 LARGE_STAGE_KSIZES = (111, 121, 223, 301)
 LARGE_SHAPE = (23, 37)
 BTF_LARGE_KSIZE = 77                      # its JBF runs at k' = 153, past 149
+SLIC_SHAPE = (512, 512)                   # BASELINE.md config 4
+SLIC_PARAMS = (26, 10, 20.0)              # superpixel size S, iterations, color scale m
+SLIC_CALLS = 3                            # warm calls timed a configuration
+DELTA_E_TOL = (5e-4, 5e-2)                # rtol, atol: tests/test_ciede2000.py's
 # the parent's times, for the lines that print beside them (PERF.md sections
 # 5-6: chip_smoke.py runs of the parent, NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_MS = {
@@ -253,6 +268,283 @@ def build_parent(csrc: str):
     cdll.vip_guide.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
     cdll.vip_gradient.argtypes = [p, p, i, i, i, i, p]
     return cdll
+
+
+def smooth_image(h: int, w: int, seed: int) -> np.ndarray:
+    """u8 BGR smooth color fields: a bicubic upsampling (on the CPU) of a
+    small MT19937 image."""
+    import torch
+
+    from various_image_processings_tpu_torch.core.rng import random_image
+
+    coarse = torch.from_numpy(random_image(6, 6 + seed)).permute(2, 0, 1)[None].float()
+    up = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic",
+                                         align_corners=False)
+    return up.round().clamp(0, 255)[0].permute(1, 2, 0).to(torch.uint8).contiguous().numpy()
+
+
+def boundary_recall(ref, got, tol: int = 2) -> float:
+    """Share of ``ref``'s label boundary pixels with a boundary pixel of
+    ``got`` within ``tol`` pixels (Chebyshev), two (H, W) label tensors."""
+    import torch
+
+    def edges(lab):
+        e = torch.zeros(lab.shape, dtype=torch.bool)
+        e[:, :-1] |= lab[:, :-1] != lab[:, 1:]
+        e[:-1, :] |= lab[:-1, :] != lab[1:, :]
+        return e
+
+    ref_e = edges(ref.cpu())
+    near = torch.nn.functional.max_pool2d(edges(got.cpu()).float()[None, None], 2 * tol + 1,
+                                          stride=1, padding=tol)[0, 0] > 0
+    return float((ref_e & near).sum()) / max(float(ref_e.sum()), 1.0)
+
+
+def slic_phases(dev, random_4k: np.ndarray) -> None:
+    """Phases 20-23: SLIC superpixels and their exact Lab.  SLIC has no
+    kernel of its own (the JAX package's is a pure-XLA program, no Pallas
+    kernel): the k-means is plain PyTorch on the card, the connectivity pass
+    native C++ on the host.  ``random_4k`` is the main path's 2160x3840
+    image.  Prints the timing split of a call and its counters, and a
+    ``{"slic": ...}`` line with them."""
+    import cv2
+    import torch
+
+    import various_image_processings_tpu_torch as vt
+    from various_image_processings_tpu_torch.cli import slic as cli_slic
+    from various_image_processings_tpu_torch.core.ciede2000 import ciede2000_square
+    from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
+    from various_image_processings_tpu_torch.core.rng import random_image
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.utils import native
+    from various_image_processings_tpu_torch.utils.io import imread, imwrite
+
+    t_start = time.perf_counter()
+    # 20. Lab on all 2^24 colors: the card's integer path against cv2 and
+    #     against the CPU path (in bands of rows, to bound host memory)
+    c = torch.arange(1 << 24, dtype=torch.int64)
+    colors = torch.stack([c & 255, (c >> 8) & 255, (c >> 16) & 255], -1).to(torch.uint8)
+    colors = colors.reshape(4096, 4096, 3)
+    colors_dev = colors.to(dev)
+    card = bgr2lab_u8_exact(colors_dev)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    bgr2lab_u8_exact(colors_dev)
+    end.record()
+    torch.cuda.synchronize()
+    lab_all_ms = start.elapsed_time(end)
+    card = card.cpu()
+    ref = torch.from_numpy(cv2.cvtColor(colors.numpy(), cv2.COLOR_BGR2Lab))
+    d_cv2 = int((card != ref).sum())
+    d_cpu = sum(int((card[r[0]:r[-1] + 1] != bgr2lab_u8_exact(colors[r[0]:r[-1] + 1])).sum())
+                for r in torch.arange(4096).chunk(4))
+    phase(f"Lab on all 2^24 colors (4096x4096): codes that differ from cv2.cvtColor {d_cv2}, "
+          f"from the CPU path {d_cpu} (tolerance 0); the card's conversion {lab_all_ms:.4f} ms "
+          f"({time.perf_counter() - t_start:.1f} s into phases 20-23)")
+    if d_cv2 or d_cpu:
+        raise SystemExit("the card's Lab differs")
+    del colors, colors_dev, card, ref
+
+    s_size, iters, m = SLIC_PARAMS
+
+    def connected(labels) -> bool:
+        """Every label is one 4-connected component, and the labels are 0..n-1."""
+        lab_np = labels.cpu().numpy()
+        _, ncomp = native.ccl_4conn(lab_np)
+        return int(lab_np.min()) == 0 and ncomp == int(lab_np.max()) + 1
+
+    def kernel_counts(prof) -> tuple[int, float]:
+        """Kernel launches and their device microseconds (copies excluded)."""
+        n = busy = 0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA or "Memcpy" in evt.key \
+                    or "Memset" in evt.key:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            busy += evt.self_cuda_time_total if us is None else us
+            n += evt.count
+        return n, busy
+
+    def measure(model, img, calls: int = SLIC_CALLS, profile: bool = True) -> dict:
+        """Warm wall per call of ``model.apply`` (already called once), the
+        split of one call into its stages (a synchronize after the k-means
+        keeps its tail out of the copy's time), and the counters of one
+        call, profiled (device activity only: host events cost seconds to
+        collect) unless ``profile`` is false."""
+        h, w = img.shape[:2]
+        walls = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.apply(img)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        lab = bgr2lab_u8_exact(img)
+        ev[1].record()
+        raw, _, _, drift = slic.slic_device(lab, h, w, s_size, iters, m, model.metric)
+        ev[2].record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw_h, lab_h, _ = slic._download(raw, lab, drift)
+        t2 = time.perf_counter()
+        final = slic.enforce_connectivity(raw_h, lab_h, s_size, model.metric)
+        t3 = time.perf_counter()
+        torch.from_numpy(final).to(img.device)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        split = {"lab_ms": ev[0].elapsed_time(ev[1]), "kmeans_ms": ev[1].elapsed_time(ev[2]),
+                 "d2h_ms": (t2 - t1) * 1e3, "connectivity_ms": (t3 - t2) * 1e3,
+                 "h2d_ms": (t4 - t3) * 1e3, "split_wall_ms": (t4 - t0) * 1e3}
+        slic.host_syncs = slic.iterations = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launches = busy_us = None
+        if profile:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.apply(img)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            launches, busy_us = kernel_counts(prof)
+        else:
+            model.apply(img)
+        peak = torch.cuda.max_memory_allocated() - base
+        its = slic.iterations
+        return {
+            "wall_ms": statistics.median(walls) if walls else None, "walls_ms": walls, **split,
+            "iterations": its, "host_syncs": slic.host_syncs,
+            "launches_per_iteration": launches / max(its, 1) if launches else None,
+            "device_busy": (busy_us / 1e6 / prof_wall) if busy_us else None,
+            "peak_mib": peak / 2**20, "superpixels": int(model.get_label().max()) + 1,
+            "drift": model.last_max_drift_cells,
+        }
+
+    def show(label: str, t: dict) -> None:
+        """The phase line of one timed configuration."""
+        busy = ("not measured" if t["device_busy"] is None else f"{t['device_busy']:.3f}")
+        launches = ("not measured" if t["launches_per_iteration"] is None
+                    else f"{t['launches_per_iteration']:.1f}")
+        phase(f"SLIC {label}: warm wall {t['wall_ms']:.3f} ms a call (runs "
+              f"{', '.join(f'{x:.3f}' for x in t['walls_ms'])}); split: Lab "
+              f"{t['lab_ms']:.4f} ms, k-means {t['kmeans_ms']:.3f} ms (CUDA events), "
+              f"device->host {t['d2h_ms']:.3f} ms, host connectivity "
+              f"{t['connectivity_ms']:.3f} ms, host->device {t['h2d_ms']:.3f} ms "
+              f"(sum {t['split_wall_ms']:.3f}); {t['iterations']} iterations, "
+              f"{t['host_syncs']} host syncs a call, kernel launches an iteration {launches}, "
+              f"device busy {busy} of the profiled call (torch.profiler), peak memory "
+              f"{t['peak_mib']:.1f} MiB over the resident, {t['superpixels']} superpixels, "
+              f"drift {t['drift']} cells "
+              f"({time.perf_counter() - t_start:.1f} s into phases 20-23)")
+
+    results = {}
+    # 21. config 4 (512x512, S=26, 10 iterations, m=20) on two seeded images,
+    #     through the op, the module and the CLI; the card's labels are held
+    #     bit-equal to the CPU path, then the call is timed and counted
+    h, w = SLIC_SHAPE
+    images = {"random": random_image(h, w), "smooth": smooth_image(h, w, 4)}
+    for name, img_np in images.items():
+        img = torch.from_numpy(img_np).to(dev)
+        cpu_model = vt.SuperpixelSLIC(h, w, s_size, iters, m, device="cpu")
+        want = cpu_model.apply(img_np)
+        slic.host_syncs = slic.iterations = 0
+        got_op = vt.superpixel_slic(img, s_size, iters, m)  # a tensor stays on its device
+        op_syncs, op_iters = slic.host_syncs, slic.iterations
+        model = vt.SuperpixelSLIC(h, w, s_size, iters, m, device=dev)
+        got_module = model.apply(img_np)
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            in_path = os.path.join(tmp, "in.png")
+            imwrite(in_path, img_np)
+            os.chdir(tmp)
+            try:
+                cli_slic.main([in_path, str(s_size), str(iters), str(m), "--device", str(dev)])
+            finally:
+                os.chdir(cwd)
+            mean_png = imread(os.path.join(tmp, "in_slic_mean.png"))
+        want_png = cli_slic.draw_superpixel(img_np, want.numpy())
+        equal = (got_op.device == got_module.device == img.device
+                 and torch.equal(got_op.cpu(), want)
+                 and torch.equal(got_module.cpu(), want))
+        phase(f"SLIC {h}x{w} S={s_size} {iters} it m={m:g} {name}: card labels (op, module) "
+              f"bit-equal to the CPU path {equal}; CLI mean PNG equal "
+              f"{np.array_equal(mean_png, want_png)}; drift {model.last_max_drift_cells} "
+              f"(CPU {cpu_model.last_max_drift_cells}, must be <= 2); connected "
+              f"{connected(got_op)}; op: {op_iters} iterations, {op_syncs} host syncs")
+        if (not equal or not np.array_equal(mean_png, want_png) or not connected(got_op)
+                or model.last_max_drift_cells != cpu_model.last_max_drift_cells
+                or model.last_max_drift_cells > 2.0):
+            raise SystemExit(f"SLIC {name} at {h}x{w} wrong")
+        results[f"512_{name}"] = t = measure(model, img)
+        show(f"{h}x{w} {name}", t)
+
+    # 22. the same at 4K (2160x3840): invariants and timing, no CPU run
+    h, w = MAIN_SHAPE
+    for name, img_np in {"random": random_4k, "smooth": smooth_image(h, w, 4)}.items():
+        img = torch.from_numpy(img_np).to(dev)
+        model = vt.SuperpixelSLIC(h, w, s_size, iters, m, device=dev)
+        t0 = time.perf_counter()
+        got = model.apply(img)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        n = int(got.max()) + 1
+        ok = connected(got) and model.last_max_drift_cells <= 2.0 and 1 <= n <= h * w
+        phase(f"SLIC {h}x{w} {name}: {n} superpixels, connected {connected(got)}, drift "
+              f"{model.last_max_drift_cells} (must be <= 2)")
+        if not ok:
+            raise SystemExit(f"SLIC {name} at 4K failed its invariants")
+        # the random image fragments into many small components, whose
+        # merge makes its host pass seconds long: its wall is the first call's
+        t = measure(model, img, 0 if name == "random" else SLIC_CALLS)
+        if name == "random":
+            t["wall_ms"], t["walls_ms"] = first_ms, [first_ms]
+        results[f"4k_{name}"] = t
+        show(f"{h}x{w} {name}", t)
+
+    # 23. CIEDE2000: one SLIC run at 512x512 on the card, its metric held
+    #     to the JAX package's tolerance of the CPU's on that run's own
+    #     (pixel, center) pairs and on seeded Lab pairs; its labels against
+    #     the CPU path at 130x130 (the CPU's CIEDE2000 k-means at 512x512
+    #     takes tens of seconds): equal, or else a boundary recall >= 0.95 at
+    #     2 px and a segment count within 5%
+    rtol, atol = DELTA_E_TOL
+    h, w = SLIC_SHAPE
+    img_np = images["smooth"]
+    lab = bgr2lab_u8_exact(torch.from_numpy(img_np).to(dev))
+    raw, centers, _, _ = slic.slic_device(lab, h, w, s_size, iters, m, "ciede2000")
+    pix = lab.reshape(-1, 3).float().T
+    cen = centers[raw.reshape(-1).long(), 2:].T
+    pairs = torch.from_numpy(np.random.default_rng(7).integers(
+        -255, 256, (6, 1 << 16)).astype(np.float32))
+    de_card = torch.cat([ciede2000_square(*cen, *pix), ciede2000_square(*pairs.to(dev))]).cpu()
+    de_cpu = torch.cat([ciede2000_square(*cen.cpu(), *pix.cpu()), ciede2000_square(*pairs)])
+    de_ok = bool(torch.allclose(de_card, de_cpu, rtol=rtol, atol=atol))
+    small = images["smooth"][:130, :130].copy()
+    want = vt.superpixel_slic(small, s_size, iters, m, "ciede2000", device="cpu")
+    got = vt.superpixel_slic(torch.from_numpy(small).to(dev), s_size, iters, m, "ciede2000")
+    equal = torch.equal(got.cpu(), want)
+    recall = boundary_recall(want, got)
+    n_want, n_got = int(want.max()) + 1, int(got.max()) + 1
+    phase(f"CIEDE2000: card vs CPU on the {h}x{w} run's {h * w} (pixel, center) pairs and "
+          f"65536 seeded Lab pairs max |diff| {max_abs(de_card, de_cpu):.3g} (rtol {rtol}, "
+          f"atol {atol}: {de_ok}); SLIC {small.shape[0]}x{small.shape[1]} smooth "
+          f"metric=ciede2000: labels equal "
+          f"{equal}, boundary recall at 2 px {recall:.4f}, {n_got} superpixels (CPU {n_want})")
+    if not de_ok or not (equal or (recall >= 0.95 and abs(n_got - n_want) <= 0.05 * n_want)):
+        raise SystemExit("CIEDE2000 outside its tolerance")
+    model = vt.SuperpixelSLIC(h, w, s_size, iters, m, "ciede2000", device=dev)
+    # not profiled: its ~46000 launches a call take the profiler many seconds
+    results["512_smooth_ciede2000"] = t = measure(model, torch.from_numpy(img_np).to(dev), 1,
+                                                  profile=False)
+    show(f"{h}x{w} smooth ciede2000", t)
+    print(json.dumps({"slic": results}), flush=True)
+    phase(f"SLIC phases 20-23 took {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -1138,6 +1430,8 @@ def main() -> int:
         if (full_counts[5] < 1 or psnr_k < psnr_p - 2.0
                 or not torch.equal(full_out[~hole], full[~hole])):
             raise SystemExit("full-range fill outside the hole-PSNR window")
+
+    slic_phases(dev, img_np)
 
     main_label = "600x900"
     entries = [{

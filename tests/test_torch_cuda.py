@@ -702,3 +702,80 @@ def test_wexler_full_range_fill_within_the_psnr_window(cuda, image):
     inside = hole > 0
     assert torch.equal(out[~inside], src[~inside])
     assert hole_psnr(out, src, inside) >= hole_psnr(ref, src, inside) - 2.0
+
+
+# ---------------------------------------------------------------------------
+# SLIC, Lab, CIEDE2000 and the class API on the card (no kernel of the
+# port's own: plain PyTorch on the device, held to the CPU path)
+# ---------------------------------------------------------------------------
+
+def smooth_u8(shape, seed):
+    coarse = torch.from_numpy(random_image(6, 6 + seed)).permute(2, 0, 1)[None].float()
+    smooth = torch.nn.functional.interpolate(coarse, size=shape, mode="bicubic",
+                                             align_corners=False)
+    return smooth.round().clamp(0, 255)[0].permute(1, 2, 0).to(torch.uint8).contiguous()
+
+
+@pytest.mark.parametrize("shape,s,iters", [((64, 96), 32, 5), ((130, 130), 26, 10),
+                                           ((97, 203), 16, 10)])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_slic_on_the_card_bit_equal_to_cpu(cuda, shape, s, iters, kind):
+    from various_image_processings_tpu_torch.models import slic
+
+    img = (torch.from_numpy(random_image(*shape)) if kind == "random"
+           else smooth_u8(shape, iters))
+    cpu_model = vt.SuperpixelSLIC(*shape, s, iters, device="cpu")
+    card_model = vt.SuperpixelSLIC(*shape, s, iters)
+    want = cpu_model.apply(img)
+    got = card_model.apply(img.to(cuda))
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    assert card_model.last_max_drift_cells == cpu_model.last_max_drift_cells
+    lab = vt.core.bgr2lab_u8_exact(img)
+    raw_cpu = slic.slic_device(lab, *shape, s, iters, 20.0)
+    raw_card = slic.slic_device(lab.to(cuda), *shape, s, iters, 20.0)
+    for a, b in zip(raw_card, raw_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name", ["ciede2000_square", "ciede2000_ref_square"])
+def test_delta_e_on_the_card_within_tolerance(cuda, name):
+    """The transcendentals differ by ulps between the CPU and the card: the
+    JAX package's tolerance (rtol 5e-4, atol 5e-2) holds."""
+    from various_image_processings_tpu_torch.core import ciede2000
+
+    v = torch.from_numpy(np.random.default_rng(7).integers(-255, 256, (6, 1 << 16)).astype(
+        np.float32))
+    fn = getattr(ciede2000, name)
+    want = fn(*v)
+    got = fn(*v.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-4, atol=5e-2)
+
+
+@pytest.mark.parametrize("metric", ["ciede2000", "ciede2000_ref"])
+def test_slic_delta_e_on_the_card(cuda, metric):
+    img = torch.zeros((40, 40, 3), dtype=torch.uint8)
+    img[:20] = torch.tensor([255, 0, 0], dtype=torch.uint8)
+    img[20:] = torch.tensor([0, 0, 255], dtype=torch.uint8)
+    labels = vt.superpixel_slic(img.to(cuda), 20, 3, metric=metric).cpu()
+    assert not set(labels[:20].flatten().tolist()) & set(labels[20:].flatten().tolist())
+
+
+def test_lab_on_the_card_equals_cpu_on_every_color(cuda):
+    c = torch.arange(1 << 24, dtype=torch.int64)
+    img = torch.stack([c & 255, (c >> 8) & 255, (c >> 16) & 255], -1).to(torch.uint8)
+    img = img.reshape(4096, 4096, 3)
+    got = vt.core.bgr2lab_u8_exact(img.to(cuda)).cpu()
+    for rows in torch.arange(4096).chunk(4):
+        band = img[rows[0]:rows[-1] + 1]
+        assert torch.equal(got[rows[0]:rows[-1] + 1], vt.core.bgr2lab_u8_exact(band))
+
+
+def test_device_image_and_warmup_on_the_card(cuda):
+    src = random_image(40, 40)
+    img = vt.DeviceImage.from_array(src)
+    assert img.get().is_cuda
+    np.testing.assert_array_equal(img.download(), src)
+    f = vt.BilateralFilter(40, 40, 9, 10.0, 30.0)
+    assert f.warmup() is f
+    assert torch.equal(f(img.get()), vt.bilateral_filter(img.get(), 9, 10.0, 30.0))

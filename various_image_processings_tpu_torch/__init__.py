@@ -8,18 +8,22 @@ stays the reference the port is tested against.
 
 Ported so far: the bilateral and joint bilateral filters, the gradient
 magnitude, the bilateral texture filter, the border-replicated integral
-image, the adaptive bilateral filter, the Gaussian pyramid and Wexler
-exemplar-based inpainting.
+image, the adaptive bilateral filter, the Gaussian pyramid, Wexler
+exemplar-based inpainting, SLIC superpixels (exact OpenCV Lab, CIEDE2000,
+the k-means as plain PyTorch on the device, the connectivity pass in native
+C++ on the host) and the class API's ``DeviceImage`` and ``warmup()``.
 """
 
 __version__ = "0.1.0"
 
 from . import core as core
+from .core import DeviceImage as DeviceImage
 from . import models as models
 from . import ops as ops
 from .models import AdaptiveBilateralFilter as AdaptiveBilateralFilter
 from .models import BilateralFilter as BilateralFilter
 from .models import BilateralTextureFilter as BilateralTextureFilter
+from .models import SuperpixelSLIC as SuperpixelSLIC
 from .models import WexlerInpainting as WexlerInpainting
 from .ops import (
     adaptive_bilateral_filter as adaptive_bilateral_filter,
@@ -29,5 +33,6 @@ from .ops import (
     inpainting_wexler as inpainting_wexler,
     integral_image as integral_image,
     joint_bilateral_filter as joint_bilateral_filter,
+    superpixel_slic as superpixel_slic,
     window_sums as window_sums,
 )

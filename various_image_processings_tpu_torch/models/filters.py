@@ -7,8 +7,9 @@ and ``CudaBilateralTextureFilter``
 (include/cuda/bilateral_texture_filter.hpp:7-19): the constructor fixes the
 image size and parameters and builds the tables once, on ``device`` (the GPU
 unless the caller passes ``device="cpu"``); calls then run without per-call
-setup.  The tap table and range LUT are registered buffers, so
-``.to(device)`` moves them with the module.
+setup; ``warmup()`` makes the first call ahead of time.  The tap table and
+range LUT are registered buffers, so ``.to(device)`` moves them with the
+module.
 """
 
 from __future__ import annotations
@@ -74,6 +75,16 @@ class _TableFilter(nn.Module):
         if img.device != self.lut.device:
             raise ValueError(f"input on {img.device}, filter on {self.lut.device}")
         return img.contiguous()
+
+    def warmup(self):
+        """One call on a zeros image of the module's shape, then a
+        synchronize: on the card this builds the kernels ahead of the first
+        real call.  Returns ``self``."""
+        self(torch.zeros((self.height, self.width, 3), dtype=torch.uint8,
+                         device=self.lut.device))
+        if self.lut.is_cuda:
+            torch.cuda.synchronize(self.lut.device)
+        return self
 
 
 class BilateralFilter(_TableFilter):

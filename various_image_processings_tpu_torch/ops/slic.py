@@ -1,0 +1,34 @@
+"""SLIC superpixels: the functional wrapper over ``models/slic.py``.
+
+Counterpart of ``superpixel_slic`` (reference: include/cpp/slic.hpp:482) and
+of the JAX package's ``ops/slic.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _validate
+
+
+def superpixel_slic(image, superpixel_size: int = 30, num_iteration: int = 10,
+                    color_scale: float = 20.0, metric: str = "euclidean",
+                    device="cuda") -> torch.Tensor:
+    """(H, W, 3) u8 BGR → (H, W) int32 superpixel labels, on the image's
+    device (a NumPy image goes to ``device``, the GPU unless the caller
+    passes ``device="cpu"``).
+
+    metric: "euclidean" (the reference default, L scaled by 2.55),
+    "ciede2000" (correct CIEDE2000, carried by the reference but never
+    selectable there) or "ciede2000_ref" (the reference's π-scaled variant,
+    core/ciede2000.py).
+
+    There is no ``impl`` parameter: the k-means is plain PyTorch on the
+    device (the JAX package's is a pure-XLA program, with no Pallas kernel),
+    and the connectivity pass runs in native C++ on the host."""
+    from ..models.slic import SuperpixelSLIC
+    img = _validate.as_tensor(image, device)
+    _validate.check_u8_color("image", img)
+    slic = SuperpixelSLIC(img.shape[0], img.shape[1], superpixel_size, num_iteration,
+                          color_scale, metric, device=img.device)
+    return slic.apply(img)
