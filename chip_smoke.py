@@ -50,6 +50,17 @@ its split (Lab, k-means, the copies, the host connectivity) and counters
 (iterations, host syncs, launches an iteration, device-busy share, peak
 memory, superpixels), and a ``{"slic": ...}`` line holds them.
 
+Then the parallel layer and the timing twins (phases 24-26): the batch
+fan-out on ``make_mesh()`` at BASELINE.md config 5b (64 4K frames, k=9) and
+config 3b (8 600x900 BTFs), the ABF and gradient on 8 4K frames, SLIC on 4
+512x512 images and Wexler on 2 402x700 images; row sharding on 2, 4 and 8
+logical shards of the card (BF, JBF, ABF, gradient, BTF with a halo
+exchange before every stage, and both batch-spatial functions on a 2x2
+mesh), every output byte-equal to the single-device op and each path's
+launches counted; then ``measure``, ``trace`` and ``vip-torch-benchmark``
+at its default size and at 4K.  A ``{"parallel": ...}`` line holds the
+times.
+
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
 times their guide and gradient kernels in turns with this tree's (parent,
@@ -57,7 +68,8 @@ change, change, parent), and a BTF call whose gradient and guide are the
 parent's, in the same process on the same card.
 
 Every phase prints a line; any failure exits non-zero.  On success the line
-before the last is ``{"kernels": [...]}`` and the last is
+before the last is ``{"kernels": [...]}`` (the kernels' own runs; the
+parallel phases count their launches on their own line) and the last is
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits 1.
 """
@@ -119,6 +131,9 @@ SLIC_SHAPE = (512, 512)                   # BASELINE.md config 4
 SLIC_PARAMS = (26, 10, 20.0)              # superpixel size S, iterations, color scale m
 SLIC_CALLS = 3                            # warm calls timed a configuration
 DELTA_E_TOL = (5e-4, 5e-2)                # rtol, atol: tests/test_ciede2000.py's
+PARALLEL_BATCH = 64                       # BASELINE.md config 5b: 64 4K frames
+BTF_BATCH = 8                             # config 3b: 8 600x900 frames
+SHARD_COUNTS = (2, 4, 8)                  # logical shards of the 4K BF
 # the parent's times, for the lines that print beside them (PERF.md sections
 # 5-6: chip_smoke.py runs of the parent, NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_MS = {
@@ -137,6 +152,20 @@ PARENT_MS = {
     ("ABF", "4K"): "0.5239-0.5279",
     ("ABF", "512x512"): "0.0225",
 }
+
+# phase 26: one 4K bilateral filter under utils.profiling.trace, in its own process
+TRACE_SCRIPT = """
+import sys
+import torch
+import various_image_processings_tpu_torch as vt
+from various_image_processings_tpu_torch.utils.profiling import trace
+img = torch.randint(0, 256, (2160, 3840, 3), dtype=torch.uint8, device="cuda")
+vt.bilateral_filter(img)
+torch.cuda.synchronize()
+with trace(sys.argv[1]):
+    vt.bilateral_filter(img)
+    torch.cuda.synchronize()
+"""
 
 # H100 SXM peaks: HBM bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -545,6 +574,327 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
     show(f"{h}x{w} smooth ciede2000", t)
     print(json.dumps({"slic": results}), flush=True)
     phase(f"SLIC phases 20-23 took {time.perf_counter() - t_start:.1f} s")
+
+
+def parallel_phases(dev) -> dict:
+    """Phases 24-26: the parallel layer and the timing twins.  24: batch
+    fan-out on ``make_mesh()`` at BASELINE.md configs 5b and 3b, the ABF
+    and gradient, SLIC and Wexler; 25: row sharding on logical shards of one
+    card (real kernels on each shard, real halo copies); 26: ``measure``,
+    ``trace`` and ``vip-torch-benchmark``.  Every batched and sharded output
+    is held byte-equal to the single-device op, and each path's kernel
+    launches are counted from 0.  Prints a ``{"parallel": ...}`` line and
+    returns its object."""
+    import contextlib
+    import io
+    import warnings
+
+    import torch
+
+    import various_image_processings_tpu_torch as vt
+    from various_image_processings_tpu_torch import parallel as par
+    from various_image_processings_tpu_torch.parallel import spatial as par_spatial
+    from various_image_processings_tpu_torch.cli import benchmark as cli_bench
+    from various_image_processings_tpu_torch.core.rng import random_image
+    from various_image_processings_tpu_torch.ops.cuda import adaptive_bilateral as kab
+    from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
+    from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
+    from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
+    from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws
+    from various_image_processings_tpu_torch.utils.profiling import (
+        cuda_time_ms, measure, measure_throughput)
+
+    t_start = time.perf_counter()
+    counters = {"gradient": (kgr, "launches"), "blur_rtv": (kbt, "blur_rtv_launches"),
+                "guide": (kbt, "guide_launches"), "bilateral": (kbf, "launches"),
+                "adaptive_bilateral": (kab, "launches"), "wexler_search": (kws, "launches")}
+
+    def reset() -> None:
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read() -> dict:
+        torch.cuda.synchronize()
+        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+    def expect(label: str, got: dict, want: dict) -> None:
+        """The path launched exactly ``want`` (other kernels: none)."""
+        full = {name: want.get(name, 0) for name in counters}
+        if got != full:
+            raise SystemExit(f"{label}: launches {got}, expected {full}")
+
+    def same(label: str, a, b) -> None:
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise SystemExit(f"{label}: differs from the single-device op")
+
+    def since() -> str:
+        return f"({time.perf_counter() - t_start:.1f} s into phases 24-26)"
+
+    results = {"batched": {}, "sharded": {}, "twins": {}}
+    h, w = MAIN_SHAPE
+    k, ss, sc = MAIN_PARAMS
+    bh, bw = BTF_SHAPE
+    mp_4k = h * w / 1e6
+
+    # 24. batch fan-out on make_mesh(): every CUDA device on the batch axis
+    mesh = par.make_mesh()
+    phase(f"make_mesh(): {mesh}")
+    results["mesh"] = repr(mesh)
+    base = torch.from_numpy(random_image(h, w)).to(dev)
+    # config 5b: 64 4K frames (row-rolls of one), built on the card
+    frames = torch.empty((PARALLEL_BATCH, h, w, 3), dtype=torch.uint8, device=dev)
+    for i in range(PARALLEL_BATCH):
+        frames[i] = base.roll(i, 0)
+    reset()
+    out = par.bilateral_filter_batched(frames, k, ss, sc, mesh=mesh)
+    expect("config 5b", read(), {"bilateral": PARALLEL_BATCH})
+    for i in range(PARALLEL_BATCH):  # one image at a time: 64 outputs are never held twice
+        same(f"config 5b image {i}", out[i], vt.bilateral_filter(frames[i], k, ss, sc))
+    del out
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch_ms = cuda_time_ms(lambda: par.bilateral_filter_batched(frames, k, ss, sc, mesh=mesh),
+                            iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    single_ms = cuda_time_ms(lambda: vt.bilateral_filter(frames[0], k, ss, sc), iters=50)
+    mps = PARALLEL_BATCH * mp_4k / batch_ms * 1e3
+    phase(f"config 5b, {PARALLEL_BATCH}x{h}x{w} k={k}: byte-equal to the single-device op "
+          f"per image; {PARALLEL_BATCH} bilateral launches; {batch_ms:.4f} ms a batch (CUDA "
+          f"events, median of 5), {mps:.1f} MP/s; {PARALLEL_BATCH} x the single call "
+          f"{PARALLEL_BATCH * single_ms:.4f} ms ({single_ms:.4f} ms a call); peak memory "
+          f"{peak / 2**30:.3f} GiB over the resident {resident / 2**30:.3f} GiB (the input "
+          f"batch among it) {since()}")
+    results["batched"]["bf_64x4k"] = {
+        "ms": batch_ms, "mps": mps, "launches": PARALLEL_BATCH, "single_ms": single_ms,
+        "n_times_single_ms": PARALLEL_BATCH * single_ms, "peak_gib_over_resident": peak / 2**30}
+
+    # config 3b: 8 600x900 frames, BTF k=9 nitr=3
+    small = torch.from_numpy(random_image(bh, bw)).to(dev)
+    small_frames = torch.stack([small.roll(i, 0) for i in range(BTF_BATCH)])
+    reset()
+    out = par.bilateral_texture_filter_batched(small_frames, BTF_KSIZE, BTF_NITR, mesh=mesh)
+    n = BTF_BATCH * BTF_NITR
+    expect("config 3b", read(), {"gradient": n, "blur_rtv": n, "guide": n, "bilateral": n})
+    for i in range(BTF_BATCH):
+        same(f"config 3b image {i}", out[i],
+             vt.bilateral_texture_filter(small_frames[i], BTF_KSIZE, BTF_NITR))
+    batch_ms = cuda_time_ms(lambda: par.bilateral_texture_filter_batched(
+        small_frames, BTF_KSIZE, BTF_NITR, mesh=mesh), iters=5, warmup=1)
+    single_ms = cuda_time_ms(lambda: vt.bilateral_texture_filter(
+        small_frames[0], BTF_KSIZE, BTF_NITR), iters=20)
+    phase(f"config 3b, {BTF_BATCH}x{bh}x{bw} BTF k={BTF_KSIZE} nitr={BTF_NITR}: byte-equal "
+          f"per image; {4 * n} launches; {batch_ms:.4f} ms a batch (CUDA events, median of "
+          f"5); {BTF_BATCH} x the single call {BTF_BATCH * single_ms:.4f} ms "
+          f"({single_ms:.4f} ms a call) {since()}")
+    results["batched"]["btf_8x600x900"] = {
+        "ms": batch_ms, "launches": 4 * n, "single_ms": single_ms,
+        "n_times_single_ms": BTF_BATCH * single_ms}
+
+    # the ABF and the gradient on 8 4K frames
+    eight = frames[:8]
+    for name, batched, single, want in (
+            ("abf", lambda: par.adaptive_bilateral_filter_batched(eight, k, ss, sc, mesh=mesh),
+             lambda i: vt.adaptive_bilateral_filter(eight[i], k, ss, sc),
+             {"adaptive_bilateral": len(eight)}),
+            ("gradient", lambda: par.gradient_batched(eight, mesh=mesh),
+             lambda i: vt.gradient(eight[i]), {"gradient": len(eight)})):
+        reset()
+        out = batched()
+        expect(f"{name} batched", read(), want)
+        for i in range(len(eight)):
+            same(f"{name} batched image {i}", out[i], single(i))
+        batch_ms = cuda_time_ms(batched, iters=5, warmup=1)
+        single_ms = cuda_time_ms(lambda: single(0), iters=20)
+        phase(f"{name} batched, {len(eight)}x{h}x{w}: byte-equal per image; {batch_ms:.4f} ms a batch, "
+              f"{len(eight)} x the single call {len(eight) * single_ms:.4f} ms {since()}")
+        results["batched"][f"{name}_8x4k"] = {"ms": batch_ms, "single_ms": single_ms,
+                                              "n_times_single_ms": len(eight) * single_ms}
+    del frames, eight, out
+
+    # SLIC, config 4 on 4 smooth 512x512 images
+    sh, sw = SLIC_SHAPE
+    s_size, iters, m = SLIC_PARAMS
+    slic_in = torch.stack([torch.from_numpy(smooth_image(sh, sw, seed)) for seed in
+                           range(1, 5)]).to(dev)
+    singles = [vt.superpixel_slic(slic_in[i], s_size, iters, m) for i in range(4)]  # warm-up
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        labels = par.superpixel_slic_batched(slic_in, s_size, iters, m, mesh=mesh)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    for i in range(4):
+        same(f"SLIC batched image {i}", labels[i], singles[i])
+    t0 = time.perf_counter()
+    for i in range(4):
+        vt.superpixel_slic(slic_in[i], s_size, iters, m)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    phase(f"SLIC batched, 4x{sh}x{sw} S={s_size} {iters} it m={m:g}: labels equal to "
+          f"superpixel_slic per image; warm: {batch_s * 1e3:.1f} ms a batch, 4 single calls "
+          f"{single_s * 1e3:.1f} ms (host clock); drift warnings {len(caught)} {since()}")
+    results["batched"]["slic_4x512"] = {"ms": batch_s * 1e3, "singles_ms": single_s * 1e3}
+
+    # Wexler, config 5a on two 402x700 images (phase 15's texture and its mirror)
+    wh, ww = WEXLER_SHAPE
+    tex = np.tile(random_image(37, 53) // 2, (-(-wh // 37), -(-ww // 53), 1))[:wh, :ww]
+    wex_in = torch.from_numpy(np.stack([tex, tex[:, ::-1]]).copy()).to(dev)
+    mask = torch.from_numpy(wexler_masks(wh, ww)["5a"]).to(dev)
+    masks = torch.stack([mask, mask])
+    reset()
+    t0 = time.perf_counter()
+    fills = par.inpainting_wexler_batched(wex_in, masks)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    searches = read()
+    if searches["wexler_search"] < 2 or any(v for n_, v in searches.items()
+                                            if n_ != "wexler_search"):
+        raise SystemExit(f"Wexler batched: launches {searches}")
+    t0 = time.perf_counter()
+    for i in range(2):
+        same(f"Wexler batched image {i}", fills[i], vt.inpainting_wexler(wex_in[i], masks[i]))
+    single_s = time.perf_counter() - t0
+    phase(f"Wexler batched, 2x{wh}x{ww} config 5a: byte-equal to inpainting_wexler per "
+          f"image; {searches['wexler_search']} searches through the kernel; "
+          f"{batch_s:.3f} s a batch, 2 single calls {single_s:.3f} s (host clock) {since()}")
+    results["batched"]["wexler_2x402x700"] = {"s": batch_s, "singles_s": single_s,
+                                              "searches": searches["wexler_search"]}
+
+    # 25. row sharding on logical shards of one card.  On one card the shards
+    #     run one after another, so sharded - single is the cost of the halo
+    #     copies, crops and gather, not a scaling figure
+    def logical(batch: int, spatial: int):
+        return par.make_mesh(batch=batch, spatial=spatial, devices=[dev] * (batch * spatial))
+
+    def sharded_case(label, fn, ref, single, want, iters=10):
+        reset()
+        got = fn()
+        expect(label, read(), want)
+        same(label, got, ref)
+        ms, one_ms = cuda_time_ms(fn, iters=iters), cuda_time_ms(single, iters=iters)
+        phase(f"{label}: byte-equal (tolerance 0), launches {sum(want.values())}; sharded "
+              f"{ms:.4f} ms, single device {one_ms:.4f} ms: halo copies, crops and gather "
+              f"cost {ms - one_ms:+.4f} ms (CUDA events, median of {iters}) {since()}")
+        results["sharded"][label] = {"ms": ms, "single_ms": one_ms, "overhead_ms": ms - one_ms}
+
+    ref_bf = vt.bilateral_filter(base, k, ss, sc)
+    for d in SHARD_COUNTS:
+        row = logical(1, d)
+        label = f"bf {h}x{w} k={k} on {d} shards"
+        sharded_case(label, lambda: par.bilateral_filter_sharded(base, k, ss, sc, mesh=row),
+                     ref_bf, lambda: vt.bilateral_filter(base, k, ss, sc), {"bilateral": d})
+        # the overhead's parts: the halo exchange (slices, edge rows, one cat a
+        # shard) and the gather of the cropped outputs into one tensor
+        devices = list(row.devices[0])
+        exchange_ms = cuda_time_ms(lambda: par.halo_exchange_rows(
+            par_spatial.split_rows(base, devices), k // 2))
+        parts = par_spatial.split_rows(ref_bf, devices)
+        gather_ms = cuda_time_ms(lambda: par_spatial.gather(parts, dev))
+        phase(f"{label}: of which halo exchange {exchange_ms:.4f} ms, gather {gather_ms:.4f} "
+              f"ms (CUDA events, median of 20)")
+        results["sharded"][label].update(exchange_ms=exchange_ms, gather_ms=gather_ms)
+    guide = base.flip(0).contiguous()
+    jk, jss, jsc = BTF_PARAMS
+    row = logical(1, 4)
+    sharded_case(f"jbf {h}x{w} k={jk} on 4 shards",
+                 lambda: par.joint_bilateral_filter_sharded(base, guide, jk, jss, jsc,
+                                                            mesh=row),
+                 vt.joint_bilateral_filter(base, guide, jk, jss, jsc),
+                 lambda: vt.joint_bilateral_filter(base, guide, jk, jss, jsc),
+                 {"bilateral": 4})
+    sharded_case(f"abf {h}x{w} k={k} on 4 shards",
+                 lambda: par.adaptive_bilateral_filter_sharded(base, k, ss, sc,
+                                                               mesh=row),
+                 vt.adaptive_bilateral_filter(base, k, ss, sc),
+                 lambda: vt.adaptive_bilateral_filter(base, k, ss, sc),
+                 {"adaptive_bilateral": 4})
+    sharded_case(f"gradient {h}x{w} on 4 shards",
+                 lambda: par.gradient_sharded(base, mesh=row), vt.gradient(base),
+                 lambda: vt.gradient(base), {"gradient": 4})
+    for img in (small, base):
+        ih, iw = img.shape[:2]
+        ref = vt.bilateral_texture_filter(img, BTF_KSIZE, BTF_NITR)
+        for d in (2, 4):
+            n, row = d * BTF_NITR, logical(1, d)
+            sharded_case(f"btf {ih}x{iw} k={BTF_KSIZE} nitr={BTF_NITR} on {d} shards",
+                         lambda: par.bilateral_texture_filter_sharded(
+                             img, BTF_KSIZE, BTF_NITR, mesh=row),
+                         ref, lambda: vt.bilateral_texture_filter(img, BTF_KSIZE, BTF_NITR),
+                         {"gradient": n, "blur_rtv": n, "guide": n, "bilateral": n}, iters=5)
+    four = torch.stack([base.roll(i, 1) for i in range(4)])
+    four_guides = four.flip(1).contiguous()
+    grid = logical(2, 2)
+    for name, fn, ref_i, single in (
+            ("bf", lambda: par.bilateral_filter_batch_spatial(four, k, ss, sc, mesh=grid),
+             lambda i: vt.bilateral_filter(four[i], k, ss, sc),
+             lambda: [vt.bilateral_filter(four[i], k, ss, sc) for i in range(4)]),
+            ("jbf", lambda: par.joint_bilateral_filter_batch_spatial(
+                four, four_guides, k, ss, sc, mesh=grid),
+             lambda i: vt.joint_bilateral_filter(four[i], four_guides[i], k, ss, sc),
+             lambda: [vt.joint_bilateral_filter(four[i], four_guides[i], k, ss, sc)
+                      for i in range(4)])):
+        sharded_case(f"{name} batch-spatial 4x{h}x{w} k={k} on a 2x2 mesh", fn,
+                     torch.stack([ref_i(i) for i in range(4)]), single, {"bilateral": 8},
+                     iters=5)
+
+    # 26. the timing twins and vip-torch-benchmark
+    bf = lambda: vt.bilateral_filter(base, k, ss, sc)  # noqa: E731
+    event_ms = cuda_time_ms(bf, iters=50)
+    wall_ms = measure(bf, 50)
+    tp_ms, tp_mps = measure_throughput(bf, h * w, 50)
+    phase(f"measure on the 4K BF: fenced wall mean {wall_ms:.4f} ms, measure_throughput "
+          f"{tp_ms:.4f} ms ({tp_mps:.1f} MP/s); cuda_time_ms median {event_ms:.4f} ms; the "
+          f"wall mean must not be below the event median {since()}")
+    if min(wall_ms, tp_ms) < event_ms:
+        raise SystemExit("a fenced wall time came out below the device time")
+    # the trace is taken in a fresh process: in this one, the profiled runs
+    # of phases 17 and 21-23 can leave CUPTI recording no device activity
+    # (seen in a full run), and the trace must show the kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([sys.executable, "-c", TRACE_SCRIPT, tmp], check=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    named = [n_ for n_ in kernels if "bilateral_kernel" in n_]
+    phase(f"trace: {len(events)} events, device kernels {kernels[:4]}")
+    if not named:
+        raise SystemExit("the trace names no bilateral kernel")
+    results["twins"] = {"measure_ms": wall_ms, "throughput_ms": tp_ms, "throughput_mps": tp_mps,
+                        "cuda_time_ms": event_ms, "trace_kernels": len(kernels)}
+
+    def bench(argv) -> dict:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if cli_bench.main(argv) != 0:
+                raise SystemExit(f"vip-torch-benchmark {argv} failed")
+        lines = {}
+        for line in buf.getvalue().splitlines():
+            if "[msec]" in line:
+                match = re.fullmatch(r"(.+?)\s*: +([0-9.]+) \[msec\]  \( *([0-9.]+) MP/s\)", line)
+                if match is None or not float(match.group(2)) > 0:
+                    raise SystemExit(f"vip-torch-benchmark line does not parse: {line!r}")
+                lines[match.group(1)] = float(match.group(2))
+        if len(lines) != 9:
+            raise SystemExit(f"vip-torch-benchmark printed {len(lines)} [msec] lines, not 9")
+        phase(f"vip-torch-benchmark {' '.join(argv) or '(defaults)'}: "
+              f"{time.perf_counter() - t0:.1f} s; " + "; ".join(f"{n_} {v:.4f} ms"
+                                                               for n_, v in lines.items()))
+        return lines
+
+    results["twins"]["benchmark_default"] = bench([])
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "config.toml")
+        with open(cfg, "w") as f:
+            f.write("execute_times = 10\n")
+        results["twins"]["benchmark_4k"] = bench(["--size", str(h), str(w), cfg])
+    results["seconds"] = time.perf_counter() - t_start
+    phase(f"phases 24-26 took {results['seconds']:.1f} s")
+    print(json.dumps({"parallel": results}), flush=True)
+    return results
 
 
 def main() -> int:
@@ -1432,6 +1782,7 @@ def main() -> int:
             raise SystemExit("full-range fill outside the hole-PSNR window")
 
     slic_phases(dev, img_np)
+    parallel_phases(dev)
 
     main_label = "600x900"
     entries = [{

@@ -779,3 +779,36 @@ def test_device_image_and_warmup_on_the_card(cuda):
     f = vt.BilateralFilter(40, 40, 9, 10.0, 30.0)
     assert f.warmup() is f
     assert torch.equal(f(img.get()), vt.bilateral_filter(img.get(), 9, 10.0, 30.0))
+
+
+@pytest.mark.parametrize("spatial", [2, 4])
+def test_parallel_sharded_filters_on_logical_shards(cuda, spatial):
+    # logical shards of one card: each shard launches the kernel on its rows
+    from various_image_processings_tpu_torch import parallel
+    img = torch.from_numpy(random_image(64, 48)).to(cuda)
+    mesh = parallel.make_mesh(batch=1, spatial=spatial, devices=[cuda] * spatial)
+    before = cuda_bf.launches
+    out = parallel.bilateral_filter_sharded(img, 9, mesh=mesh)
+    torch.cuda.synchronize()
+    assert cuda_bf.launches - before == spatial
+    assert out.is_cuda and torch.equal(out, vt.bilateral_filter(img, 9))
+    out = parallel.bilateral_texture_filter_sharded(img, 5, 2, mesh=mesh)
+    assert torch.equal(out, vt.bilateral_texture_filter(img, 5, 2))
+    assert torch.equal(parallel.gradient_sharded(img, mesh=mesh), vt.gradient(img))
+    assert torch.equal(parallel.adaptive_bilateral_filter_sharded(img, 9, mesh=mesh),
+                       vt.adaptive_bilateral_filter(img, 9))
+
+
+def test_parallel_batched_btf_on_the_card(cuda):
+    from various_image_processings_tpu_torch import parallel
+    imgs = torch.stack([torch.from_numpy(random_image(40, 32)).roll(i, 0)
+                        for i in range(4)]).to(cuda)
+    mesh = parallel.make_mesh(batch=2, spatial=1, devices=[cuda] * 2)
+    out = parallel.bilateral_texture_filter_batched(imgs, 5, 2, mesh=mesh)
+    assert out.is_cuda and out.shape == imgs.shape
+    for i in range(4):
+        assert torch.equal(out[i], vt.bilateral_texture_filter(imgs[i], 5, 2))
+    both = parallel.bilateral_filter_batch_spatial(
+        imgs, 9, mesh=parallel.make_mesh(batch=2, spatial=2, devices=[cuda] * 4))
+    for i in range(4):
+        assert torch.equal(both[i], vt.bilateral_filter(imgs[i], 9))

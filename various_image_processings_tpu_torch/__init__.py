@@ -6,12 +6,16 @@ the TPU is a CUDA C++ kernel written for sm_90a (``csrc/``), built with nvcc
 at first use.  The package imports neither jax nor the JAX package, which
 stays the reference the port is tested against.
 
-Ported so far: the bilateral and joint bilateral filters, the gradient
+Ported: the bilateral and joint bilateral filters, the gradient
 magnitude, the bilateral texture filter, the border-replicated integral
 image, the adaptive bilateral filter, the Gaussian pyramid, Wexler
 exemplar-based inpainting, SLIC superpixels (exact OpenCV Lab, CIEDE2000,
 the k-means as plain PyTorch on the device, the connectivity pass in native
-C++ on the host) and the class API's ``DeviceImage`` and ``warmup()``.
+C++ on the host), the class API's ``DeviceImage`` and ``warmup()``, the
+parallel layer (``parallel/``: a mesh of devices, batch fan-out, row-sharded
+stencils with halo exchange, batched SLIC and Wexler), the timing utilities
+(``utils/profiling.py``) and the benchmark CLI (``vip-torch-benchmark``).
+That is every module of the JAX package but ``golden/``, the tests' oracle.
 """
 
 __version__ = "0.1.0"
@@ -20,6 +24,7 @@ from . import core as core
 from .core import DeviceImage as DeviceImage
 from . import models as models
 from . import ops as ops
+from . import parallel as parallel
 from .models import AdaptiveBilateralFilter as AdaptiveBilateralFilter
 from .models import BilateralFilter as BilateralFilter
 from .models import BilateralTextureFilter as BilateralTextureFilter

@@ -422,6 +422,13 @@ def _download(labels: torch.Tensor, lab: torch.Tensor, drift: torch.Tensor):
             float(host[7 * n:].view(np.float32)[0]))
 
 
+def check_params(superpixel_size: int, metric: str) -> None:
+    if superpixel_size < 2:
+        raise ValueError("superpixel_size must be >= 2")
+    if metric not in METRICS:
+        raise ValueError(f"unknown SLIC metric {metric!r}")
+
+
 class SuperpixelSLIC:
     """Counterpart of the reference class (include/cpp/slic.hpp:114) and of
     the JAX package's ``SuperpixelSLIC``: takes (height, width) directly (the
@@ -433,10 +440,7 @@ class SuperpixelSLIC:
     def __init__(self, height: int, width: int, superpixel_size: int = 30,
                  num_iteration: int = 10, color_scale: float = 20.0,
                  metric: str = "euclidean", device="cuda"):
-        if superpixel_size < 2:
-            raise ValueError("superpixel_size must be >= 2")
-        if metric not in METRICS:
-            raise ValueError(f"unknown SLIC metric {metric!r}")
+        check_params(superpixel_size, metric)
         self.height = int(height)
         self.width = int(width)
         self.superpixel_size = int(superpixel_size)

@@ -115,20 +115,46 @@ def jbf_numpy_tables(ksize: int):
     return space_kernel(2 * ksize - 1, float(ksize - 1)), color_table(JBF_SIGMA_COLOR)
 
 
+def gradient_stage(img: torch.Tensor, impl: str) -> torch.Tensor:
+    """(H, W, 3) u8 → (H, W) f32 gradient magnitude."""
+    if impl == "cuda":
+        return cuda_gradient.gradient(img)
+    return _gradient_math(img.to(torch.float32))
+
+
+def blur_rtv_stage(img: torch.Tensor, magnitude: torch.Tensor, ksize: int, impl: str):
+    """(H, W, 3) u8 image, (H, W) f32 magnitude → ((H, W, 3) f32 blurred,
+    (H, W) f32 rtv)."""
+    if impl == "cuda":
+        return cuda_btf.blur_and_rtv(img, magnitude, ksize)
+    return _blur_and_rtv_math(img.to(torch.float32), magnitude, ksize)
+
+
+def guide_stage(blurred: torch.Tensor, rtv: torch.Tensor, ksize: int, impl: str):
+    """→ (H, W, 3) guide holding u8 values (u8 from the kernel, f32 from
+    the plain version)."""
+    if impl == "cuda":
+        return cuda_btf.guide(blurred, rtv, ksize)
+    return _guide_math(blurred, rtv, ksize)
+
+
+def jbf_stage(img: torch.Tensor, guide: torch.Tensor, taps: torch.Tensor, lut: torch.Tensor,
+              ksize: int, border: str, rounding: str, impl: str) -> torch.Tensor:
+    """The closing joint filter, window 2k−1, with jbf_tables(ksize) on
+    img's device → (H, W, 3) u8."""
+    if impl == "cuda":
+        return cuda_bilateral.joint_bilateral(img, guide, taps, lut, ksize - 1, border, rounding)
+    return _taps_math(img, guide, taps, lut, ksize - 1, border, rounding)
+
+
 def btf_iteration(img: torch.Tensor, ksize: int, taps: torch.Tensor, lut: torch.Tensor,
                   border: str, rounding: str, impl: str) -> torch.Tensor:
     """One iteration, (H, W, 3) u8 → (H, W, 3) u8, on img's device.
     ``impl`` is resolved already: "cuda" launches the four kernels."""
-    if impl == "cuda":
-        magnitude = cuda_gradient.gradient(img)
-        blurred, rtv = cuda_btf.blur_and_rtv(img, magnitude, ksize)
-        guide = cuda_btf.guide(blurred, rtv, ksize)
-        return cuda_bilateral.joint_bilateral(img, guide, taps, lut, ksize - 1, border, rounding)
-    img_f = img.to(torch.float32)
-    magnitude = _gradient_math(img_f)
-    blurred, rtv = _blur_and_rtv_math(img_f, magnitude, ksize)
-    guide = _guide_math(blurred, rtv, ksize)
-    return _taps_math(img, guide, taps, lut, ksize - 1, border, rounding)
+    magnitude = gradient_stage(img, impl)
+    blurred, rtv = blur_rtv_stage(img, magnitude, ksize, impl)
+    guide = guide_stage(blurred, rtv, ksize, impl)
+    return jbf_stage(img, guide, taps, lut, ksize, border, rounding, impl)
 
 
 def _btf(src: torch.Tensor, ksize: int, nitr: int, impl: str, variant: str,
