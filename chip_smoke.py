@@ -39,15 +39,19 @@ and fills a full-range (0..255) textured 402x700 image through the search
 kernel and through the plain path, holding the kernel path's hole PSNR to
 the plain path's less 2 dB.
 
-Last come SLIC superpixels, which have no kernel of their own (plain
-PyTorch k-means on the card, native C++ connectivity on the host): the
-card's exact Lab against cv2 and the CPU path on all 2^24 colors; SLIC at
-512x512 (BASELINE.md config 4: S=26, 10 iterations, m=20) on a random and a
-smooth image through the op, the ``SuperpixelSLIC`` module and the CLI, the
-labels bit-equal to the CPU path; the same at 2160x3840 (invariants only);
-CIEDE2000 within its tolerance of the CPU.  Each prints a call's wall time,
-its split (Lab, k-means, the copies, the host connectivity) and counters
-(iterations, host syncs, launches an iteration, device-busy share, peak
+Then SLIC superpixels, whose euclidean k-means runs on three kernels of
+the port's own (csrc/slic_kmeans.cu: association with in-scan sums, means
+and snap keys, center update; the JAX package's k-means is one XLA
+while_loop, no Pallas kernel), with native C++ connectivity on the host:
+the card's exact Lab against cv2 and the CPU path on all 2^24 colors; SLIC
+at 512x512 (BASELINE.md config 4: S=26, 10 iterations, m=20) on a random
+and a smooth image through the op, the ``SuperpixelSLIC`` module and the
+CLI with the k-means kernels' counters reset just before and read just
+after, the labels bit-equal to the CPU path; the same at 2160x3840
+(invariants only); CIEDE2000 (the plain route) within its tolerance of the
+CPU.  Each prints a call's wall time, its split (Lab, k-means, the copies,
+the host connectivity) and counters (iterations, host syncs, launches an
+iteration and the k-means kernels' among them, device-busy share, peak
 memory, superpixels), and a ``{"slic": ...}`` line holds them.
 
 Then the parallel layer and the timing twins (phases 24-26): the batch
@@ -60,6 +64,15 @@ mesh), every output byte-equal to the single-device op and each path's
 launches counted; then ``measure``, ``trace`` and ``vip-torch-benchmark``
 at its default size and at 4K.  A ``{"parallel": ...}`` line holds the
 times.
+
+Last, the SLIC kernels (phases 27-28): the kernel route against the plain
+route on the card over a grid of shapes (512x512, 4K, 97x131, 3x5), S (2,
+7, 26, 64, larger than the image), iterations (1, 10), m (1, 20, 40) and
+images (noise, smooth, constant, two-color ties), labels, distances,
+centers, drift and iterations all equal; each kernel against its plain
+piece on the same state; each kernel's device time an iteration, its bound
+and its plain piece's time at 512x512 and 4K, and the whole k-means both
+ways.
 
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
@@ -130,6 +143,13 @@ BTF_LARGE_KSIZE = 77                      # its JBF runs at k' = 153, past 149
 SLIC_SHAPE = (512, 512)                   # BASELINE.md config 4
 SLIC_PARAMS = (26, 10, 20.0)              # superpixel size S, iterations, color scale m
 SLIC_CALLS = 3                            # warm calls timed a configuration
+SLIC_KERNELS = ("association", "snap_keys", "update")  # csrc/slic_kmeans.cu, in launch order
+# phase 27's grid: every (shape, S) with every image kind, each kind with
+# another (iterations, m); S = 5000 is larger than every image
+SLIC_GRID_SHAPES = ((512, 512), (2160, 3840), (97, 131), (3, 5))
+SLIC_GRID_SIZES = (2, 7, 26, 64, 5000)
+SLIC_GRID_KINDS = ("random", "smooth", "constant", "two")
+SLIC_GRID_RUNS = ((10, 20.0), (1, 1.0), (10, 40.0), (10, 1.0))
 DELTA_E_TOL = (5e-4, 5e-2)                # rtol, atol: tests/test_ciede2000.py's
 PARALLEL_BATCH = 64                       # BASELINE.md config 5b: 64 4K frames
 BTF_BATCH = 8                             # config 3b: 8 600x900 frames
@@ -329,13 +349,15 @@ def boundary_recall(ref, got, tol: int = 2) -> float:
     return float((ref_e & near).sum()) / max(float(ref_e.sum()), 1.0)
 
 
-def slic_phases(dev, random_4k: np.ndarray) -> None:
-    """Phases 20-23: SLIC superpixels and their exact Lab.  SLIC has no
-    kernel of its own (the JAX package's is a pure-XLA program, no Pallas
-    kernel): the k-means is plain PyTorch on the card, the connectivity pass
-    native C++ on the host.  ``random_4k`` is the main path's 2160x3840
-    image.  Prints the timing split of a call and its counters, and a
-    ``{"slic": ...}`` line with them."""
+def slic_phases(dev, random_4k: np.ndarray) -> dict:
+    """Phases 20-23: SLIC superpixels and their exact Lab.  The euclidean
+    k-means runs on the port's kernels (csrc/slic_kmeans.cu; the JAX
+    package's is a pure-XLA program, no Pallas kernel), the ΔE k-means on the
+    plain route, the connectivity pass in native C++ on the host.
+    ``random_4k`` is the main path's 2160x3840 image.  Prints the timing
+    split of a call and its counters, and a ``{"slic": ...}`` line with them.
+    Returns the k-means kernels' launches on the main path of phases 21-22
+    (op, module, CLI at 512x512; module at 4K), counted from 0."""
     import cv2
     import torch
 
@@ -345,10 +367,25 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
     from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
     from various_image_processings_tpu_torch.core.rng import random_image
     from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
     from various_image_processings_tpu_torch.utils import native
     from various_image_processings_tpu_torch.utils.io import imread, imwrite
 
     t_start = time.perf_counter()
+    main_launches = dict.fromkeys(SLIC_KERNELS, 0)
+
+    def reset_kernels() -> None:
+        torch.cuda.synchronize()
+        for name in SLIC_KERNELS:
+            setattr(kslic, f"{name}_launches", 0)
+
+    def read_kernels() -> dict:
+        """The counts since the reset, added to the main path's."""
+        torch.cuda.synchronize()
+        got = {name: getattr(kslic, f"{name}_launches") for name in SLIC_KERNELS}
+        for name, n in got.items():
+            main_launches[name] += n
+        return got
     # 20. Lab on all 2^24 colors: the card's integer path against cv2 and
     #     against the CPU path (in bands of rows, to bound host memory)
     c = torch.arange(1 << 24, dtype=torch.int64)
@@ -383,9 +420,10 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
         _, ncomp = native.ccl_4conn(lab_np)
         return int(lab_np.min()) == 0 and ncomp == int(lab_np.max()) + 1
 
-    def kernel_counts(prof) -> tuple[int, float]:
-        """Kernel launches and their device microseconds (copies excluded)."""
-        n = busy = 0
+    def kernel_counts(prof) -> tuple[int, int, float]:
+        """Kernel launches, of which the k-means kernels', and their device
+        microseconds (copies excluded)."""
+        n = n_kmeans = busy = 0
         for evt in prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA or "Memcpy" in evt.key \
                     or "Memset" in evt.key:
@@ -393,7 +431,9 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
             us = getattr(evt, "self_device_time_total", None)
             busy += evt.self_cuda_time_total if us is None else us
             n += evt.count
-        return n, busy
+            if any(f"slic_{name}_kernel" in evt.key for name in SLIC_KERNELS):
+                n_kmeans += evt.count
+        return n, n_kmeans, busy
 
     def measure(model, img, calls: int = SLIC_CALLS, profile: bool = True) -> dict:
         """Warm wall per call of ``model.apply`` (already called once), the
@@ -433,7 +473,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        launches = busy_us = None
+        launches = kmeans_launches = busy_us = None
         if profile:
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -441,7 +481,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
                 model.apply(img)
                 torch.cuda.synchronize()
                 prof_wall = time.perf_counter() - t0
-            launches, busy_us = kernel_counts(prof)
+            launches, kmeans_launches, busy_us = kernel_counts(prof)
         else:
             model.apply(img)
         peak = torch.cuda.max_memory_allocated() - base
@@ -449,7 +489,10 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
         return {
             "wall_ms": statistics.median(walls) if walls else None, "walls_ms": walls, **split,
             "iterations": its, "host_syncs": slic.host_syncs,
+            "launches": launches, "kmeans_launches": kmeans_launches,
             "launches_per_iteration": launches / max(its, 1) if launches else None,
+            "kmeans_launches_per_iteration": (kmeans_launches / max(its, 1)
+                                              if launches else None),
             "device_busy": (busy_us / 1e6 / prof_wall) if busy_us else None,
             "peak_mib": peak / 2**20, "superpixels": int(model.get_label().max()) + 1,
             "drift": model.last_max_drift_cells,
@@ -458,8 +501,10 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
     def show(label: str, t: dict) -> None:
         """The phase line of one timed configuration."""
         busy = ("not measured" if t["device_busy"] is None else f"{t['device_busy']:.3f}")
-        launches = ("not measured" if t["launches_per_iteration"] is None
-                    else f"{t['launches_per_iteration']:.1f}")
+        launches = ("not measured" if t["launches"] is None
+                    else f"{t['launches_per_iteration']:.1f} ({t['launches']} a call, of which "
+                         f"the k-means kernels' {t['kmeans_launches']}: "
+                         f"{t['kmeans_launches_per_iteration']:.1f} an iteration)")
         phase(f"SLIC {label}: warm wall {t['wall_ms']:.3f} ms a call (runs "
               f"{', '.join(f'{x:.3f}' for x in t['walls_ms'])}); split: Lab "
               f"{t['lab_ms']:.4f} ms, k-means {t['kmeans_ms']:.3f} ms (CUDA events), "
@@ -473,8 +518,19 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
               f"({time.perf_counter() - t_start:.1f} s into phases 20-23)")
 
     results = {}
+    def check_kmeans(label: str, t: dict) -> None:
+        """The profiled euclidean call ran its k-means on the kernels alone:
+        3 launches an enqueued iteration, none read back but the download."""
+        want = 3 * iters
+        if t["host_syncs"] != 1 or (t["kmeans_launches"] is not None
+                                    and (t["kmeans_launches"] != want
+                                         or t["kmeans_launches_per_iteration"] > 6)):
+            raise SystemExit(f"SLIC {label}: {t['host_syncs']} host syncs, k-means kernel "
+                             f"launches {t['kmeans_launches']} (expected 1 and {want})")
+
     # 21. config 4 (512x512, S=26, 10 iterations, m=20) on two seeded images,
-    #     through the op, the module and the CLI; the card's labels are held
+    #     through the op, the module and the CLI (the k-means kernels' counts
+    #     reset just before and read just after); the card's labels are held
     #     bit-equal to the CPU path, then the call is timed and counted
     h, w = SLIC_SHAPE
     images = {"random": random_image(h, w), "smooth": smooth_image(h, w, 4)}
@@ -482,6 +538,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
         img = torch.from_numpy(img_np).to(dev)
         cpu_model = vt.SuperpixelSLIC(h, w, s_size, iters, m, device="cpu")
         want = cpu_model.apply(img_np)
+        reset_kernels()
         slic.host_syncs = slic.iterations = 0
         got_op = vt.superpixel_slic(img, s_size, iters, m)  # a tensor stays on its device
         op_syncs, op_iters = slic.host_syncs, slic.iterations
@@ -497,6 +554,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
             finally:
                 os.chdir(cwd)
             mean_png = imread(os.path.join(tmp, "in_slic_mean.png"))
+        counts = read_kernels()
         want_png = cli_slic.draw_superpixel(img_np, want.numpy())
         equal = (got_op.device == got_module.device == img.device
                  and torch.equal(got_op.cpu(), want)
@@ -505,27 +563,34 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
               f"bit-equal to the CPU path {equal}; CLI mean PNG equal "
               f"{np.array_equal(mean_png, want_png)}; drift {model.last_max_drift_cells} "
               f"(CPU {cpu_model.last_max_drift_cells}, must be <= 2); connected "
-              f"{connected(got_op)}; op: {op_iters} iterations, {op_syncs} host syncs")
+              f"{connected(got_op)}; op: {op_iters} iterations, {op_syncs} host syncs; k-means "
+              f"kernel launches (op, module, CLI) {counts}")
         if (not equal or not np.array_equal(mean_png, want_png) or not connected(got_op)
+                or op_syncs != 1 or set(counts.values()) != {3 * iters}
                 or model.last_max_drift_cells != cpu_model.last_max_drift_cells
                 or model.last_max_drift_cells > 2.0):
             raise SystemExit(f"SLIC {name} at {h}x{w} wrong")
         results[f"512_{name}"] = t = measure(model, img)
         show(f"{h}x{w} {name}", t)
+        check_kmeans(f"{h}x{w} {name}", t)
 
     # 22. the same at 4K (2160x3840): invariants and timing, no CPU run
     h, w = MAIN_SHAPE
     for name, img_np in {"random": random_4k, "smooth": smooth_image(h, w, 4)}.items():
         img = torch.from_numpy(img_np).to(dev)
         model = vt.SuperpixelSLIC(h, w, s_size, iters, m, device=dev)
+        reset_kernels()
         t0 = time.perf_counter()
         got = model.apply(img)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_kernels()
         n = int(got.max()) + 1
-        ok = connected(got) and model.last_max_drift_cells <= 2.0 and 1 <= n <= h * w
+        ok = (connected(got) and model.last_max_drift_cells <= 2.0 and 1 <= n <= h * w
+              and set(counts.values()) == {iters})
         phase(f"SLIC {h}x{w} {name}: {n} superpixels, connected {connected(got)}, drift "
-              f"{model.last_max_drift_cells} (must be <= 2)")
+              f"{model.last_max_drift_cells} (must be <= 2); k-means kernel launches "
+              f"(module) {counts}")
         if not ok:
             raise SystemExit(f"SLIC {name} at 4K failed its invariants")
         # the random image fragments into many small components, whose
@@ -535,6 +600,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
             t["wall_ms"], t["walls_ms"] = first_ms, [first_ms]
         results[f"4k_{name}"] = t
         show(f"{h}x{w} {name}", t)
+        check_kmeans(f"{h}x{w} {name}", t)
 
     # 23. CIEDE2000: one SLIC run at 512x512 on the card, its metric held
     #     to the JAX package's tolerance of the CPU's on that run's own
@@ -574,6 +640,257 @@ def slic_phases(dev, random_4k: np.ndarray) -> None:
     show(f"{h}x{w} smooth ciede2000", t)
     print(json.dumps({"slic": results}), flush=True)
     phase(f"SLIC phases 20-23 took {time.perf_counter() - t_start:.1f} s")
+    return main_launches
+
+
+def slic_lab(kind: str, h: int, w: int, dev, seed: int = 0):
+    """The Lab image, on the card, of a BGR image of ``kind``: seeded noise,
+    a smooth field, one color, or two colors in vertical stripes (whose
+    equidistant pixels tie)."""
+    import torch
+
+    from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
+    if kind == "random":
+        bgr = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                                                    dtype=np.uint8))
+    elif kind == "smooth":
+        bgr = torch.from_numpy(smooth_image(h, w, 4 + seed))
+    elif kind == "constant":
+        bgr = torch.full((h, w, 3), 97, dtype=torch.uint8)
+    else:
+        bgr = torch.empty((h, w, 3), dtype=torch.uint8)
+        bgr[:] = torch.tensor([20, 200, 60], dtype=torch.uint8)
+        bgr[:, (torch.arange(w) // 4) % 2 == 1] = torch.tensor([220, 30, 140],
+                                                                 dtype=torch.uint8)
+    return bgr2lab_u8_exact(bgr.to(dev))
+
+
+def slic_kernel_phases(dev) -> dict:
+    """Phases 27-28: the SLIC k-means kernels.  27: the kernel route against
+    ``impl="torch"`` on the card over SLIC_GRID_* (labels, distances,
+    centers, drift, iterations run: all equal).  28: each kernel against its
+    plain piece on the same state (512x512 and 4K smooth, config 4, and a
+    97x131 state with a center moved off the image), then each kernel's
+    device time an iteration (queued behind a sleep kernel, CUDA events
+    between the launches), its plain piece's and its bound from this run's
+    work, and the whole k-means both ways.  Returns, per kernel, its
+    max |diff| and times at 512x512 and 4K."""
+    import torch
+
+    from various_image_processings_tpu_torch.core.pad import cdiv
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    t_start = time.perf_counter()
+    # 27. the grid
+    cases = 0
+    for shape in SLIC_GRID_SHAPES:
+        for s in SLIC_GRID_SIZES:
+            for kind in SLIC_GRID_KINDS:
+                i = (SLIC_GRID_SIZES.index(s) + SLIC_GRID_KINDS.index(kind)) % len(SLIC_GRID_RUNS)
+                iters, m = SLIC_GRID_RUNS[i]
+                lab = slic_lab(kind, *shape, dev)
+                got = slic.slic_device(lab, *shape, s, iters, m, impl="cuda")
+                ran = int(slic.device_iterations)
+                slic.iterations = 0
+                want = slic.slic_device(lab, *shape, s, iters, m, impl="torch")
+                equal = [a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)]
+                if not all(equal) or ran != slic.iterations:
+                    raise SystemExit(f"SLIC kernels differ from the plain route at {shape} "
+                                     f"S={s} {kind} {iters} it m={m:g}: (labels, centers, "
+                                     f"dists, drift) equal {equal}, iterations {ran} against "
+                                     f"{slic.iterations}")
+                cases += 1
+    slic.device_iterations = None
+    phase(f"SLIC kernels vs the plain route on the card: {cases} cases (shapes "
+          f"{SLIC_GRID_SHAPES}, S {SLIC_GRID_SIZES}, images {SLIC_GRID_KINDS}, (iterations, m) "
+          f"{SLIC_GRID_RUNS}): labels, distances, centers, drift and iterations run all equal "
+          f"(tolerance 0) ({time.perf_counter() - t_start:.1f} s)")
+
+    # 28. each kernel against its plain piece, then times and bounds
+    s_size, iters, m = SLIC_PARAMS
+    worst = dict.fromkeys(SLIC_KERNELS, 0.0)
+
+    def diff(name: str, a, b) -> None:
+        worst[name] = max(worst[name], max_abs(a, b))
+
+    def pieces(lab, h, w, s, n_it, displaced=None) -> list[dict]:
+        """``n_it`` iterations through each kernel and the plain pieces side
+        by side from the same state (every iteration forced active); the
+        work each iteration did, for the bounds."""
+        space_norm, color_norm = slic._norms(s, m)
+        grid = slic._Grid(lab, h, w, s, m, "euclidean")
+        centers_t = grid.init_centers()
+        labels_t = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=dev)
+        dists_t = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=dev)
+        centers, labels, dists, sums, keys, state = slic.kmeans_state(lab, h, w, s, n_it)
+        drift = torch.zeros((), device=dev)
+        work = []
+        for it in range(n_it):
+            state[1 + it, 0] = 1
+            if it == displaced:  # off the image: no pixel is in its window
+                centers[0, :2] = -3.0 * s
+                centers_t[:2, 0, 0] = -3.0 * s
+            scanned, on_grid = scan_pairs(centers, h, w, s)
+            before = dists.clone()
+            labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
+            kslic.associate(lab, centers, labels, dists, sums, state, it, s, space_norm,
+                            color_norm)
+            for a, b in ((labels, grid.from_blocks(labels_t)), (dists, grid.from_blocks(dists_t)),
+                         (sums, sums_t.reshape(6, -1).T), (state[1 + it, 1], changed_t.int())):
+                diff("association", a, b)
+            means_t = grid.center_means(centers_t, sums_t)
+            keys_t = grid.snap_keys(means_t, labels_t)
+            kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s)
+            diff("snap_keys", keys, keys_t)
+            centers_t = grid.move_centers(centers_t, keys_t)
+            drift = torch.maximum(drift, grid.cell_drift(centers_t))
+            moved = int((keys < slic._BIG_KEY).sum())
+            work.append({"pixels": h * w, "centers": grid.n, "scanned": scanned,
+                         "on_grid": on_grid, "changed": int((dists < before).sum()),
+                         "members": int((sums[:, 5] > 0).sum()),
+                         "labelled": int((labels >= 0).sum()), "moved": moved})
+            kslic.update(lab, centers, keys, sums, state, it, s)
+            for a, b in ((centers, centers_t.reshape(5, -1).T), (state[0, 0], drift),
+                         (state[0, 1], torch.tensor(it + 1)), (state[2 + it, 0], changed_t.int()),
+                         (sums, torch.zeros_like(sums)), (keys, torch.full_like(keys,
+                                                                                slic._BIG_KEY))):
+                diff("update", a, b)
+        return work
+
+    def scan_pairs(centers, h, w, s) -> tuple[int, int]:
+        """(pixel-candidate pairs scanned, pairs on the cell grid) of one
+        association on ``centers``."""
+        pc, pr = cdiv(h, s), cdiv(w, s)
+        ys = torch.arange(h, device=dev)[:, None]
+        xs = torch.arange(w, device=dev)[None, :]
+        scanned = on_grid = 0
+        for dy in (-2, -1, 0, 1, 2):
+            for dx in (-2, -1, 0, 1, 2):
+                ny, nx = ys // s + dy, xs // s + dx
+                ok = (ny >= 0) & (ny < pc) & (nx >= 0) & (nx < pr)
+                c = centers[ny.clamp(0, pc - 1) * pr + nx.clamp(0, pr - 1)]
+                hit = ok & ((xs - c[..., 0]).abs() <= s) & ((ys - c[..., 1]).abs() <= s)
+                scanned += int(hit.sum())
+                on_grid += int(ok.sum())
+        return scanned, on_grid
+
+    def bounds(work: list[dict]) -> dict:
+        """Each kernel's least time an iteration, averaged over the
+        iterations: bytes (each input read once, each output written once)
+        over HBM against f32 operations over their peak."""
+        out = {name: [] for name in SLIC_KERNELS}
+        for it in work:
+            p, n = it["pixels"], it["centers"]
+            out["association"].append(bound(
+                p * 11 + it["changed"] * 8 + n * 20 + it["members"] * 48,
+                it["on_grid"] * 4 + it["scanned"] * 16))
+            out["snap_keys"].append(bound(p * 7 + n * 68 + it["moved"] * 8,
+                                          it["labelled"] * 10 + n * 12))
+            out["update"].append(bound(n * 28 + it["moved"] * 23 + n * 56 + 8, n * 6))
+        return {name: (statistics.mean(b for b, _ in v),
+                       Counter(by for _, by in v).most_common(1)[0][0])
+                for name, v in out.items()}
+
+    def kernel_times(lab, h, w, s, runs: int = 5) -> dict:
+        """Device ms of each kernel an active iteration (median of ``runs``
+        k-means of ``iters`` iterations from the init state, queued behind a
+        sleep kernel so the host's launches are hidden), and the iterations
+        run."""
+        space_norm, color_norm = slic._norms(s, m)
+        per = {name: [] for name in SLIC_KERNELS}
+        for _ in range(runs):
+            centers, labels, dists, sums, keys, state = slic.kmeans_state(lab, h, w, s, iters)
+            ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(iters)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)
+            for it in range(iters):
+                ev[it][0].record()
+                kslic.associate(lab, centers, labels, dists, sums, state, it, s, space_norm,
+                                color_norm)
+                ev[it][1].record()
+                kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s)
+                ev[it][2].record()
+                kslic.update(lab, centers, keys, sums, state, it, s)
+                ev[it][3].record()
+            torch.cuda.synchronize()
+            ran = int(state[0, 1])
+            for k, name in enumerate(SLIC_KERNELS):
+                per[name].append(sum(ev[it][k].elapsed_time(ev[it][k + 1])
+                                     for it in range(ran)) / ran)
+        return {name: statistics.median(v) for name, v in per.items()}, ran
+
+    def plain_times(lab, h, w, s, n: int = 3) -> dict:
+        """Device ms of each plain piece on the first iteration's state,
+        ``n`` calls queued behind a sleep kernel."""
+        grid = slic._Grid(lab, h, w, s, m, "euclidean")
+        centers = grid.init_centers()
+        labels = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=dev)
+        dists = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=dev)
+        labels1, _, _, sums1 = grid.association(centers, labels, dists)
+        keys1 = grid.snap_keys(grid.center_means(centers, sums1), labels1)
+        drift = torch.zeros((), device=dev)
+        fns = {"association": lambda: grid.association(centers, labels, dists),
+               "snap_keys": lambda: grid.snap_keys(grid.center_means(centers, sums1), labels1),
+               "update": lambda: torch.maximum(drift, grid.cell_drift(
+                   grid.move_centers(centers, keys1)))}
+        out = {}
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(500_000_000)  # ~0.3 s: outlasts enqueueing the plain ops
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            out[name] = start.elapsed_time(end) / n
+        return out
+
+    def whole_ms(lab, h, w, s, impl: str, calls: int = 3) -> float:
+        """CUDA-event ms of one slic_device call (host launches included),
+        median of ``calls``."""
+        slic.slic_device(lab, h, w, s, iters, m, impl=impl)
+        times = []
+        for _ in range(calls):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            slic.slic_device(lab, h, w, s, iters, m, impl=impl)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        slic.device_iterations = None
+        return statistics.median(times)
+
+    pieces(slic_lab("random", 97, 131, dev), 97, 131, 13, 3, displaced=0)
+    pieces(slic_lab("random", 97, 131, dev, 1), 97, 131, 13, 3, displaced=1)
+    results = {}
+    for label, (h, w) in (("512x512", SLIC_SHAPE), ("4K", MAIN_SHAPE)):
+        lab = slic_lab("smooth", h, w, dev)
+        work = pieces(lab, h, w, s_size, iters)
+        k_ms, ran = kernel_times(lab, h, w, s_size)
+        bnd = bounds(work[:ran])
+        p_ms = plain_times(lab, h, w, s_size)
+        route_ms = {impl: whole_ms(lab, h, w, s_size, impl) for impl in ("cuda", "torch")}
+        for name in SLIC_KERNELS:
+            b_ms, b_by = bnd[name]
+            phase(f"SLIC {label} smooth S={s_size} m={m:g}: {name} kernel {k_ms[name]:.4f} ms an "
+                  f"iteration ({ran} run), bound {b_ms:.4f} ms by {b_by} "
+                  f"({k_ms[name] / b_ms:.1f}x), plain piece {p_ms[name]:.4f} ms; max |diff| "
+                  f"against the plain piece over every step {worst[name]}")
+        phase(f"SLIC {label} smooth k-means, {iters} iterations: kernel route "
+              f"{route_ms['cuda']:.3f} ms a call, plain route {route_ms['torch']:.3f} ms (CUDA "
+              f"events, host launches included); scanned pairs a pixel "
+              f"{statistics.mean(x['scanned'] for x in work) / (h * w):.2f}, pixels changed "
+              f"an iteration {[x['changed'] for x in work]}")
+        results[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+                          "route_ms": route_ms, "iterations": ran}
+    if any(worst.values()):
+        raise SystemExit(f"SLIC kernels differ from their plain pieces: {worst}")
+    phase(f"SLIC kernel phases 27-28 took {time.perf_counter() - t_start:.1f} s")
+    return {"worst": worst, **results}
 
 
 def parallel_phases(dev) -> dict:
@@ -600,6 +917,7 @@ def parallel_phases(dev) -> dict:
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
     from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
     from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
     from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws
     from various_image_processings_tpu_torch.utils.profiling import (
         cuda_time_ms, measure, measure_throughput)
@@ -607,7 +925,8 @@ def parallel_phases(dev) -> dict:
     t_start = time.perf_counter()
     counters = {"gradient": (kgr, "launches"), "blur_rtv": (kbt, "blur_rtv_launches"),
                 "guide": (kbt, "guide_launches"), "bilateral": (kbf, "launches"),
-                "adaptive_bilateral": (kab, "launches"), "wexler_search": (kws, "launches")}
+                "adaptive_bilateral": (kab, "launches"), "wexler_search": (kws, "launches"),
+                **{f"slic_{name}": (kslic, f"{name}_launches") for name in SLIC_KERNELS}}
 
     def reset() -> None:
         torch.cuda.synchronize()
@@ -719,12 +1038,14 @@ def parallel_phases(dev) -> dict:
     slic_in = torch.stack([torch.from_numpy(smooth_image(sh, sw, seed)) for seed in
                            range(1, 5)]).to(dev)
     singles = [vt.superpixel_slic(slic_in[i], s_size, iters, m) for i in range(4)]  # warm-up
+    reset()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
         labels = par.superpixel_slic_batched(slic_in, s_size, iters, m, mesh=mesh)
         torch.cuda.synchronize()
         batch_s = time.perf_counter() - t0
+    expect("SLIC batched", read(), {f"slic_{name}": 4 * iters for name in SLIC_KERNELS})
     for i in range(4):
         same(f"SLIC batched image {i}", labels[i], singles[i])
     t0 = time.perf_counter()
@@ -733,7 +1054,8 @@ def parallel_phases(dev) -> dict:
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
     phase(f"SLIC batched, 4x{sh}x{sw} S={s_size} {iters} it m={m:g}: labels equal to "
-          f"superpixel_slic per image; warm: {batch_s * 1e3:.1f} ms a batch, 4 single calls "
+          f"superpixel_slic per image, {4 * iters} launches of each k-means kernel; warm: "
+          f"{batch_s * 1e3:.1f} ms a batch, 4 single calls "
           f"{single_s * 1e3:.1f} ms (host clock); drift warnings {len(caught)} {since()}")
     results["batched"]["slic_4x512"] = {"ms": batch_s * 1e3, "singles_ms": single_s * 1e3}
 
@@ -928,6 +1250,7 @@ def main() -> int:
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
     from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
     from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
     from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws
     from various_image_processings_tpu_torch.ops.gradient import _gradient_math
     from various_image_processings_tpu_torch.ops.wexler_search import _search_min_math
@@ -956,6 +1279,7 @@ def main() -> int:
     kbt._lib()
     kab._lib()
     kws._lib()
+    kslic._lib()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
@@ -1781,8 +2105,9 @@ def main() -> int:
                 or not torch.equal(full_out[~hole], full[~hole])):
             raise SystemExit("full-range fill outside the hole-PSNR window")
 
-    slic_phases(dev, img_np)
+    slic_launches = slic_phases(dev, img_np)
     parallel_phases(dev)
+    slic_k = slic_kernel_phases(dev)
 
     main_label = "600x900"
     entries = [{
@@ -1848,6 +2173,24 @@ def main() -> int:
         "library_ms": None,
         "at": f"{wh}x{ww} T=1024",
     })
+    s_size, iters, m = SLIC_PARAMS
+    for name in SLIC_KERNELS:
+        b_ms, b_by = slic_k["512x512"]["bound"][name]
+        entries.append({
+            "name": f"slic_{name}",
+            "route": "cuda",
+            "source": "various_image_processings_tpu_torch/csrc/slic_kmeans.cu",
+            "replaces": "various_image_processings_tpu/models/slic.py:129 (XLA while_loop, "
+                        "no Pallas kernel)",
+            "launches": slic_launches[name],
+            "max_abs_err": slic_k["worst"][name],
+            "ms": slic_k["512x512"]["kernel_ms"][name],
+            "plain_ms": slic_k["512x512"]["plain_ms"][name],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "at": f"{SLIC_SHAPE[0]}x{SLIC_SHAPE[1]} smooth S={s_size} m={m:g}, an iteration",
+        })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

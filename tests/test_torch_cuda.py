@@ -705,8 +705,8 @@ def test_wexler_full_range_fill_within_the_psnr_window(cuda, image):
 
 
 # ---------------------------------------------------------------------------
-# SLIC, Lab, CIEDE2000 and the class API on the card (no kernel of the
-# port's own: plain PyTorch on the device, held to the CPU path)
+# SLIC, Lab, CIEDE2000 and the class API on the card (the k-means kernels
+# held to the plain version on the card and to the CPU path)
 # ---------------------------------------------------------------------------
 
 def smooth_u8(shape, seed):
@@ -759,6 +759,129 @@ def test_slic_delta_e_on_the_card(cuda, metric):
     img[20:] = torch.tensor([0, 0, 255], dtype=torch.uint8)
     labels = vt.superpixel_slic(img.to(cuda), 20, 3, metric=metric).cpu()
     assert not set(labels[:20].flatten().tolist()) & set(labels[20:].flatten().tolist())
+
+
+SLIC_SHAPES = [(512, 512), (2160, 3840), (97, 131), (3, 5)]
+SLIC_SIZES = [2, 7, 26, 64, 5000]  # 5000: larger than every image
+SLIC_KINDS = ["random", "smooth", "constant", "two"]
+SLIC_RUNS = [(10, 20.0), (1, 1.0), (10, 40.0), (10, 1.0)]  # (iterations, m)
+
+
+def slic_lab(kind, shape, device, seed=0):
+    """The Lab image of a BGR image of ``kind`` ("two": two colors in
+    vertical stripes, whose equidistant pixels tie)."""
+    h, w = shape
+    if kind == "random":
+        bgr = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                                                    dtype=np.uint8))
+    elif kind == "smooth":
+        bgr = smooth_u8(shape, seed + 3)
+    elif kind == "constant":
+        bgr = torch.full((h, w, 3), 97, dtype=torch.uint8)
+    else:
+        bgr = torch.empty((h, w, 3), dtype=torch.uint8)
+        bgr[:] = torch.tensor([20, 200, 60], dtype=torch.uint8)
+        bgr[:, (torch.arange(w) // 4) % 2 == 1] = torch.tensor([220, 30, 140],
+                                                                 dtype=torch.uint8)
+    return vt.core.bgr2lab_u8_exact(bgr.to(device))
+
+
+@pytest.mark.parametrize("kind", SLIC_KINDS)
+@pytest.mark.parametrize("s", SLIC_SIZES)
+@pytest.mark.parametrize("shape", SLIC_SHAPES)
+def test_slic_kernels_bit_equal_to_plain_on_the_card(cuda, shape, s, kind):
+    """The kernel route against ``impl="torch"`` on the card: labels,
+    distances, centers, drift and the iterations run.  Each (shape, S) takes
+    every image kind, each with another (iterations, m)."""
+    from various_image_processings_tpu_torch.models import slic
+
+    iters, m = SLIC_RUNS[(SLIC_SIZES.index(s) + SLIC_KINDS.index(kind)) % len(SLIC_RUNS)]
+    lab = slic_lab(kind, shape, cuda)
+    got = slic.slic_device(lab, *shape, s, iters, m, impl="cuda")
+    ran = int(slic.device_iterations)
+    slic.iterations = 0
+    want = slic.slic_device(lab, *shape, s, iters, m, impl="torch")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert ran == slic.iterations
+
+
+def test_slic_kernel_route_reads_nothing_back(cuda):
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    lab = slic_lab("smooth", (130, 130), cuda)
+    slic.host_syncs = slic.iterations = 0
+    before = kslic.association_launches, kslic.snap_keys_launches, kslic.update_launches
+    slic.slic_device(lab, 130, 130, 26, 10, 20.0)
+    torch.cuda.synchronize()
+    assert slic.host_syncs == 0 and slic.iterations == 0
+    after = kslic.association_launches, kslic.snap_keys_launches, kslic.update_launches
+    assert [b - a for a, b in zip(before, after)] == [10, 10, 10]
+    model = vt.SuperpixelSLIC(130, 130, 26, 10)
+    slic.host_syncs = slic.iterations = 0
+    model.apply(smooth_u8((130, 130), 3).to(cuda))
+    assert slic.host_syncs == 1 and 1 <= slic.iterations <= 10  # the download
+
+
+@pytest.mark.parametrize("metric", ["ciede2000", "ciede2000_ref"])
+def test_slic_delta_e_takes_the_plain_route_on_the_card(cuda, metric):
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    lab = slic_lab("smooth", (40, 40), cuda)
+    with pytest.raises(ValueError, match=metric):
+        slic.slic_device(lab, 40, 40, 20, 3, 20.0, metric, impl="cuda")
+    before = kslic.association_launches
+    slic.slic_device(lab, 40, 40, 20, 3, 20.0, metric)
+    assert kslic.association_launches == before and slic.device_iterations is None
+
+
+@pytest.mark.parametrize("displaced", [0, 1])
+def test_slic_each_kernel_against_its_plain_piece(cuda, displaced):
+    """One kernel at a time against the plain version's piece on the same
+    state, three iterations, center 0 moved off the image before iteration
+    ``displaced`` (it then has no pixel, or only stale labels)."""
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    h, w, s, m = 97, 131, 13, 20.0
+    lab = slic_lab("random", (h, w), cuda)
+    grid = slic._Grid(lab, h, w, s, m, "euclidean")
+    centers_t = grid.init_centers()
+    labels_t = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=cuda)
+    dists_t = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=cuda)
+    centers = centers_t.reshape(5, -1).T.contiguous()
+    labels = torch.full((h, w), -1, dtype=torch.int32, device=cuda)
+    dists = torch.full((h, w), slic._BIG, dtype=torch.float32, device=cuda)
+    sums = torch.zeros((grid.n, 6), dtype=torch.int64, device=cuda)
+    keys = torch.full((grid.n,), slic._BIG_KEY, dtype=torch.int64, device=cuda)
+    state = torch.zeros((5, 2), dtype=torch.int32, device=cuda)
+    state[1, 0] = 1
+    drift = torch.zeros((), device=cuda)
+    for it in range(3):
+        state[1 + it, 0] = 1  # each kernel runs, whatever the last iteration changed
+        if it == displaced:
+            centers[0, :2] = -3.0 * s
+            centers_t[:2, 0, 0] = -3.0 * s
+        labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
+        kslic.associate(lab, centers, labels, dists, sums, state, it, s, grid.space_norm,
+                        grid.color_norm)
+        assert torch.equal(labels, grid.from_blocks(labels_t))
+        assert torch.equal(dists, grid.from_blocks(dists_t))
+        assert torch.equal(sums, sums_t.reshape(6, -1).T)
+        assert int(state[1 + it, 1]) == int(changed_t)
+        means_t = grid.center_means(centers_t, sums_t)
+        keys_t = grid.snap_keys(means_t, labels_t)
+        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s)
+        assert torch.equal(keys, keys_t)
+        centers_t = grid.move_centers(centers_t, keys_t)
+        drift = torch.maximum(drift, grid.cell_drift(centers_t))
+        kslic.update(lab, centers, keys, sums, state, it, s)
+        assert torch.equal(centers, centers_t.reshape(5, -1).T)
+        assert int(state[0, 0]) == int(drift) and int(state[0, 1]) == it + 1
+        assert int(state[2 + it, 0]) == int(changed_t)
+        assert not sums.any() and bool((keys == slic._BIG_KEY).all())
 
 
 def test_lab_on_the_card_equals_cpu_on_every_color(cuda):

@@ -1,0 +1,383 @@
+// SLIC k-means for Hopper (sm_90a): one iteration in three kernels.
+//
+// Replaces no Pallas kernel: the JAX package runs its whole k-means as one
+// jitted XLA program (various_image_processings_tpu/models/slic.py:129,
+// slic_device, a lax.while_loop at :353-369).  These kernels are the card's
+// counterpart of that device program, and compute what the port's plain
+// version (models/slic.py::_Grid) computes, bit for bit:
+//
+//   slic_association_kernel  every pixel takes the <= 25 candidate centers
+//     of its cell's 5x5 cell neighbourhood in ascending id, against the
+//     persistent (labels, dists) map, strictly-smaller winning.  At each
+//     candidate's turn a pixel that the candidate scans (|x - cx| <= S and
+//     |y - cy| <= S) and whose running label is that candidate adds
+//     (x, y, l, a, b, 1) to the candidate's sums: a pixel stolen by a later
+//     center still counts in the earlier one's mean.  Any pixel whose
+//     distance fell sets the iteration's "changed" flag.
+//   slic_snap_keys_kernel    each center's mean is floor(f32(sum) /
+//     f32(count)), or its state where it had no pixel; each labelled pixel's
+//     key is floor(colour distance to its center's mean) << 32 | raster
+//     index, and each center keeps the least key of its pixels.
+//   slic_update_kernel       one thread a center: it moves to the pixel of
+//     its least key (or keeps its state), the running Chebyshev drift in
+//     cells takes the max, the iteration count is stored, the next
+//     iteration's active flag is this one's "changed", and the sums and
+//     keys are cleared for the next iteration.
+//
+// Early exit on the device: the host enqueues every iteration; each kernel
+// reads its iteration's active flag first and returns at once when it is
+// clear (the JAX loop's cond, (it < n) & (num_updated > 0)).  Nothing is
+// read by the host.
+//
+// Exactness: the sums are integers, added with 64-bit atomics, so their
+// order does not matter.  Every float product and sum is rounded on its own
+// (__fmul_rn / __fadd_rn / __fsub_rn, which nvcc never contracts into FMAs)
+// in the plain version's order:
+//   d = space_norm * (dx*dx + dy*dy) + color_norm * ((dl*dl + da*da) + db*db),
+//   dl = (l_c - l_p) * 2.55f,
+// and the mean's quotient is __fdiv_rn of two round-to-nearest conversions.
+//
+// What bounds it on the card: memory.  An iteration reads the Lab image, the
+// labels and the distances (11 B a pixel) and writes labels and distances
+// where they changed (8 B), then reads labels and Lab again (7 B): ~26 B a
+// pixel, 6.8 MB at 512x512 (2 us at 3.35 TB/s), 216 MB at 4K.  A block
+// takes a square tile of pixels (whole cells for S <= 64, a piece of one or
+// two cells past that) and keeps its window of candidate centers, their
+// sums and their least keys in shared memory.  Within a warp, the pixels
+// that add to the same center are summed by warp reductions first, so the
+// shared atomics are one a center and warp, and the global atomics one a
+// center and block.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWindow = 20;  // cells a side of a block's candidate window, at most
+constexpr int kSlots = kWindow * kWindow;
+constexpr int kLargeTile = 64;  // tile side past S = 64
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNoKey = 0x7fffffffffffffffull;  // torch.iinfo(int64).max
+
+// Tile side in pixels: whole cells for S <= 64 (S * ceil(32 / S), so the
+// window is ceil(32 / S) + 4 <= 20 cells a side), 64 past that (a tile then
+// spans at most two cells a side: a window of 6).
+int tile_side(int s) { return s <= kLargeTile ? s * ((32 + s - 1) / s) : kLargeTile; }
+static_assert((32 + 1) / 2 + 4 <= kWindow, "the window at s = 2 fits the shared arrays");
+
+// A block's pixel rectangle, clipped to the image, and its window of
+// candidate cells [wy0, wy0 + wh) x [wx0, wx0 + ww), which may run past the
+// cell grid: every candidate of every pixel of the tile lies in it.
+struct Tile {
+  int y0, x0, th, tw;
+  int wy0, wx0, wh, ww;
+};
+
+__device__ __forceinline__ Tile tile_of(int side, int tiles_x, int height, int width, int s) {
+  Tile t;
+  t.y0 = (blockIdx.x / tiles_x) * side;
+  t.x0 = (blockIdx.x % tiles_x) * side;
+  t.th = min(side, height - t.y0);
+  t.tw = min(side, width - t.x0);
+  t.wy0 = t.y0 / s - 2;
+  t.wx0 = t.x0 / s - 2;
+  t.wh = (t.y0 + t.th - 1) / s + 3 - t.wy0;
+  t.ww = (t.x0 + t.tw - 1) / s + 3 - t.wx0;
+  return t;
+}
+
+// The reference's euclidean colour distance (include/cpp/slic.hpp:8-13),
+// L scaled by 2.55, each operation rounded on its own.
+__device__ __forceinline__ float color_distance(float l1, float a1, float b1, float l2, float a2,
+                                                float b2) {
+  const float dl = __fmul_rn(__fsub_rn(l1, l2), 2.55f);
+  const float da = __fsub_rn(a1, a2);
+  const float db = __fsub_rn(b1, b2);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dl, dl), __fmul_rn(da, da)), __fmul_rn(db, db));
+}
+
+__global__ void __launch_bounds__(kThreads)
+slic_association_kernel(const uint8_t* __restrict__ lab, const float* __restrict__ centers,
+                        int32_t* __restrict__ labels, float* __restrict__ dists,
+                        unsigned long long* __restrict__ sums, int32_t* __restrict__ flags,
+                        int height, int width, int s, int per_col, int per_row, int side,
+                        int tiles_x, float space_norm, float color_norm) {
+  if (flags[0] == 0) return;  // the iteration is not active (the whole grid)
+  __shared__ float cen[5][kSlots];
+  __shared__ unsigned long long acc[6][kSlots];
+  const Tile t = tile_of(side, tiles_x, height, width, s);
+  const int slots = t.wh * t.ww;
+  for (int i = threadIdx.x; i < slots; i += kThreads) {
+    const int gy = t.wy0 + i / t.ww, gx = t.wx0 + i % t.ww;
+    const bool in = gy >= 0 && gy < per_col && gx >= 0 && gx < per_row;
+    const int64_t c = static_cast<int64_t>(gy) * per_row + gx;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) cen[k][i] = in ? centers[c * 5 + k] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) acc[k][i] = 0ull;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int npix = t.th * t.tw;
+  const float sf = static_cast<float>(s);
+  bool changed = false;
+  // the trip count is the block's, so every warp stays converged for its
+  // shuffles; lanes past the tile carry no pixel
+  for (int base = 0; base < npix; base += kThreads) {
+    const int p = base + threadIdx.x;
+    const bool valid = p < npix;
+    const int y = valid ? t.y0 + p / t.tw : 0;
+    const int x = valid ? t.x0 + p % t.tw : 0;
+    const int64_t idx = static_cast<int64_t>(y) * width + x;
+    int run_l = -1;
+    float run_d = 0.0f;
+    unsigned pl = 0, pa = 0, pb = 0;
+    if (valid) {
+      run_l = labels[idx];
+      run_d = dists[idx];
+      pl = lab[idx * 3];
+      pa = lab[idx * 3 + 1];
+      pb = lab[idx * 3 + 2];
+    }
+    const float old_d = run_d;
+    const float xf = static_cast<float>(x), yf = static_cast<float>(y);
+    const float lf = static_cast<float>(pl), af = static_cast<float>(pa),
+                bf = static_cast<float>(pb);
+    const int cy = y / s, cx = x / s;
+    for (int dy = -2; dy <= 2; ++dy) {
+      for (int dx = -2; dx <= 2; ++dx) {  // ascending center id
+        const int ny = cy + dy, nx = cx + dx;
+        int slot = -1;
+        if (valid && ny >= 0 && ny < per_col && nx >= 0 && nx < per_row) {
+          const int i = (ny - t.wy0) * t.ww + (nx - t.wx0);
+          const float ddx = __fsub_rn(xf, cen[0][i]);
+          const float ddy = __fsub_rn(yf, cen[1][i]);
+          if (fabsf(ddx) <= sf && fabsf(ddy) <= sf) {  // the reference's window (:243-246)
+            const int id = ny * per_row + nx;
+            const float spatial = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+            const float d = __fadd_rn(
+                __fmul_rn(space_norm, spatial),
+                __fmul_rn(color_norm, color_distance(cen[2][i], cen[3][i], cen[4][i], lf, af, bf)));
+            if (d < run_d) {  // strict: the lowest center id wins ties
+              run_d = d;
+              run_l = id;
+            }
+            if (run_l == id) slot = i;  // a member at this center's turn
+          }
+        }
+        // the members of each slot in this warp, summed by warp reductions
+        // (32 pixels of x < 2^27 fit 32 bits), then one shared atomic each
+        unsigned pending = __ballot_sync(kFull, slot >= 0);
+        while (pending) {
+          const int leader = __ffs(pending) - 1;
+          const int target = __shfl_sync(kFull, slot, leader);
+          const bool mine = slot == target;
+          const unsigned sx = __reduce_add_sync(kFull, mine ? static_cast<unsigned>(x) : 0u);
+          const unsigned sy = __reduce_add_sync(kFull, mine ? static_cast<unsigned>(y) : 0u);
+          const unsigned sl = __reduce_add_sync(kFull, mine ? pl : 0u);
+          const unsigned sa = __reduce_add_sync(kFull, mine ? pa : 0u);
+          const unsigned sb = __reduce_add_sync(kFull, mine ? pb : 0u);
+          const unsigned members = __ballot_sync(kFull, mine);
+          if (lane == leader) {
+            atomicAdd(&acc[0][target], static_cast<unsigned long long>(sx));
+            atomicAdd(&acc[1][target], static_cast<unsigned long long>(sy));
+            atomicAdd(&acc[2][target], static_cast<unsigned long long>(sl));
+            atomicAdd(&acc[3][target], static_cast<unsigned long long>(sa));
+            atomicAdd(&acc[4][target], static_cast<unsigned long long>(sb));
+            atomicAdd(&acc[5][target], static_cast<unsigned long long>(__popc(members)));
+          }
+          pending &= ~members;
+        }
+      }
+    }
+    if (valid && run_d < old_d) {  // run_l changes only where run_d fell
+      labels[idx] = run_l;
+      dists[idx] = run_d;
+      changed = true;
+    }
+  }
+  // a barrier too: every shared sum is complete after it
+  if (__syncthreads_or(changed) && threadIdx.x == 0) flags[1] = 1;
+  for (int i = threadIdx.x; i < slots; i += kThreads) {
+    if (acc[5][i] == 0ull) continue;  // a center with members lies on the grid
+    const int64_t c = static_cast<int64_t>(t.wy0 + i / t.ww) * per_row + (t.wx0 + i % t.ww);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      if (acc[k][i] != 0ull) atomicAdd(&sums[c * 6 + k], acc[k][i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+slic_snap_keys_kernel(const uint8_t* __restrict__ lab, const float* __restrict__ centers,
+                      const int32_t* __restrict__ labels, const long long* __restrict__ sums,
+                      unsigned long long* __restrict__ keys, const int32_t* __restrict__ flags,
+                      int height, int width, int s, int per_col, int per_row, int side,
+                      int tiles_x) {
+  if (flags[0] == 0) return;
+  __shared__ float mean[3][kSlots];
+  __shared__ unsigned long long best[kSlots];
+  const Tile t = tile_of(side, tiles_x, height, width, s);
+  const int slots = t.wh * t.ww;
+  for (int i = threadIdx.x; i < slots; i += kThreads) {
+    const int gy = t.wy0 + i / t.ww, gx = t.wx0 + i % t.ww;
+    best[i] = kNoKey;
+    if (gy < 0 || gy >= per_col || gx < 0 || gx >= per_row) continue;
+    const int64_t c = static_cast<int64_t>(gy) * per_row + gx;
+    const long long count = sums[c * 6 + 5];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      // floor(f32(sum) / f32(count)), the JAX package's mean (an f32
+      // quotient just below an integer may round up before the floor)
+      mean[k][i] = count > 0 ? floorf(__fdiv_rn(__ll2float_rn(sums[c * 6 + 2 + k]),
+                                                __ll2float_rn(count)))
+                             : centers[c * 5 + 2 + k];
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int npix = t.th * t.tw;
+  for (int base = 0; base < npix; base += kThreads) {
+    const int p = base + threadIdx.x;
+    const bool valid = p < npix;
+    const int y = valid ? t.y0 + p / t.tw : 0;
+    const int x = valid ? t.x0 + p % t.tw : 0;
+    const int64_t idx = static_cast<int64_t>(y) * width + x;
+    const int label = valid ? labels[idx] : -1;
+    int slot = -1;
+    unsigned key = 0;
+    if (label >= 0) {
+      const int ly = label / per_row - t.wy0, lx = label % per_row - t.wx0;
+      // association gives a pixel only a center of its cell's 5x5
+      // neighbourhood, all of which lie in the window
+      if (ly < 0 || ly >= t.wh || lx < 0 || lx >= t.ww) __trap();
+      slot = ly * t.ww + lx;
+      const float d = color_distance(mean[0][slot], mean[1][slot], mean[2][slot],
+                                     static_cast<float>(lab[idx * 3]),
+                                     static_cast<float>(lab[idx * 3 + 1]),
+                                     static_cast<float>(lab[idx * 3 + 2]));
+      key = static_cast<unsigned>(floorf(d));  // < 2^20
+    }
+    // (key, raster) least in lexical order: the least key, then the least
+    // raster index among its pixels (H * W < 2^31)
+    const unsigned raster = static_cast<unsigned>(idx);
+    unsigned pending = __ballot_sync(kFull, slot >= 0);
+    while (pending) {
+      const int leader = __ffs(pending) - 1;
+      const int target = __shfl_sync(kFull, slot, leader);
+      const bool mine = slot == target;
+      const unsigned kmin = __reduce_min_sync(kFull, mine ? key : kFull);
+      const unsigned rmin = __reduce_min_sync(kFull, mine && key == kmin ? raster : kFull);
+      if (lane == leader) {
+        atomicMin(&best[target], (static_cast<unsigned long long>(kmin) << 32) | rmin);
+      }
+      pending &= ~__ballot_sync(kFull, mine);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += kThreads) {
+    if (best[i] == kNoKey) continue;
+    const int64_t c = static_cast<int64_t>(t.wy0 + i / t.ww) * per_row + (t.wx0 + i % t.ww);
+    atomicMin(&keys[c], best[i]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+slic_update_kernel(const uint8_t* __restrict__ lab, float* __restrict__ centers,
+                   unsigned long long* __restrict__ keys, unsigned long long* __restrict__ sums,
+                   int32_t* __restrict__ stats, const int32_t* __restrict__ flags,
+                   int32_t* __restrict__ next_flags, int n, int width, int s, int per_row,
+                   int iteration) {
+  if (flags[0] == 0) return;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  int drift = 0;
+  if (c < n) {
+    const unsigned long long key = keys[c];
+    float cx = centers[c * 5], cy = centers[c * 5 + 1];
+    if (key != kNoKey) {  // it has pixels: it moves to the first of least key
+      const unsigned first = static_cast<unsigned>(key & 0xffffffffull);
+      cx = static_cast<float>(first % static_cast<unsigned>(width));
+      cy = static_cast<float>(first / static_cast<unsigned>(width));
+      centers[c * 5] = cx;
+      centers[c * 5 + 1] = cy;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        centers[c * 5 + 2 + k] = static_cast<float>(lab[static_cast<int64_t>(first) * 3 + k]);
+      }
+    }
+    // Chebyshev distance, in cells, of its current cell from its home cell
+    const int gx = static_cast<int>(c % per_row), gy = static_cast<int>(c / per_row);
+    drift = max(abs(static_cast<int>(cx) / s - gx), abs(static_cast<int>(cy) / s - gy));
+    keys[c] = kNoKey;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sums[c * 6 + k] = 0ull;
+  }
+  drift = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(drift)));
+  if (threadIdx.x % 32 == 0 && drift > 0) atomicMax(&stats[0], drift);
+  if (c == 0) {
+    next_flags[0] = flags[1];  // the next iteration runs if a pixel changed
+    stats[1] = iteration + 1;  // iterations run
+  }
+}
+
+int tiles(int height, int width, int s, int* tiles_x) {
+  const int side = tile_side(s);
+  *tiles_x = (width + side - 1) / side;
+  return *tiles_x * ((height + side - 1) / side);
+}
+
+}  // namespace
+
+extern "C" {
+
+// lab: (H, W, 3) u8; centers: (N, 5) f32 x, y, l, a, b with N = per_col *
+// per_row; labels (H, W) int32 and dists (H, W) f32, updated in place;
+// sums: (N, 6) int64, added to; flags: the iteration's (active, changed)
+// int32 pair.  Returns the launch's cudaError_t (0 on success).
+int vip_slic_association(const void* lab, const void* centers, void* labels, void* dists,
+                         void* sums, void* flags, int height, int width, int s, int per_col,
+                         int per_row, float space_norm, float color_norm, void* stream) {
+  int tiles_x = 0;
+  const int blocks = tiles(height, width, s, &tiles_x);
+  slic_association_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(lab), static_cast<const float*>(centers),
+      static_cast<int32_t*>(labels), static_cast<float*>(dists),
+      static_cast<unsigned long long*>(sums), static_cast<int32_t*>(flags), height, width, s,
+      per_col, per_row, tile_side(s), tiles_x, space_norm, color_norm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keys: (N,) int64, all int64 max before the first iteration; each center's
+// least packed key is taken in with atomicMin.
+int vip_slic_snap_keys(const void* lab, const void* centers, const void* labels,
+                       const void* sums, void* keys, const void* flags, int height, int width,
+                       int s, int per_col, int per_row, void* stream) {
+  int tiles_x = 0;
+  const int blocks = tiles(height, width, s, &tiles_x);
+  slic_snap_keys_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(lab), static_cast<const float*>(centers),
+      static_cast<const int32_t*>(labels), static_cast<const long long*>(sums),
+      static_cast<unsigned long long*>(keys), static_cast<const int32_t*>(flags), height, width,
+      s, per_col, per_row, tile_side(s), tiles_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stats: int32 (max drift in cells, iterations run); next_flags: the next
+// iteration's (active, changed) pair, whose active is set here.
+int vip_slic_update(const void* lab, void* centers, void* keys, void* sums, void* stats,
+                    const void* flags, void* next_flags, int n, int width, int s, int per_row,
+                    int iteration, void* stream) {
+  slic_update_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(lab), static_cast<float*>(centers),
+      static_cast<unsigned long long*>(keys), static_cast<unsigned long long*>(sums),
+      static_cast<int32_t*>(stats), static_cast<const int32_t*>(flags),
+      static_cast<int32_t*>(next_flags), n, width, s, per_row, iteration);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -20,19 +20,27 @@ whose results do not depend on the order of floating-point reductions:
 - **snap** (reference :283-306): each center moves to the first raster
   pixel whose ``floor(distance)`` to the new mean is the least among its
   members (the reference keeps its running minimum in an int).
-- **early exit** (reference :143-147): after each iteration the host reads
-  whether any pixel changed; ``host_syncs`` counts those reads.
+- **early exit** (reference :143-147): the next iteration runs only if a
+  pixel changed.  On the kernel path the card decides it: every iteration
+  is enqueued and its kernels return at once when its active flag is clear,
+  so a call reads nothing back.  On the plain path the host reads the flag
+  after each iteration; ``host_syncs`` counts those reads.
 - **enforce_connectivity** (reference :386-458) runs on the host: the
   native C++ pass (``utils/native.py``) for the euclidean metric, staged
   native components and a Python merge for the ΔE metrics, and the
   NumPy/scipy path when the caller asks for ``impl="numpy"``.
 
-On the device the image lives in a blocked layout, (per_col, S, per_row, S)
-after padding to whole cells, so a center's values broadcast over its cell
-and per-cell sums are reductions of integer planes: nothing moves between
-cells and pixels through a floating-point product.  Each distance is written
-op by op (``d * d``, no fused ops), so each product and sum rounds alone and
-the CPU and the card give the same bits.
+Two routes compute the same bits (``slic_device``'s ``impl``).  The
+kernels (``ops/cuda/slic.py``, ``csrc/slic_kmeans.cu``: association with
+in-scan sums, means and snap keys, center update; three launches an
+iteration) take a CUDA tensor with the euclidean metric.  The plain version,
+``_Grid``, takes a CPU tensor and the ΔE metrics on any device: the image
+lives in a blocked layout, (per_col, S, per_row, S) after padding to whole
+cells, so a center's values broadcast over its cell and per-cell sums are
+reductions of integer planes: nothing moves between cells and pixels through
+a floating-point product.  Each distance is written op by op (``d * d``, no
+fused ops), so each product and sum rounds alone and the CPU and the card
+give the same bits.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch
 from ..core.colors import bgr2lab_u8_exact
 from ..core.pad import cdiv, reflect101_indices
 from ..ops import _validate
+from ..ops._dispatch import check_impl, resolve_impl
 
 METRICS = ("euclidean", "ciede2000", "ciede2000_ref")
 _BIG = float(np.finfo(np.float32).max)
@@ -53,6 +62,10 @@ _OFFSETS_5X5 = [(dy, dx) for dy in (-2, -1, 0, 1, 2) for dx in (-2, -1, 0, 1, 2)
 
 host_syncs = 0  # device-to-host reads made by SLIC since the last reset
 iterations = 0  # k-means iterations run since the last reset
+# the iterations the last kernel-path call ran, a 0-d int32 tensor on its
+# device (None after a plain call): the card decides the early exit, so the
+# host learns the count only from ``_download``, which adds it to ``iterations``
+device_iterations: torch.Tensor | None = None
 
 
 def _host(t: torch.Tensor):
@@ -60,6 +73,12 @@ def _host(t: torch.Tensor):
     global host_syncs
     host_syncs += 1
     return t.item() if t.ndim == 0 else t.cpu().numpy()
+
+
+def _norms(sp_size: int, color_scale: float) -> tuple[float, float]:
+    """(1 / S², 1 / m²) as f32 values: the distance's spatial and colour weights."""
+    return (float(np.float32(1.0) / np.float32(sp_size * sp_size)),
+            float(np.float32(1.0) / np.float32(color_scale * color_scale)))
 
 
 def _color_dist_euclid(l1, a1, b1, l2, a2, b2):
@@ -128,8 +147,7 @@ class _Grid:
         self.pc, self.pr = cdiv(height, s), cdiv(width, s)
         self.n = self.pc * self.pr
         dev = self.device = lab_u8.device
-        self.space_norm = float(np.float32(1.0) / np.float32(s * s))
-        self.color_norm = float(np.float32(1.0) / np.float32(color_scale * color_scale))
+        self.space_norm, self.color_norm = _norms(s, color_scale)
         self.color_dist = _color_dist_fn(metric)
 
         lab_i = lab_u8.to(torch.int32).permute(2, 0, 1)
@@ -224,6 +242,11 @@ class _Grid:
         result does not depend on the order).  A pixel's label is always a
         center of its 5×5 cell neighbourhood (association assigns no other),
         so its label alone says whose member it is."""
+        return self.move_centers(centers, self.snap_keys(means, labels))
+
+    def snap_keys(self, means: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """(N,) int64: each center's least floor(color distance to its
+        mean) << 32 | raster index over its pixels, int64 max if it has none."""
         member = labels >= 0
         lbl = labels.clamp_min(0).to(torch.int64)
         m = means.reshape(5, self.n)
@@ -233,6 +256,11 @@ class _Grid:
                              _BIG_KEY)
         best = torch.full((self.n,), _BIG_KEY, dtype=torch.int64, device=self.device)
         best.scatter_reduce_(0, lbl.reshape(-1), packed.reshape(-1), "amin")
+        return best
+
+    def move_centers(self, centers: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+        """Each center with pixels to the pixel of its least key, with that
+        pixel's color; the others keep their state."""
         has_pixels = best < _BIG_KEY
         first = torch.where(has_pixels, best & 0xFFFFFFFF, 0)
         snapped = torch.cat([(first % self.w).to(torch.float32)[None],
@@ -252,7 +280,8 @@ class _Grid:
 
 
 def slic_device(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
-                num_iteration: int, color_scale: float, metric: str = "euclidean"):
+                num_iteration: int, color_scale: float, metric: str = "euclidean",
+                impl: str = "auto"):
     """Init and the assign/update loop on ``lab_u8``'s device →
     (labels (H, W) int32, centers (N, 5) f32 of x, y, l, a, b,
     distances (H, W) f32, max_drift_cells 0-d f32).
@@ -260,7 +289,31 @@ def slic_device(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
     ``max_drift_cells`` is the running maximum over iterations and centers
     of the Chebyshev distance (in cells) between a center's current cell and
     its home cell: values ≤ 2 mean the 5×5 gather covered every reference
-    ±S window."""
+    ±S window.
+
+    ``impl``: ``"cuda"`` runs the k-means on the kernels (a CUDA tensor and
+    the euclidean metric only: a ΔE metric raises), ``"torch"`` the plain
+    version on the tensor's device, ``"auto"`` the kernels for a CUDA tensor
+    with the euclidean metric and the plain version otherwise.  The ΔE
+    metrics have no kernel: on the card they take the plain version.  The
+    grid seeds (``_init_centers``) are plain torch on both routes.  The
+    kernel route reads nothing back to the host; the iterations it ran wait
+    in ``device_iterations`` for ``_download``."""
+    global device_iterations
+    check_impl(impl)
+    if impl == "cuda" and metric != "euclidean":
+        raise ValueError(f"the SLIC kernels compute the euclidean metric only, not {metric!r}: "
+                         "pass impl='auto' or impl='torch'")
+    device_iterations = None
+    if resolve_impl(impl, lab_u8) == "cuda" and metric == "euclidean":
+        return _kmeans_cuda(lab_u8, height, width, sp_size, num_iteration, color_scale)
+    return _kmeans_plain(lab_u8, height, width, sp_size, num_iteration, color_scale, metric)
+
+
+def _kmeans_plain(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
+                  num_iteration: int, color_scale: float, metric: str):
+    """The plain version: ``_Grid``'s torch ops, the host reading the early
+    exit after every iteration but the last."""
     global iterations
     grid = _Grid(lab_u8, height, width, sp_size, color_scale, metric)
     centers = grid.init_centers()
@@ -277,6 +330,49 @@ def slic_device(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
             break
     return (grid.from_blocks(labels), centers.reshape(5, -1).T.contiguous(),
             grid.from_blocks(dists), drift)
+
+
+def _kmeans_cuda(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
+                 num_iteration: int, color_scale: float):
+    """The kernel route: every iteration enqueued, three launches each, the
+    early exit decided on the card (``ops/cuda/slic.py``)."""
+    global device_iterations
+    from ..ops.cuda import slic as kslic
+
+    lab = lab_u8.contiguous()
+    centers, labels, dists, sums, keys, state = kmeans_state(lab, height, width, sp_size,
+                                                             num_iteration)
+    space_norm, color_norm = _norms(sp_size, color_scale)
+    for it in range(num_iteration):
+        kslic.associate(lab, centers, labels, dists, sums, state, it, sp_size, space_norm,
+                        color_norm)
+        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, sp_size)
+        kslic.update(lab, centers, keys, sums, state, it, sp_size)
+    device_iterations = state[0, 1]
+    return labels, centers, dists, state[0, 0].to(torch.float32)
+
+
+def kmeans_state(lab: torch.Tensor, height: int, width: int, sp_size: int,
+                 num_iteration: int):
+    """The kernel route's state before its first iteration, on ``lab``'s
+    device: (centers (N, 5) f32 from the plain ``_init_centers``, labels
+    (H, W) int32 all -1, dists (H, W) f32 all f32 max, sums (N, 6) int64
+    zeros, keys (N,) int64 all int64 max, state (num_iteration + 2, 2)
+    int32: row 0 (max drift in cells, iterations run), row 1 + it iteration
+    it's (active, changed), the first iteration active)."""
+    dev = lab.device
+    per_col, per_row = cdiv(height, sp_size), cdiv(width, sp_size)
+    n = per_col * per_row
+    cx, cy, colors = _init_centers(lab.to(torch.float32), height, width, sp_size, per_col,
+                                   per_row)
+    centers = torch.cat([cx[:, None], cy[:, None], colors], 1)
+    labels = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    dists = torch.full((height, width), _BIG, dtype=torch.float32, device=dev)
+    sums = torch.zeros((n, 6), dtype=torch.int64, device=dev)
+    keys = torch.full((n,), _BIG_KEY, dtype=torch.int64, device=dev)
+    state = torch.zeros((num_iteration + 2, 2), dtype=torch.int32, device=dev)
+    state[1, 0] = 1
+    return centers, labels, dists, sums, keys, state
 
 
 # ---------------------------------------------------------------------------
@@ -412,14 +508,22 @@ def enforce_connectivity(labels: np.ndarray, lab: np.ndarray, sp_size: int,
 
 
 def _download(labels: torch.Tensor, lab: torch.Tensor, drift: torch.Tensor):
-    """Raw labels, Lab image and drift to the host in ONE device→host copy."""
-    packed = torch.cat([labels.reshape(-1).view(torch.uint8), lab.reshape(-1),
-                        drift.reshape(1).view(torch.uint8)])
-    host = _host(packed)
+    """Raw labels, Lab image and drift to the host in ONE device→host copy.
+    After a kernel-route call the copy carries the iterations it ran too,
+    which are added to ``iterations``."""
+    global device_iterations, iterations
+    parts = [labels.reshape(-1).view(torch.uint8), lab.reshape(-1),
+             drift.reshape(1).view(torch.uint8)]
+    ran, device_iterations = device_iterations, None
+    if ran is not None:
+        parts.append(ran.reshape(1).view(torch.uint8))
+    host = _host(torch.cat(parts))
     n = labels.numel()
+    if ran is not None:
+        iterations += int(host[7 * n + 4:].view(np.int32)[0])
     return (host[:4 * n].view(np.int32).reshape(labels.shape),
             host[4 * n:7 * n].reshape(lab.shape),
-            float(host[7 * n:].view(np.float32)[0]))
+            float(host[7 * n:7 * n + 4].view(np.float32)[0]))
 
 
 def check_params(superpixel_size: int, metric: str) -> None:
@@ -434,8 +538,10 @@ class SuperpixelSLIC:
     the JAX package's ``SuperpixelSLIC``: takes (height, width) directly (the
     reference's constructor and wrapper swap them twice).  Lab and the
     k-means run on ``device`` (the GPU unless the caller passes
-    ``device="cpu"``); the connectivity pass runs on the host; ``apply``
-    returns the final int32 labels as a tensor on ``device``."""
+    ``device="cpu"``; on the GPU the euclidean k-means runs on the kernels,
+    ``slic_device``'s ``"auto"``); the connectivity pass runs on the host;
+    ``apply`` returns the final int32 labels as a tensor on ``device``, with
+    one device→host read a call on the kernel route."""
 
     def __init__(self, height: int, width: int, superpixel_size: int = 30,
                  num_iteration: int = 10, color_scale: float = 20.0,

@@ -23,9 +23,11 @@ def superpixel_slic(image, superpixel_size: int = 30, num_iteration: int = 10,
     selectable there) or "ciede2000_ref" (the reference's π-scaled variant,
     core/ciede2000.py).
 
-    There is no ``impl`` parameter: the k-means is plain PyTorch on the
-    device (the JAX package's is a pure-XLA program, with no Pallas kernel),
-    and the connectivity pass runs in native C++ on the host."""
+    There is no ``impl`` parameter, as in the JAX package: the k-means takes
+    ``models/slic.py::slic_device``'s ``"auto"`` route, the hand-written
+    kernels (``csrc/slic_kmeans.cu``) for an image on the GPU with the
+    euclidean metric, the plain PyTorch version on the CPU and for the ΔE
+    metrics.  The connectivity pass runs in native C++ on the host."""
     from ..models.slic import SuperpixelSLIC
     img = _validate.as_tensor(image, device)
     _validate.check_u8_color("image", img)
