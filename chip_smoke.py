@@ -26,11 +26,19 @@ each kernel.  Then, for each path the port has:
 - Wexler inpainting (402x700, BASELINE.md configs 5a and 5c): holds the
   search kernel against its plain version over a grid of shapes, target
   counts and masks (bit-equal with image values 0..127, within a stated
-  tolerance on full-range images), drives the path through the op, the
+  tolerance on full-range images), and the fill loop's kernels
+  (csrc/wexler_fill.cu: ring pick, target filters, commit, diffusion start;
+  the JAX package's loop is XLA while_loops, no Pallas kernel) against their
+  plain pieces, every buffer bit-equal after every piece over a grid of
+  boxes, caps and masks (phase 14b); drives the path through the op, the
   ``WexlerInpainting`` module and the CLI with every counter reset just
-  before and read just after, checks the output against the plain path on
-  the card, and times the search kernel, its plain version, its bound and
-  the whole inpaint.
+  before and read just after, requires 4 launches an iteration, no plain
+  piece, at most WEXLER_MAX_SYNCS host syncs a call and the output equal to
+  the plain path on the card; times the search and fill kernels, their
+  plain versions and bounds (phase 16b), and the whole inpaint's wall time
+  and device-busy share, and shows from two profiled energy passes that an
+  iteration launches no torch op (phase 17; a ``{"wexler": ...}`` line
+  holds these numbers).
 
 Then it holds every kernel against its plain version past the radii whose
 halo tile fits one block (the tiles go through shared memory in bands),
@@ -133,6 +141,7 @@ WEXLER_SHAPE = (402, 700)                 # mosaic_dog, BASELINE.md config 5
 SEARCH_SHAPES = ((20, 20), (33, 41), (34, 45), (64, 200), WEXLER_SHAPE)
 SEARCH_TARGETS = (1, 7, 16, 256, 1000, 1024)
 SEARCH_TIMED_TARGETS = (16, 64, 256, 1024)  # the fill's target counts at 402x700
+WEXLER_MAX_SYNCS = 8                      # host syncs a 402x700 inpaint may make
 # the first k past each kernel's one-tile limit (BF self 219, JBF 149, ABF
 # 177, blur + mRTV 119, guide 109), and 301
 LARGE_BF_RADII = ((False, 110), (False, 150), (True, 75), (True, 150))
@@ -1219,6 +1228,249 @@ def parallel_phases(dev) -> dict:
     return results
 
 
+def queued_ms(fn, n: int = 50) -> float:
+    """Device ms per call of ``fn`` run back to back: the launches are
+    queued behind a sleeping kernel first, so host launch time is not
+    counted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s: outlasts enqueueing the n calls
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def fill_grid_cases() -> list[tuple]:
+    """(label, image u8, hole bool, initial, cap, whole-image box): the fill
+    kernels' grid.  Images of values 0..127 (the search is exact, so every
+    piece is compared) unless the label says 0..255 (the search is not
+    compared there: its sums round in each order)."""
+    from various_image_processings_tpu_torch.core.rng import random_image
+
+    wh, ww = WEXLER_SHAPE
+    tex = np.tile(random_image(37, 53) // 2, (-(-wh // 37), -(-ww // 53), 1))[:wh, :ww].copy()
+    full = np.tile(random_image(37, 53), (-(-wh // 37), -(-ww // 53), 1))[:wh, :ww].copy()
+    masks = {k: v > 0 for k, v in wexler_masks(wh, ww).items()}
+    small = np.zeros((200, 300), bool)
+    small[80:120, 130:170] = True                      # a 64x64 box, 1600 pixels
+    yy, xx = np.mgrid[:60, :70]
+    annulus = ((yy - 30) ** 2 + (xx - 35) ** 2 <= 144) & ((yy - 30) ** 2 + (xx - 35) ** 2 > 9)
+    border = np.zeros((60, 70), bool)
+    border[0:9, 50:70] = True
+    lone = np.zeros((20, 20), bool)
+    lone[9, 9] = True                                  # every window covers it: the search fails
+
+    def prefill(img, hole):
+        out = img.copy()
+        out[hole] = 64
+        return out
+
+    return [
+        ("5a onion peel, cap 256", tex, masks["5a"], True, 256, False),
+        ("5a energy pass, cap 1024", prefill(tex, masks["5a"]), masks["5a"], False, 1024, False),
+        ("5a energy pass, cap 16", prefill(tex, masks["5a"]), masks["5a"], False, 16, False),
+        ("5a energy pass, cap 1024, values 0..255", prefill(full, masks["5a"]), masks["5a"],
+         False, 1024, False),
+        ("5c onion peel, whole-image box, cap 256", tex, masks["5c"], True, 256, True),
+        ("5c energy pass, whole-image box, cap 1024", prefill(tex, masks["5c"]), masks["5c"],
+         False, 1024, True),
+        ("200x300 64x64 box, energy pass, cap 1024", prefill(tex[:200, :300], small), small,
+         False, 1024, False),
+        ("200x300 64x64 box, onion peel, cap 64", tex[:200, :300], small, True, 64, False),
+        ("hole at the image border, onion peel, cap 64", tex[:60, :70], border, True, 64, False),
+        ("hole at the image border, energy pass, cap 16", prefill(tex[:60, :70], border), border,
+         False, 16, False),
+        ("island mask (annulus), onion peel, cap 256", tex[:60, :70], annulus, True, 256, False),
+        ("island mask (annulus), whole-image box, cap 32", tex[:60, :70], annulus, True, 32,
+         True),
+        ("failing search 20x20, onion peel", tex[:20, :20], lone, True, 256, False),
+        ("failing search 20x20, energy pass", tex[:20, :20], lone, False, 16, False),
+    ]
+
+
+def fill_pass_for(wexler, img_np, hole, initial, cap, whole, route, dev):
+    """A ``_FillPass`` on the card for one grid case."""
+    import torch
+
+    h, w = hole.shape
+    (bh, bw), (by0, bx0) = ((h, w), (0, 0)) if whole else wexler.WexlerInpainting._hole_bbox(hole)
+    island = wexler._island_known(hole) if initial else None
+    rem = torch.from_numpy(hole.astype(np.float32)).to(dev)
+    weight = torch.from_numpy(wexler.calculate_weight(hole).astype(np.float32)).to(dev)
+    island = None if island is None else torch.from_numpy(island.astype(np.float32)).to(dev)
+    return wexler._FillPass(torch.from_numpy(img_np).to(dev).float(), rem, weight, h, w, initial,
+                            cap, (bh, bw, by0, bx0), island, route)
+
+
+FILL_PIECES = ("ring_pick", "filters", "search", "commit")
+FILL_BUFFERS = ("img", "rem", "p", "f", "b2", "valid", "keys", "tyx", "state")
+FILL_GRID_ITERATIONS = 8  # iterations a grid case at most
+FILL_KERNELS = ("wexler_ring_pick", "wexler_filters", "wexler_commit", "wexler_diffusion")
+
+
+def fill_kernel_phases(dev) -> dict:
+    """Phases 14b and 16b: the fill-loop kernels (csrc/wexler_fill.cu; the
+    JAX package runs the loop as XLA while_loops, no Pallas kernel).  14b:
+    each kernel against its plain piece on the card, bit for bit: a kernel
+    pass and a plain pass side by side over ``fill_grid_cases()``, the plain
+    pass's buffers copied from the kernel pass's before every piece, every
+    buffer compared after it (the search too where the image is exact); the
+    diffusion start against the plain ``_alt_init_device`` on a 128x128 box
+    and a 50x87 level, with and without the dither.  16b: each kernel's
+    device time at the 5a top level's energy pass (402x700, a 128x128 box,
+    cap 1024), queued behind a sleep kernel, its plain piece's and its
+    bound; the diffusion start's on a 128x128 box.  Returns {kernel: {max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, at}}."""
+    import torch
+
+    from various_image_processings_tpu_torch.models import inpainting as wexler
+    from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill
+    from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
+
+    def bits(t):
+        return {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype)
+
+    def used(fp, name):
+        """A pass buffer without the search keys of the padded targets (past
+        cap), which the kernel computes and nothing reads."""
+        return fp.keys[: fp.cap] if name == "keys" else getattr(fp, name)
+
+    def err(a, b) -> float:
+        """max |a - b| in f64 over the elements whose bits differ (inf where
+        one is a NaN or the two are opposite infinities); the state's words
+        count as integers."""
+        ne = a.view(bits(a)) != b.view(bits(b))
+        if not bool(ne.any()):
+            return 0.0
+        d = (a[ne].double() - b[ne].double()).abs()
+        return float(torch.nan_to_num(d, nan=float("inf")).max())
+
+    t_start = time.perf_counter()
+    cases = iterations = 0
+    worst = dict.fromkeys(FILL_KERNELS, 0.0)
+    for label, img_np, hole, initial, cap, whole in fill_grid_cases():
+        exact = "0..255" not in label
+        k = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "cuda", dev)
+        p = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "torch", dev)
+        for it in range(FILL_GRID_ITERATIONS):
+            for piece in FILL_PIECES:
+                for name in FILL_BUFFERS:
+                    getattr(p, name).copy_(getattr(k, name))
+                getattr(k, piece)()
+                getattr(p, piece)()
+                if piece == "search" and not exact:
+                    continue
+                differ = {name: int((used(k, name).view(bits(used(k, name)))
+                                     != used(p, name).view(bits(used(p, name)))).sum())
+                          for name in FILL_BUFFERS}
+                if piece != "search":
+                    worst[f"wexler_{piece}"] = max(
+                        worst[f"wexler_{piece}"],
+                        *(err(used(k, name), used(p, name)) for name in FILL_BUFFERS))
+                bad = {n: c for n, c in differ.items() if c}
+                if bad:
+                    raise SystemExit(f"fill grid FAILED: {label}, iteration {it}, {piece}: "
+                                     f"kernel and plain piece differ in {bad} elements")
+            iterations += 1
+            if not int(k.state[kfill.ACTIVE]):
+                break
+        cases += 1
+        if "failing" in label and not int(k.state[kfill.FAIL]):
+            raise SystemExit(f"fill grid FAILED: {label}: the pass did not fail")
+    # the diffusion start: a 128x128 box (BEAM_MAX_DIM) and the 5a coarsest level
+    from various_image_processings_tpu_torch.core.rng import random_image
+    diffusion_cases = 0
+    for h, w in ((128, 128), (50, 87)):
+        img = torch.from_numpy(random_image(h, w)).to(dev)
+        hole = np.zeros((h, w), bool)
+        hole[h // 5 : h - h // 6, w // 4 : w - w // 5] = True
+        hole[h // 2 :, w // 2 - 3 : w // 2 + 3] = True
+        (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
+        rem = torch.from_numpy(hole.astype(np.float32)).to(dev)
+        for dither in (False, True):
+            got = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither, "cuda")
+            want = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither, "torch")
+            d = max_diff(got, want)
+            worst["wexler_diffusion"] = max(worst["wexler_diffusion"], float(d))
+            if d:
+                raise SystemExit(f"diffusion start FAILED: {h}x{w} box {bh}x{bw} dither "
+                                 f"{dither}: max |diff| {d}")
+            diffusion_cases += 1
+    torch.cuda.synchronize()
+    phase(f"14b. Wexler fill kernels vs their plain pieces on the card: {cases} passes "
+          f"({iterations} iterations; boxes 64x64 to the whole 402x700 image, caps 16 to 1024, "
+          f"onion peel and energy passes, a hole at the image border, an island mask, a "
+          f"failing search, a full-range image), every buffer bit-equal after every piece "
+          f"(ring pick, filters, commit; the search where the image is exact); diffusion start "
+          f"{diffusion_cases} cases (boxes 128x128 and 50x87-level, dither off and on) "
+          f"bit-equal (tolerance 0); max |diff| {worst} "
+          f"({time.perf_counter() - t_start:.1f} s)")
+
+    # 16b. times at the 5a top level's energy pass, and bounds from this run's
+    #      work; max_abs_err is phase 14b's largest difference
+    wh, ww = WEXLER_SHAPE
+    out = {}
+    _, img_np, hole, initial, cap, whole = next(c for c in fill_grid_cases()
+                                                if c[0] == "5a energy pass, cap 1024")
+    k = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "cuda", dev)
+    p = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "torch", dev)
+    k.ring_pick()
+    k.filters()
+    k.search()
+    for name in FILL_BUFFERS:
+        getattr(p, name).copy_(getattr(k, name))
+    bh, bw, by0, bx0 = k.box
+    count, tp = int(k.state[kfill.COUNT]), k.f.shape[1]
+    vy0, vx0, vh, vw = kfill.validity_region(wh, ww, k.box)
+    # the image and mask under the targets' windows and the validity windows, read once
+    tmap = torch.zeros((wh, ww), device=dev)
+    tmap[k.tyx[0, :count].long(), k.tyx[1, :count].long()] = 1.0
+    under = torch.nn.functional.max_pool2d(tmap[None, None], 13, 1, 6)[0, 0] > 0
+    under[vy0 : vy0 + vh + 12, vx0 : vx0 + vw + 12] = True
+    work = {
+        "ring_pick": (bh * bw * 4 + 2 * cap * 4 + tp * 8 + 32, 9 * bh * bw),
+        "filters": (int(under.sum()) * 16 + count * (13 * 117 * 2 + 4) + vh * vw,
+                    count * (13 * 117 + 2 * 507) + vh * vw * 169),
+        "commit": (count * (8 + 4 + 8 + 4 + 12 + 12 + 4 + 13 * 9 * 2) + 32,
+                   count * (9 + 13 * 9 + 2) + 2 * count),
+    }
+    at = f"{wh}x{ww} 5a, box {bh}x{bw}, cap {cap}, {count} targets"
+    for piece in ("ring_pick", "filters", "commit"):
+        k_ms = queued_ms(getattr(k, piece), 50)
+        p_ms = cuda_time_ms(getattr(p, piece), iters=5, warmup=1)
+        b_ms, b_by = bound(*work[piece])
+        out[f"wexler_{piece}"] = {"max_abs_err": worst[f"wexler_{piece}"], "ms": k_ms,
+                                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "at": at}
+        phase(f"16b. wexler_{piece} at {at} (energy pass): kernel {k_ms:.4f} ms, plain piece "
+              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
+    # the diffusion start on a 128x128 box: (bh + bw) sweeps of 9 adds and a
+    # product a hole pixel and channel
+    img = torch.from_numpy(random_image(128, 128)).to(dev)
+    hole = np.zeros((128, 128), bool)
+    hole[16:112, 20:110] = True
+    (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
+    rem = torch.from_numpy(hole.astype(np.float32)).to(dev)
+    n_hole = int(hole.sum())
+    k_ms = queued_ms(lambda: wexler._alt_init_device(img, rem, 128, 128, (bh, bw), (by0, bx0),
+                                                     True, "cuda"), 20)
+    p_ms = cuda_time_ms(lambda: wexler._alt_init_device(img, rem, 128, 128, (bh, bw), (by0, bx0),
+                                                        True, "torch"), iters=3, warmup=1)
+    b_ms, b_by = bound(bh * bw * 7 + n_hole * 3, (bh + bw) * n_hole * 3 * 10 + bh * bw * 6)
+    out["wexler_diffusion"] = {"max_abs_err": worst["wexler_diffusion"], "ms": k_ms,
+                               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                               "at": f"128x128, box {bh}x{bw}, {n_hole} hole pixels, dither"}
+    phase(f"16b. wexler_diffusion 128x128 (box {bh}x{bw}, {n_hole} hole pixels, {bh + bw} "
+          f"sweeps, dither): kernel {k_ms:.4f} ms (a clone of the image included), plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1251,26 +1503,12 @@ def main() -> int:
     from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
     from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+    from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill
     from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws
     from various_image_processings_tpu_torch.ops.gradient import _gradient_math
     from various_image_processings_tpu_torch.ops.wexler_search import _search_min_math
     from various_image_processings_tpu_torch.utils.io import imread, imwrite
     from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
-
-    def queued_ms(fn, n: int = 50) -> float:
-        """Device ms per call of ``fn`` run back to back: the launches are
-        queued behind a sleeping kernel first, so host launch time is not
-        counted."""
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)  # ~0.1 s: outlasts enqueueing the n calls
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
 
     # 1. build
     t0 = time.perf_counter()
@@ -1280,6 +1518,7 @@ def main() -> int:
     kab._lib()
     kws._lib()
     kslic._lib()
+    kfill._lib()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
     for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
@@ -1530,14 +1769,23 @@ def main() -> int:
     counter_names = ("gradient, blur_rtv, guide, bilateral, adaptive_bilateral, "
                      "wexler_search")
 
+    fill_counters = tuple((kfill, f"{name}_launches")
+                          for name in ("ring_pick", "filters", "commit", "diffusion"))
+
     def reset() -> None:
         torch.cuda.synchronize()
-        for mod, attr in counters:
+        for mod, attr in counters + fill_counters:
             setattr(mod, attr, 0)
 
     def read() -> list[int]:
         torch.cuda.synchronize()
         return [getattr(mod, attr) for mod, attr in counters]
+
+    def read_fill() -> list[int]:
+        """The fill-loop kernels' launches: ring pick, filters, commit,
+        diffusion start."""
+        torch.cuda.synchronize()
+        return [getattr(mod, attr) for mod, attr in fill_counters]
 
     path_launches = [0] * len(counters)
     btf_np = random_image(bh, bw)
@@ -1862,6 +2110,8 @@ def main() -> int:
           f"the {s_clear} targets (of {s_picks}) whose best energy leads by more than 2 tol; "
           f"{s_none} cases with no valid candidate gave (+inf, 0)")
 
+    fill_k = fill_kernel_phases(dev)
+
     # 15. the Wexler path, counted: configs 5a and 5c through op, module and
     #     CLI on a 402x700 periodic texture of values 0..127 (the true hole
     #     content exists elsewhere in the frame, and the search is exact)
@@ -1872,11 +2122,13 @@ def main() -> int:
     wex_module = vt.WexlerInpainting()
     real_pass_core, pass_shapes = wexler._pass_core, []
 
-    def counted_pass_core(img_f, *args, **kwargs):
-        pass_shapes.append(tuple(img_f.shape[:2]))
-        return real_pass_core(img_f, *args, **kwargs)
+    def counted_pass_core(img_f, rem_f, weight, height, width, initial, *args, **kwargs):
+        pass_shapes.append((tuple(img_f.shape[:2]), initial))
+        return real_pass_core(img_f, rem_f, weight, height, width, initial, *args, **kwargs)
 
     wex_launches = 0
+    wex_fill_launches = [0] * len(fill_counters)
+    wex_paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         in_path = os.path.join(tmp, "in.png")
         imwrite(in_path, wex_np)
@@ -1887,25 +2139,30 @@ def main() -> int:
             imwrite(mask_path, mask_np)
             reset()
             search_op.plain_searches = 0
+            wexler.plain_pieces = 0
             wexler.host_syncs = 0
             pass_shapes.clear()
             wexler._pass_core = counted_pass_core
             try:
                 out = vt.inpainting_wexler(wex, mask)
-                op_counts = read()
+                op_counts, op_fill = read(), read_fill()
             finally:
                 wexler._pass_core = real_pass_core
-            syncs, passes = wexler.host_syncs, Counter(pass_shapes)
+            syncs = wexler.host_syncs
+            passes = Counter(shape for shape, _ in pass_shapes)
+            onion_passes = sum(initial for _, initial in pass_shapes)
             reset()
             out_module = wex_module(wex, mask)
-            module_counts = read()
+            module_counts, module_fill = read(), read_fill()
             reset()
             cli_wex.main([in_path, mask_path, "-o", out_path, "--device", "cuda"])
-            cli_counts = read()
-            plain_on_path = search_op.plain_searches
+            cli_counts, cli_fill = read(), read_fill()
+            plain_on_path = search_op.plain_searches + wexler.plain_pieces
             out_cli = torch.from_numpy(imread(out_path))
             out_plain = vt.inpainting_wexler(wex, mask, impl="torch")
             searches = op_counts[5]
+            ring_picks, n_filters, commits, diffusions = op_fill
+            per_iteration = (ring_picks + n_filters + searches + commits) / max(searches, 1)
             per_level = ", ".join(f"{lh}x{lw} {n}" for (lh, lw), n in
                                   sorted(passes.items(), reverse=True))
             keep = torch.from_numpy(mask_np == 0).to(dev)
@@ -1914,22 +2171,39 @@ def main() -> int:
             d_plain, d_module = max_diff(out, out_plain), max_diff(out_module, out)
             d_cli = max_diff(out.cpu(), out_cli)
             known_same = torch.equal(out[keep], wex[keep])
+            wex_paths[cfg] = {"host_syncs": syncs, "iterations": searches,
+                              "launches_an_iteration": per_iteration,
+                              "ring_picks": ring_picks, "diffusion_starts": diffusions}
             phase(f"Wexler path {cfg} {wh}x{ww} ({int((mask_np > 0).sum())} hole pixels): "
                   f"launches ({counter_names}) op {op_counts}, module {module_counts}, CLI "
-                  f"{cli_counts} (2 calls); plain searches on the path {plain_on_path}; "
-                  f"{len(passes)} pyramid levels, passes per level {per_level}; "
-                  f"{searches} searches and {syncs} host syncs per call; hole PSNR "
+                  f"{cli_counts} (2 calls); fill kernels (ring pick, filters, commit, "
+                  f"diffusion) op {op_fill}, module {module_fill}, CLI {cli_fill}; plain "
+                  f"pieces and searches on the path {plain_on_path}; "
+                  f"{len(passes)} pyramid levels, passes per level {per_level} "
+                  f"({onion_passes} onion peel); {searches} iterations a call, kernel launches "
+                  f"an iteration {per_iteration:.3f} (filters, search and commit once each, "
+                  f"the ring pick once more at the end of each onion-peel pass); {syncs} host "
+                  f"syncs a call (bound {WEXLER_MAX_SYNCS}); hole PSNR "
                   f"{psnr} against the true texture; vs the plain path on the card "
                   f"max |diff| {d_plain}, module vs op {d_module}, CLI vs op {d_cli} "
                   f"(tolerance 0); known pixels unchanged: {known_same}")
             if (op_counts[:5] != [0] * 5 or searches < 1 or module_counts != op_counts
                     or cli_counts[:5] != [0] * 5 or cli_counts[5] != 2 * searches
+                    or module_fill != op_fill or cli_fill != [2 * c for c in op_fill]
+                    or n_filters != searches or commits != searches
+                    or ring_picks != searches + onion_passes or diffusions != 2
                     or plain_on_path != 0):
-                raise SystemExit("Wexler path did not run every search through the kernel")
+                raise SystemExit("Wexler path did not run every piece of the fill loop through "
+                                 "its kernel")
+            if syncs > WEXLER_MAX_SYNCS:
+                raise SystemExit(f"Wexler path: {syncs} host syncs a call, above the bound "
+                                 f"{WEXLER_MAX_SYNCS}")
             if (out.shape != wex.shape or out.dtype != torch.uint8 or not out.is_cuda
                     or d_plain or d_module or d_cli or not known_same):
                 raise SystemExit("Wexler path output wrong")
             wex_launches += searches + module_counts[5] + cli_counts[5]
+            wex_fill_launches = [a + b + c + d for a, b, c, d in
+                                 zip(wex_fill_launches, op_fill, module_fill, cli_fill)]
 
     # 16. search times at 402x700 for the main path's target counts: the
     #     kernel alone on the wrapper's padded buffers and the wrapper (pads
@@ -1967,9 +2241,18 @@ def main() -> int:
 
     # 17. whole inpaint, warm: wall time (host clock, synchronized, median of
     #     3) and, from one profiled call, the device-busy share and the search
-    #     kernel's share of that wall time
-    def device_us(prof) -> tuple[float, float]:
-        total = search = 0.0
+    #     and fill kernels' shares of that wall time; then the loop body: two
+    #     energy passes whose iteration counts differ launch the same number
+    #     of other device kernels, so an iteration holds no torch op.  The
+    #     energy passes' profiles record their second step: a cold trace can
+    #     miss a step's first kernels, which this count would read as fewer
+    #     launches
+    warm_step = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    loop_kernels = ("wexler_ring_pick_kernel", "wexler_filters_kernel", "wexler_search_kernel",
+                    "wexler_commit_kernel")
+
+    def device_us(prof) -> tuple[float, float, float]:
+        total = search = fill = 0.0
         for evt in prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -1978,16 +2261,19 @@ def main() -> int:
             total += us
             if "wexler_search_kernel" in evt.key:
                 search += us
-        return total, search
+            elif "wexler_" in evt.key:
+                fill += us
+        return total, search, fill
 
     wex_walls = {}
     for cfg, mask_np in wex_masks.items():
         mask = torch.from_numpy(mask_np).to(dev)
-        walls = []
+        walls, enqueues = [], []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             vt.inpainting_wexler(wex, mask)
+            enqueues.append(time.perf_counter() - t0)  # the host's part: the call returned
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall = statistics.median(walls)
@@ -1997,14 +2283,56 @@ def main() -> int:
             vt.inpainting_wexler(wex, mask)
             torch.cuda.synchronize()
         n_search = read()[5]
-        busy_us, search_us = device_us(prof)
+        busy_us, search_us, fill_us = device_us(prof)
         wex_walls[cfg] = wall
+        wex_paths[cfg].update(wall_s=wall, walls_s=walls, enqueue_s=enqueues,
+                              device_ms=busy_us / 1e3,
+                              busy=busy_us / 1e6 / wall if busy_us else None,
+                              search_ms=search_us / 1e3, fill_kernels_ms=fill_us / 1e3)
         shares = ("not measured (the profiler recorded no device time)" if busy_us == 0 else
                   f"device busy {busy_us / 1e6 / wall:.3f} of the wall time, the search kernel "
                   f"{search_us / 1e6 / wall:.3f} ({search_us / 1e3:.3f} ms in {n_search} "
-                  f"launches; all kernels {busy_us / 1e3:.3f} ms, under the profiler)")
+                  f"launches), the fill kernels {fill_us / 1e3:.3f} ms; all kernels "
+                  f"{busy_us / 1e3:.3f} ms, under the profiler")
         phase(f"Wexler {cfg} whole inpaint {wh}x{ww}, warm: wall {wall:.4f} s (runs "
-              f"{', '.join(f'{x:.4f}' for x in walls)} s); {shares}")
+              f"{', '.join(f'{x:.4f}' for x in walls)} s; the call returned to the host after "
+              f"{', '.join(f'{x:.4f}' for x in enqueues)} s); {shares}")
+    hole_5a = wex_masks["5a"] > 0
+    bbox_5a = vt.WexlerInpainting._hole_bbox(hole_5a)
+    rem_5a = torch.from_numpy(hole_5a.astype(np.float32)).to(dev)
+    weight_5a = torch.from_numpy(wexler.calculate_weight(hole_5a).astype(np.float32)).to(dev)
+    body = {}
+    for cap in (1024, 256):
+        n_iter = -(-int(hole_5a.sum()) // cap)
+
+        def energy_pass():
+            wexler._pass_core(wex.float(), rem_5a, weight_5a, wh, ww, False, cap, *bbox_5a,
+                              n_iter=n_iter)
+            torch.cuda.synchronize()
+
+        energy_pass()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=warm_step) as prof:
+            for _ in range(2):
+                energy_pass()
+                prof.step()
+        counts = Counter()
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                counts[any(name in evt.key for name in loop_kernels)] += evt.count
+        body[n_iter] = (counts[True], counts[False])
+    (n_a, (ours_a, other_a)), (n_b, (ours_b, other_b)) = body.items()
+    if ours_a == ours_b == 0:
+        phase("Wexler loop body: not measured (the profiler recorded no device kernel)")
+    else:
+        phase(f"Wexler loop body (an energy pass at the 5a top level, {wh}x{ww}): "
+              f"{n_a} iterations launch {ours_a} loop kernels and {other_a} other device "
+              f"kernels and copies, {n_b} iterations {ours_b} and {other_b}: "
+              f"{(other_b - other_a) / (n_b - n_a):g} torch ops an iteration")
+        if ours_a != 4 * n_a or ours_b != 4 * n_b or other_a != other_b:
+            raise SystemExit("the Wexler loop body launches more than its 4 kernels")
+    wex_paths["loop_body"] = {str(n): list(v) for n, v in body.items()}
+    print(json.dumps({"wexler": wex_paths}), flush=True)
 
     # 18. past the one-tile limits: each kernel against its plain version at
     #     the first k whose halo tile does not fit one block and at 301 (the
@@ -2173,6 +2501,28 @@ def main() -> int:
         "library_ms": None,
         "at": f"{wh}x{ww} T=1024",
     })
+    fill_replaces = {
+        "wexler_ring_pick": ":414 (_pass_core's while_loop: its cond :503-506 and the ring "
+                            ":446-488) and :528 (_energy_loops_device's stop)",
+        "wexler_filters": ":414 (_pass_core's body: the target side of _ring_targets_search "
+                          ":265-340)",
+        "wexler_commit": ":414 (_pass_core's body: the failure test, scatters, p117 update and "
+                         "energy :491-501)",
+        "wexler_diffusion": ":568 (_alt_init_device's fori_loop)",
+    }
+    for name, n in zip(FILL_KERNELS, wex_fill_launches):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "various_image_processings_tpu_torch/csrc/wexler_fill.cu",
+            "replaces": "various_image_processings_tpu/models/inpainting.py"
+                        + fill_replaces[name] + "; XLA, no Pallas kernel",
+            "launches": n,
+            **{key: fill_k[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by")},
+            "library_ms": None,
+            "at": fill_k[name]["at"],
+        })
     s_size, iters, m = SLIC_PARAMS
     for name in SLIC_KERNELS:
         b_ms, b_by = slic_k["512x512"]["bound"][name]

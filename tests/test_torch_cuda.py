@@ -27,6 +27,7 @@ from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as cu
 from various_image_processings_tpu_torch.ops.cuda import gradient as cuda_grad  # noqa: E402
 from various_image_processings_tpu_torch.models import inpainting as wexler  # noqa: E402
 from various_image_processings_tpu_torch.ops import wexler_search as search_op  # noqa: E402
+from various_image_processings_tpu_torch.ops.cuda import wexler_fill as cuda_fill  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import wexler_search as cuda_search  # noqa: E402
 from various_image_processings_tpu_torch.ops.gradient import _gradient_math  # noqa: E402
 from guide_ties import tie_inputs  # noqa: E402
@@ -702,6 +703,127 @@ def test_wexler_full_range_fill_within_the_psnr_window(cuda, image):
     inside = hole > 0
     assert torch.equal(out[~inside], src[~inside])
     assert hole_psnr(out, src, inside) >= hole_psnr(ref, src, inside) - 2.0
+
+
+def fill_case(name):
+    """(image u8, hole bool): the fill kernels' small cases."""
+    img = np.tile(random_image(37, 53) // 2, (4, 4, 1))
+    yy, xx = np.mgrid[:60, :70]
+    holes = {
+        "square": (slice(20, 30), slice(25, 37)),
+        "border": (slice(0, 9), slice(50, 70)),
+    }
+    if name == "annulus":
+        d = (yy - 30) ** 2 + (xx - 35) ** 2
+        return img[:60, :70].copy(), (d <= 144) & (d > 9)
+    if name == "lone":
+        hole = np.zeros((20, 20), bool)
+        hole[9, 9] = True
+        return img[:20, :20].copy(), hole
+    hole = np.zeros((60, 70), bool)
+    hole[holes[name]] = True
+    return img[:60, :70].copy(), hole
+
+
+def fill_passes(name, initial, cap, device):
+    """A kernel pass and a plain pass on the card from the same inputs."""
+    img, hole = fill_case(name)
+    if not initial:
+        img[hole] = 64
+    h, w = hole.shape
+    (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
+    island = wexler._island_known(hole) if initial else None
+    rem = torch.from_numpy(hole.astype(np.float32)).to(device)
+    weight = torch.from_numpy(wexler.calculate_weight(hole).astype(np.float32)).to(device)
+    island = None if island is None else torch.from_numpy(island.astype(np.float32)).to(device)
+    x = torch.from_numpy(img).to(device).float()
+    return [wexler._FillPass(x, rem, weight, h, w, initial, cap, (bh, bw, by0, bx0), island,
+                             route) for route in ("cuda", "torch")]
+
+
+FILL_BUFFERS = ("img", "rem", "p", "f", "b2", "valid", "tyx", "state")
+
+
+@pytest.mark.parametrize("name,initial,cap", [("square", True, 256), ("square", False, 16),
+                                              ("border", True, 32), ("annulus", True, 64),
+                                              ("annulus", False, 1024), ("lone", True, 16)])
+def test_wexler_fill_kernels_bit_equal_to_plain_pieces(cuda, name, initial, cap):
+    """Each piece from the same state: every buffer bit-equal after it (the
+    search's keys where a target uses them)."""
+    k, p = fill_passes(name, initial, cap, cuda)
+    for _ in range(64):
+        for piece in ("ring_pick", "filters", "search", "commit"):
+            for buf in FILL_BUFFERS + ("keys",):
+                getattr(p, buf).copy_(getattr(k, buf))
+            getattr(k, piece)()
+            getattr(p, piece)()
+            for buf in FILL_BUFFERS:
+                a, b = getattr(k, buf), getattr(p, buf)
+                if a.is_floating_point():
+                    a, b = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32), \
+                        b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32)
+                assert torch.equal(a, b), (piece, buf)
+            assert torch.equal(k.keys[:cap], p.keys[:cap]), piece
+        if not int(k.state[cuda_fill.ACTIVE]):
+            break
+    assert not int(k.state[cuda_fill.ACTIVE])
+    assert int(k.state[cuda_fill.FAIL]) == (name == "lone")
+
+
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize("shape", [(128, 128), (50, 87)])
+def test_wexler_diffusion_kernel_bit_equal_to_plain(cuda, shape, dither):
+    h, w = shape
+    img = torch.from_numpy(random_image(h, w)).to(cuda)
+    hole = np.zeros((h, w), bool)
+    hole[h // 5 : h - h // 6, w // 4 : w - w // 5] = True
+    (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
+    rem = torch.from_numpy(hole.astype(np.float32)).to(cuda)
+    before = cuda_fill.diffusion_launches
+    got = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither)
+    assert cuda_fill.diffusion_launches == before + 1
+    want = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither, "torch")
+    assert torch.equal(got, want)
+
+
+def test_wexler_fill_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    k, _ = fill_passes("square", True, 16, cuda)
+    box = k.box
+    pick = cuda_fill.ring_pick_launcher
+    with pytest.raises(TypeError):
+        pick(k.rem.double(), k.rem0, None, k.tyx, k.keys, k.state, box, True)
+    with pytest.raises(ValueError, match="shape"):
+        pick(k.rem, k.rem0[1:].contiguous(), None, k.tyx, k.keys, k.state, box, True)
+    with pytest.raises(ValueError, match="box"):
+        pick(k.rem, k.rem0, None, k.tyx, k.keys, k.state, (61, 70, 0, 0), True)
+    wide = torch.zeros((2, 2048), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="cap"):
+        cuda_fill.commit_launcher(k.img, k.rem, k.p, k.keys, k.b2, wide, k.weight, k.state)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_fill.filters_launcher(k.img.cpu(), k.rem, k.tyx, k.state, k.f, k.b2, k.valid, box,
+                                   True)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_fill.diffusion(torch.zeros((200, 200, 3), dtype=torch.uint8, device=cuda),
+                            torch.zeros((200, 200), device=cuda), (200, 200, 0, 0), False, 1 / 9)
+
+
+def test_wexler_kernel_path_runs_four_launches_an_iteration(cuda):
+    """Filters, search and commit once an iteration, the ring pick once more
+    at the end of each onion-peel pass; no plain piece; the host reads the
+    mask pyramid, the onion peel's active flag and its energy."""
+    img, mask = stripes((72, 72), 20, 120), np.zeros((72, 72), np.uint8)
+    mask[30:38, 30:38] = 255
+    src, hole = torch.from_numpy(img).to(cuda), torch.from_numpy(mask).to(cuda)
+    counts = (cuda_fill.ring_pick_launches, cuda_fill.filters_launches, cuda_search.launches,
+              cuda_fill.commit_launches)
+    wexler.plain_pieces = wexler.host_syncs = 0
+    out = vt.inpainting_wexler(src, hole, multi_start=1)
+    ring, filt, search, commit = (b - a for a, b in zip(counts, (
+        cuda_fill.ring_pick_launches, cuda_fill.filters_launches, cuda_search.launches,
+        cuda_fill.commit_launches)))
+    assert filt == search == commit >= 1 and ring == search + 1  # one onion peel
+    assert wexler.plain_pieces == 0 and wexler.host_syncs == 3
+    assert torch.equal(out, vt.inpainting_wexler(src, hole, multi_start=1, impl="torch"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,488 @@
+// The Wexler fill loop for Hopper (sm_90a): one iteration of a fill pass in
+// four kernels, with the exemplar search (wexler_search.cu) between the
+// second and the fourth, and the multi-start beam's diffusion start.
+//
+// Replaces no Pallas kernel: the JAX package runs each fill pass as one XLA
+// lax.while_loop (various_image_processings_tpu/models/inpainting.py:414,
+// _pass_core), the energy loop as another around it (:528,
+// _energy_loops_device) and the diffusion start as a fori_loop (:568,
+// _alt_init_device).  These kernels compute what the port's plain pieces
+// (models/inpainting.py::_FillPass and _alt_init_device) compute, bit for
+// bit:
+//
+//   wexler_ring_pick_kernel   the loop's cond and the body's ring: over the
+//     (bh, bw) hole box, the energy passes take every remaining pixel, the
+//     onion-peel passes the remaining pixels with a known 8-neighbour (the
+//     box edge counts as known), seeded only from border-connected known
+//     pixels and this pass's fills where the mask has known islands, and
+//     from every known pixel when that ring is empty.  The first cap ring
+//     pixels in raster order become the targets (the rest padded with the
+//     box origin), min(count, cap) the count, count > 0 the iteration's
+//     active flag, and the search's keys go back to all ones.
+//   wexler_filters_kernel     the target side of the search: per target the
+//     13 x 13 x 9 filter (256 m, m, -2 m b) straight into the search's
+//     target-major (13, Tp, 128) bf16 buffer and b2 = sum m b^2; and the
+//     candidate validity map recounted over the box dilated by 12 (the
+//     only windows whose hole count can change: the remaining mask only
+//     shrinks, and only inside the box).
+//   wexler_commit_kernel      the body's scatters: decodes the search keys,
+//     fails the iteration where a valid target got +inf, copies each
+//     pick's pixel onto its target, clears the target's remaining bit,
+//     rewrites the 13 x 9 entries p117[ty, tx - kx, 9 kx + c] the pixel
+//     feeds (each depends on that pixel alone, so this is exact and
+//     replaces the strip re-pack), and adds the iteration's sum of
+//     e * weight to the pass energy.
+//   wexler_diffusion_kernel   the diffusion start: one block a channel
+//     keeps its box plane double-buffered in shared memory for the bh + bw
+//     Jacobi sweeps of the 3 x 3 edge-padded mean, then the dither and the
+//     clamp.
+//
+// The state of a pass is an int32 vector (models/inpainting.py and
+// ops/cuda/wexler_fill.py name its slots): active, fail, live (the energy
+// loop has not stopped), count, energy (f32 bits), iterations run.  The host
+// enqueues iterations without reading anything; every kernel but the ring
+// pick returns at once when active is 0, and the ring pick clears active
+// once the pass failed or its energy loop stopped.  No kernel reads a flag
+// that its own grid writes: the ring pick and the commit are one block each.
+//
+// Exactness: every value the loop moves is an integer (u8 pixel values, 0/1
+// masks), so the copies and the planes are exact; the two float sums have a
+// fixed order that the plain pieces repeat with elementwise adds: b2 a
+// halving tree over 512 slots (the 507 products in (c, ky, kx) order, then
+// zeros), the energy a halving tree over the cap slots padded to a power of
+// two, then one add a iteration.  Products are __fmul_rn and sums
+// __fadd_rn, so nothing contracts into an FMA.  No float atomics.
+//
+// What bounds them on the card: the latency of a launch and of one block.
+// The ring pick reads at most the box (<= 4 B a pixel plus 8 neighbours
+// from L1), the filters write 13 x 128 x 2 B a target, the commit ~0.5 KB a
+// target; at 402 x 700 (5a) that is well under a megabyte an iteration,
+// microseconds of bandwidth.  The ring pick and the commit are one block by
+// design (a block-wide scan and a fixed-order tree; the commit's fail test
+// must precede every write), so they take a few microseconds each however
+// small the ring.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+// slots of the pass state (ops/cuda/wexler_fill.py)
+constexpr int kActive = 0;
+constexpr int kFail = 1;
+constexpr int kLive = 2;
+constexpr int kCount = 3;
+constexpr int kEnergy = 4;
+constexpr int kIterations = 5;
+
+constexpr int kWindow = 13;
+constexpr int kHalf = kWindow / 2;
+constexpr int kPlanes = 9;                  // hi, lo, a of three channels
+constexpr int kPacked = kWindow * kPlanes;  // 117 channels of p117
+constexpr int kChannels = 128;              // padded, as the search reads them
+constexpr int kPatch = 3 * kWindow * kWindow;  // 507 products of b2
+constexpr int kTree = 512;                  // b2's tree, zero-padded
+
+constexpr int kPickThreads = 1024;
+constexpr int kFilterThreads = 256;
+constexpr int kTargetsPerBlock = kFilterThreads / 32;  // a warp a target
+constexpr int kMaxCap = 1024;               // the commit's one block
+constexpr int kDiffuseThreads = 1024;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNoKey = ~0ull;
+
+enum Mode { kEnergyMode = 0, kRingMode = 1, kIslandMode = 2 };
+
+// Is box pixel (y, x) on this iteration's ring?
+__device__ __forceinline__ bool on_ring(const float* __restrict__ rem,
+                                        const float* __restrict__ rem0,
+                                        const float* __restrict__ island, int mode,
+                                        bool restricted, int y, int x, int bh, int bw, int by0,
+                                        int bx0, int width) {
+  const float r = rem[static_cast<size_t>(by0 + y) * width + bx0 + x];
+  if (!(r > 0.0f)) return false;
+  if (mode == kEnergyMode) return true;
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+    for (int dx = -1; dx <= 1; ++dx) {
+      if (dy == 0 && dx == 0) continue;
+      const int ny = y + dy, nx = x + dx;
+      if (ny < 0 || ny >= bh || nx < 0 || nx >= bw) return true;  // the box edge is known
+      const size_t j = static_cast<size_t>(by0 + ny) * width + bx0 + nx;
+      const float rn = rem[j];
+      // known = 1 - rem; the seed: a known pixel filled in this pass or
+      // not on an island
+      const bool known = restricted ? (rn == 0.0f && (rem0[j] > 0.0f || island[j] == 0.0f))
+                                    : __fsub_rn(1.0f, rn) > 0.0f;
+      if (known) return true;
+    }
+  return false;
+}
+
+__global__ void __launch_bounds__(kPickThreads)
+wexler_ring_pick_kernel(const float* __restrict__ rem, const float* __restrict__ rem0,
+                        const float* __restrict__ island, int* __restrict__ tyx,
+                        unsigned long long* __restrict__ keys, int* __restrict__ state, int bh,
+                        int bw, int by0, int bx0, int width, int cap, int tp, int mode) {
+  __shared__ int warp_offsets[32];
+  __shared__ int chunk_total;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (state[kLive] == 0 || state[kFail] != 0) {
+    if (tid == 0) state[kActive] = 0;
+    return;
+  }
+  int* ty = tyx;
+  int* tx = tyx + cap;
+  const int n = bh * bw;
+  int base = 0;
+  // the seed-restricted ring first where there are islands; the plain ring
+  // when there are none or that ring is empty
+  for (int restricted = mode == kIslandMode; restricted >= 0; --restricted) {
+    base = 0;
+    // raster chunks of the box, a block-wide exclusive scan each, until
+    // cap targets are taken (base is the same in every thread)
+    for (int c0 = 0; c0 < n && base < cap; c0 += kPickThreads) {
+      const int p = c0 + tid;
+      const bool ring = p < n && on_ring(rem, rem0, island, mode, restricted != 0, p / bw,
+                                         p % bw, bh, bw, by0, bx0, width);
+      const unsigned ballot = __ballot_sync(kFull, ring);
+      if (lane == 0) warp_offsets[warp] = __popc(ballot);
+      __syncthreads();
+      if (warp == 0) {
+        const int own = warp_offsets[lane];
+        int incl = own;
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+          const int up = __shfl_up_sync(kFull, incl, d);
+          if (lane >= d) incl += up;
+        }
+        warp_offsets[lane] = incl - own;
+        if (lane == 31) chunk_total = incl;
+      }
+      __syncthreads();
+      const int slot = base + warp_offsets[warp] + __popc(ballot & ((1u << lane) - 1));
+      if (ring && slot < cap) {
+        ty[slot] = by0 + p / bw;
+        tx[slot] = bx0 + p % bw;
+      }
+      base += chunk_total;
+      __syncthreads();  // warp_offsets and chunk_total are rewritten next chunk
+    }
+    if (base > 0) break;
+  }
+  const int count = base < cap ? base : cap;
+  for (int t = count + tid; t < cap; t += kPickThreads) {
+    ty[t] = by0;
+    tx[t] = bx0;
+  }
+  for (int t = tid; t < tp; t += kPickThreads) keys[t] = kNoKey;
+  if (tid == 0) {
+    state[kCount] = count;
+    state[kActive] = count > 0;
+    state[kIterations] += count > 0;
+  }
+}
+
+__global__ void __launch_bounds__(kFilterThreads)
+wexler_filters_kernel(const float* __restrict__ img, const float* __restrict__ rem,
+                      const int* __restrict__ tyx, const int* __restrict__ state,
+                      __nv_bfloat16* __restrict__ f, float* __restrict__ b2,
+                      uint8_t* __restrict__ valid, int height, int width, int cap, int tp,
+                      int initial, int target_blocks, int vy0, int vx0, int vh, int vw) {
+  if (state[kActive] == 0) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  if (static_cast<int>(blockIdx.x) >= target_blocks) {
+    // validity: candidate (cy, cx) is valid when its window holds no
+    // remaining pixel
+    const int q = (blockIdx.x - target_blocks) * kFilterThreads + tid;
+    if (q >= vh * vw) return;
+    const int cy = vy0 + q / vw, cx = vx0 + q % vw;
+    bool ok = true;
+    for (int ky = 0; ky < kWindow && ok; ++ky) {
+      const float* row = rem + static_cast<size_t>(cy + ky) * width + cx;
+#pragma unroll
+      for (int kx = 0; kx < kWindow; ++kx) ok = ok && row[kx] == 0.0f;
+    }
+    valid[static_cast<size_t>(cy) * (width - 2 * kHalf) + cx] = ok;
+    return;
+  }
+  const int t = blockIdx.x * kTargetsPerBlock + tid / 32;
+  if (t >= cap) return;  // a whole warp
+  const int ty = tyx[t], tx = tyx[cap + t];
+  // filter entry (ky, kx * 9 + j) of plane j: 256 m, m or -2 m b of channel j % 3
+  for (int e = lane; e < kWindow * kPacked; e += 32) {
+    const int ky = e / kPacked, col = e % kPacked;
+    const int kx = col / kPlanes, j = col % kPlanes;
+    const int y = ty + ky - kHalf, x = tx + kx - kHalf;
+    const bool in = y >= 0 && y < height && x >= 0 && x < width;
+    const size_t at = static_cast<size_t>(y) * width + x;
+    const float m = in && !(initial && rem[at] != 0.0f) ? 1.0f : 0.0f;
+    float v;
+    if (j < 3) {
+      v = __fmul_rn(m, 256.0f);
+    } else if (j < 6) {
+      v = m;
+    } else {
+      const float b = in ? img[at * 3 + (j - 6)] : 0.0f;
+      v = __fmul_rn(-2.0f, __fmul_rn(b, m));
+    }
+    f[(static_cast<size_t>(ky) * tp + t) * kChannels + col] = __float2bfloat16_rn(v);
+  }
+  // b2: lane l holds slots l + 32 i of the (c, ky, kx) products, then the
+  // halving tree x[i] + x[i + h] for h = 256 .. 1
+  float v[kTree / 32];
+#pragma unroll
+  for (int i = 0; i < kTree / 32; ++i) {
+    const int s = lane + 32 * i;
+    v[i] = 0.0f;
+    if (s < kPatch) {
+      const int c = s / (kWindow * kWindow), r = s % (kWindow * kWindow);
+      const int y = ty + r / kWindow - kHalf, x = tx + r % kWindow - kHalf;
+      const bool in = y >= 0 && y < height && x >= 0 && x < width;
+      const size_t at = static_cast<size_t>(y) * width + x;
+      const float m = in && !(initial && rem[at] != 0.0f) ? 1.0f : 0.0f;
+      const float b = in ? img[at * 3 + c] : 0.0f;
+      v[i] = __fmul_rn(__fmul_rn(b, m), b);
+    }
+  }
+#pragma unroll
+  for (int h = kTree / 64; h >= 1; h /= 2)
+#pragma unroll
+    for (int i = 0; i < h; ++i) v[i] = __fadd_rn(v[i], v[i + h]);
+  float s = v[0];
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2) s = __fadd_rn(s, __shfl_down_sync(kFull, s, off));
+  if (lane == 0) b2[t] = s;
+}
+
+__global__ void __launch_bounds__(kMaxCap)
+wexler_commit_kernel(float* __restrict__ img, float* __restrict__ rem,
+                     __nv_bfloat16* __restrict__ p, const unsigned long long* __restrict__ keys,
+                     const float* __restrict__ b2, const int* __restrict__ tyx,
+                     const float* __restrict__ weight, int* __restrict__ state, int width,
+                     int n_cx, int cap) {
+  __shared__ float tree[kMaxCap];
+  if (state[kActive] == 0) return;
+  const int t = threadIdx.x;
+  const bool target = t < state[kCount];  // the count is at most cap
+  float e = 0.0f;
+  unsigned idx = 0;
+  if (target) {
+    const unsigned long long key = keys[t];
+    float emin = __int_as_float(0x7f800000);  // +inf: no valid candidate
+    if (key != kNoKey) {
+      const unsigned ordered = static_cast<unsigned>(key >> 32);
+      emin = __uint_as_float((ordered & 0x80000000u) ? (ordered & 0x7fffffffu) : ~ordered);
+      idx = static_cast<unsigned>(key);
+    }
+    e = __fadd_rn(emin, b2[t]);
+  }
+  const bool fail_now = __syncthreads_or(target && !isfinite(e));
+  float w = 0.0f;
+  if (target && !fail_now) {
+    const int ty = tyx[t], tx = tyx[cap + t];
+    const int sy = static_cast<int>(idx / n_cx) + kHalf, sx = static_cast<int>(idx % n_cx) + kHalf;
+    // the pick lies in a valid window, so it is never a target: the copy
+    // reads the ring-start image
+    const float* src = img + (static_cast<size_t>(sy) * width + sx) * 3;
+    const size_t at = static_cast<size_t>(ty) * width + tx;
+    float val[3], planes[kPlanes];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      val[c] = src[c];
+      const float sq = __fmul_rn(val[c], val[c]);
+      const float hi = floorf(__fmul_rn(sq, 1.0f / 256.0f));
+      planes[c] = hi;
+      planes[3 + c] = __fsub_rn(sq, __fmul_rn(hi, 256.0f));
+      planes[6 + c] = val[c];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) img[at * 3 + c] = val[c];
+    rem[at] = 0.0f;
+#pragma unroll
+    for (int kx = 0; kx < kWindow; ++kx) {
+      const int xp = tx - kx;
+      if (xp < 0 || xp >= n_cx) continue;
+      __nv_bfloat16* dst = p + (static_cast<size_t>(ty) * n_cx + xp) * kChannels + kPlanes * kx;
+#pragma unroll
+      for (int j = 0; j < kPlanes; ++j) dst[j] = __float2bfloat16_rn(planes[j]);
+    }
+    w = __fmul_rn(e, weight[at]);
+  }
+  tree[t] = w;
+  __syncthreads();
+  for (int h = blockDim.x / 2; h >= 1; h /= 2) {
+    if (t < h) tree[t] = __fadd_rn(tree[t], tree[t + h]);
+    __syncthreads();
+  }
+  if (t == 0) {
+    state[kEnergy] = __float_as_int(__fadd_rn(__int_as_float(state[kEnergy]), tree[0]));
+    if (fail_now) state[kFail] = 1;
+  }
+}
+
+__global__ void __launch_bounds__(kDiffuseThreads)
+wexler_diffusion_kernel(const uint8_t* __restrict__ src, const float* __restrict__ rem0,
+                        uint8_t* __restrict__ out, int bh, int bw, int by0, int bx0, int width,
+                        int dither, float ninth) {
+  extern __shared__ float plane[];  // two (bh, bw) planes
+  __shared__ float warp_sum[32], warp_known[32];
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n = bh * bw;
+  float* cur = plane;
+  float* nxt = plane + n;
+  // the mean of the box's known pixels: integer sums below 2^24, exact in
+  // any order
+  float sum = 0.0f, known = 0.0f;
+  for (int i = tid; i < n; i += kDiffuseThreads) {
+    const size_t at = static_cast<size_t>(by0 + i / bw) * width + bx0 + i % bw;
+    const float k = __fsub_rn(1.0f, rem0[at]);
+    const float v = static_cast<float>(src[at * 3 + c]);
+    cur[i] = v;
+    sum = __fadd_rn(sum, __fmul_rn(v, k));
+    known = __fadd_rn(known, k);
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2) {
+    sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, off));
+    known = __fadd_rn(known, __shfl_xor_sync(kFull, known, off));
+  }
+  if ((tid & 31) == 0) {
+    warp_sum[tid >> 5] = sum;
+    warp_known[tid >> 5] = known;
+  }
+  __syncthreads();
+  sum = known = 0.0f;
+  for (int w = 0; w < kDiffuseThreads / 32; ++w) {
+    sum = __fadd_rn(sum, warp_sum[w]);
+    known = __fadd_rn(known, warp_known[w]);
+  }
+  const float mean = __fdiv_rn(sum, fmaxf(known, 1.0f));
+  for (int i = tid; i < n; i += kDiffuseThreads) {
+    const size_t at = static_cast<size_t>(by0 + i / bw) * width + bx0 + i % bw;
+    if (rem0[at] > 0.0f) cur[i] = mean;
+  }
+  __syncthreads();
+  for (int sweep = 0; sweep < bh + bw; ++sweep) {
+    for (int i = tid; i < n; i += kDiffuseThreads) {
+      const int y = i / bw, x = i % bw;
+      const size_t at = static_cast<size_t>(by0 + y) * width + bx0 + x;
+      if (!(rem0[at] > 0.0f)) {
+        nxt[i] = cur[i];
+        continue;
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy) {
+        const int yy = min(max(y + dy, 0), bh - 1);
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx) s = __fadd_rn(s, cur[yy * bw + min(max(x + dx, 0), bw - 1)]);
+      }
+      nxt[i] = __fmul_rn(s, ninth);
+    }
+    __syncthreads();
+    float* swap = cur;
+    cur = nxt;
+    nxt = swap;
+  }
+  for (int i = tid; i < n; i += kDiffuseThreads) {
+    const int y = i / bw, x = i % bw;
+    const size_t at = static_cast<size_t>(by0 + y) * width + bx0 + x;
+    if (!(rem0[at] > 0.0f)) continue;  // known pixels keep the source's value
+    float v = cur[i];
+    if (dither) {
+      // the JAX package's int32 coordinate hash with wrap-around
+      const unsigned h = static_cast<unsigned>(by0 + y) * 92837111u ^
+                         static_cast<unsigned>(bx0 + x) * 689287499u;
+      v = __fadd_rn(v, static_cast<float>(static_cast<int>((h >> 8) % 25u) - 12));
+    }
+    v = fminf(fmaxf(v, 0.0f), 255.0f);
+    out[at * 3 + c] = static_cast<uint8_t>(__float2int_rz(v));
+  }
+}
+
+int round_pow2(int n) {
+  int p = 32;
+  while (p < n) p *= 2;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Targets a commit takes at most (one block).
+int vip_wexler_fill_max_cap() { return kMaxCap; }
+
+// Dynamic shared memory of a diffusion start over a box of n pixels.
+int vip_wexler_diffusion_smem_bytes(int n) { return 2 * n * static_cast<int>(sizeof(float)); }
+
+// rem, rem0: (H, W) f32 (1 = hole); island: (H, W) f32 or null (mode 2
+// only); tyx: (2, cap) int32 targets (ty row, tx row); keys: (tp,) int64;
+// state: the pass's int32 vector.  mode: 0 energy pass, 1 onion peel, 2
+// onion peel seeded from outside the known islands.
+int vip_wexler_ring_pick(const void* rem, const void* rem0, const void* island, void* tyx,
+                         void* keys, void* state, int bh, int bw, int by0, int bx0, int width,
+                         int cap, int tp, int mode, void* stream) {
+  wexler_ring_pick_kernel<<<1, kPickThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rem), static_cast<const float*>(rem0),
+      static_cast<const float*>(island), static_cast<int*>(tyx),
+      static_cast<unsigned long long*>(keys), static_cast<int*>(state), bh, bw, by0, bx0, width,
+      cap, tp, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// img: (H, W, 3) f32; f: (13, tp, 128) bf16, columns 0..116 of rows 0..cap-1
+// written; b2: (cap,) f32; valid: (H - 12, W - 12) u8, rewritten over the
+// candidates [vy0, vy0 + vh) x [vx0, vx0 + vw).
+int vip_wexler_filters(const void* img, const void* rem, const void* tyx, const void* state,
+                       void* f, void* b2, void* valid, int height, int width, int cap, int tp,
+                       int initial, int vy0, int vx0, int vh, int vw, void* stream) {
+  const int target_blocks = (cap + kTargetsPerBlock - 1) / kTargetsPerBlock;
+  const int valid_blocks = (vh * vw + kFilterThreads - 1) / kFilterThreads;
+  wexler_filters_kernel<<<target_blocks + valid_blocks, kFilterThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), static_cast<const float*>(rem),
+      static_cast<const int*>(tyx), static_cast<const int*>(state),
+      static_cast<__nv_bfloat16*>(f), static_cast<float*>(b2), static_cast<uint8_t*>(valid),
+      height, width, cap, tp, initial, target_blocks, vy0, vx0, vh, vw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// p: (H, n_cx, 128) bf16, rewritten where a target's pixel feeds it;
+// weight: (H, W) f32.  cap <= vip_wexler_fill_max_cap().
+int vip_wexler_commit(void* img, void* rem, void* p, const void* keys, const void* b2,
+                      const void* tyx, const void* weight, void* state, int width, int n_cx,
+                      int cap, void* stream) {
+  if (cap < 1 || cap > kMaxCap) return static_cast<int>(cudaErrorInvalidValue);
+  wexler_commit_kernel<<<1, round_pow2(cap), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(img), static_cast<float*>(rem), static_cast<__nv_bfloat16*>(p),
+      static_cast<const unsigned long long*>(keys), static_cast<const float*>(b2),
+      static_cast<const int*>(tyx), static_cast<const float*>(weight), static_cast<int*>(state),
+      width, n_cx, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src: (H, W, 3) u8; rem0: (H, W) f32; out: (H, W, 3) u8, a copy of src
+// whose box hole pixels are written.  ninth: f32(1 / 9).
+int vip_wexler_diffusion(const void* src, const void* rem0, void* out, int bh, int bw, int by0,
+                         int bx0, int width, int dither, float ninth, void* stream) {
+  const int smem = vip_wexler_diffusion_smem_bytes(bh * bw);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      wexler_diffusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  wexler_diffusion_kernel<<<3, kDiffuseThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<const float*>(rem0),
+      static_cast<uint8_t*>(out), bh, bw, by0, bx0, width, dither, ninth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -21,7 +21,8 @@
 // key is the lexicographic (energy, index) minimum whatever the order.
 // -0.0 is made +0.0 before packing (x + 0.0f): the two compare equal in the
 // plain version, whose tie then goes to the lower index.  A CTA whose
-// candidates are all invalid returns before it loads anything.
+// candidates are all invalid returns before it loads anything, and so does
+// every CTA when the fill loop's active flag (csrc/wexler_fill.cu) is 0.
 //
 // Per CTA: R = 4 candidate rows x 64 candidates by N = 128 targets.  Like the
 // TPU kernel, which stages ROW_BLK + window - 1 image rows once, the CTA
@@ -196,7 +197,9 @@ wexler_search_kernel(const __grid_constant__ CUtensorMap map_p,  // (height, n_c
                      const __grid_constant__ CUtensorMap map_f,  // (window, tp, 128) bf16
                      const uint8_t* __restrict__ valid,          // (n_cy, n_cx)
                      unsigned long long* __restrict__ keys,      // (tp,), all ones at entry
+                     const int* __restrict__ active,             // null, or 0: return at once
                      int window, int n_cy, int n_cx) {
+  if (active != nullptr && *active == 0) return;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t a_base = smem_u32(smem);
@@ -394,12 +397,13 @@ int vip_wexler_search_row_tile() { return kRows; }
 int vip_wexler_search_smem_bytes() { return kSmemBytes; }
 
 // p: (n_cy + window - 1, n_cx, 128) bf16; f: (window, tp, 128) bf16, both
-// 16-byte aligned; valid: (n_cy, n_cx) u8; keys: (tp,) u64, every bit set.
+// 16-byte aligned; valid: (n_cy, n_cx) u8; keys: (tp,) u64, every bit set;
+// active: null, or an int32 the kernel reads first and returns on if 0.
 // Returns the launch's cudaError_t (0 on success); cudaErrorNotSupported if
 // the driver has no cuTensorMapEncodeTiled, cudaErrorInvalidValue if it
 // refuses a tensor map.
-int vip_wexler_search(const void* p, const void* f, const void* valid, void* keys, int window,
-                      int n_cy, int n_cx, int tp, void* stream) {
+int vip_wexler_search(const void* p, const void* f, const void* valid, void* keys,
+                      const void* active, int window, int n_cy, int n_cx, int tp, void* stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map_p, map_f;
@@ -413,7 +417,7 @@ int vip_wexler_search(const void* p, const void* f, const void* valid, void* key
   const dim3 grid(tp / kTileN, (n_cx + kCols - 1) / kCols, (n_cy + kRows - 1) / kRows);
   wexler_search_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map_p, map_f, static_cast<const uint8_t*>(valid), static_cast<unsigned long long*>(keys),
-      window, n_cy, n_cx);
+      static_cast<const int*>(active), window, n_cy, n_cx);
   return static_cast<int>(cudaGetLastError());
 }
 

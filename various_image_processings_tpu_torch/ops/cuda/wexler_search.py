@@ -8,7 +8,10 @@ stores the filters target-major, (k, Tp, 128), so that the kernel's TMA
 loads both operands K-major; ``launch`` runs the kernel on PyTorch's current
 stream into a (Tp,) buffer of packed (energy, index) keys that starts at all
 ones; ``decode_keys`` turns the keys into energies and indices with a few
-elementwise ops.  Anything the kernel does not take raises, and so does a
+elementwise ops, and ``encode_keys`` packs them back.  The fill loop
+(``models/inpainting.py``) keeps its planes and filters in the padded
+layouts for a whole pass and binds the kernel to them once
+(``launcher``), gated by its active flag.  Anything the kernel does not take raises, and so does a
 launch the runtime refuses.  ``launches`` counts successful launches.
 """
 
@@ -24,6 +27,7 @@ from ...core.pad import round_up
 from ._build import check_launch, check_tensor, load_library, stream_of
 
 K_PAD = 128
+TARGET_TILE = 128  # targets a block (the kernel's kTileN): Tp is a multiple
 _MAX_GRID_YZ = 65535
 
 launches = 0
@@ -38,6 +42,7 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.vip_wexler_search.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # p, f, valid, keys
+        ctypes.c_void_p,                                         # active (or null)
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # window, n_cy, n_cx, tp
         ctypes.c_void_p,                                         # stream
     ]
@@ -57,6 +62,16 @@ def decode_keys(keys: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]
     emin = torch.where(untouched, torch.inf, bits.view(torch.float32))
     idx = torch.where(untouched, 0, keys & 0xFFFFFFFF).to(torch.int32)
     return emin, idx
+
+
+def encode_keys(emin: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's (T,) int64 keys of (emin (T,) f32, idx (T,) int32), the
+    inverse of ``decode_keys``: +inf (no valid candidate) gives the untouched
+    key, every bit set; −0.0 packs as +0.0, as in the kernel."""
+    bits = (emin + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    ordered = torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits, bits + 0x80000000)
+    keys = (ordered << 32) | (idx.to(torch.int64) & 0xFFFFFFFF)
+    return torch.where(torch.isinf(emin) & (emin > 0), -1, keys)
 
 
 def prepare(p117: torch.Tensor, f13: torch.Tensor, valid: torch.Tensor):
@@ -102,13 +117,44 @@ def launch(p: torch.Tensor, f: torch.Tensor, valid: torch.Tensor, keys: torch.Te
            n_cy: int) -> None:
     """The kernel alone on the buffers of ``prepare``: p (H, n_cx, 128) bf16,
     f (k, Tp, 128) bf16, valid (n_cy, n_cx) u8, keys (Tp,) int64."""
-    global launches
-    window, tp, _ = f.shape
+    launcher(p, f, valid, keys, n_cy)()
+
+
+def launcher(p: torch.Tensor, f: torch.Tensor, valid: torch.Tensor, keys: torch.Tensor,
+             n_cy: int, active: torch.Tensor | None = None):
+    """The kernel bound to ``launch``'s buffers, checked once: a function
+    that launches it on the stream current now, with nothing to check or
+    look up.  active: an int32 on p's device (the fill loop's active flag,
+    ``ops/cuda/wexler_fill.py``); every block returns at once where it is 0."""
+    check_tensor("p", p, (torch.bfloat16,), (3,))
+    check_tensor("f", f, (torch.bfloat16,), (3,))
+    check_tensor("valid", valid, (torch.uint8,), (2,))
+    check_tensor("keys", keys, (torch.int64,), (1,))
+    window, tp, channels = f.shape
+    n_cx = p.shape[1]
+    if p.shape[0] != n_cy + window - 1 or p.shape[2] != K_PAD or channels != K_PAD:
+        raise ValueError(f"p {tuple(p.shape)} and f {tuple(f.shape)} do not match n_cy = {n_cy} "
+                         f"and {K_PAD} channels")
+    if tuple(valid.shape) != (n_cy, n_cx) or keys.shape[0] < tp:
+        raise ValueError(f"valid must have shape {(n_cy, n_cx)} and keys hold {tp}, got "
+                         f"{tuple(valid.shape)} and {keys.shape[0]}")
+    if any(t.device != p.device for t in (f, valid, keys)) or (
+            active is not None and (active.device != p.device or active.dtype != torch.int32)):
+        raise ValueError("the search's buffers and active flag must be on one device "
+                         "(the flag int32)")
+    if tp % _lib().vip_wexler_search_target_tile():
+        raise ValueError(f"f's {tp} target rows are not a multiple of the kernel's tile")
     if p.data_ptr() % 16 or f.data_ptr() % 16:
         raise ValueError("p and f must be 16-byte aligned (the kernel's TMA loads need it)")
-    with torch.cuda.device(p.device):
-        err = _lib().vip_wexler_search(p.data_ptr(), f.data_ptr(), valid.data_ptr(),
-                                       keys.data_ptr(), window, n_cy, p.shape[1], tp,
-                                       stream_of(p))
-    check_launch(err, "wexler_search")
-    launches += 1
+    args = (p.data_ptr(), f.data_ptr(), valid.data_ptr(), keys.data_ptr(),
+            None if active is None else active.data_ptr(), window, n_cy, n_cx, tp, stream_of(p))
+    fn, device = _lib().vip_wexler_search, torch.cuda.device(p.device)
+
+    def go() -> None:
+        global launches
+        with device:
+            err = fn(*args)
+        check_launch(err, "wexler_search")
+        launches += 1
+
+    return go
