@@ -47,20 +47,26 @@ and fills a full-range (0..255) textured 402x700 image through the search
 kernel and through the plain path, holding the kernel path's hole PSNR to
 the plain path's less 2 dB.
 
-Then SLIC superpixels, whose euclidean k-means runs on three kernels of
-the port's own (csrc/slic_kmeans.cu: association with in-scan sums, means
-and snap keys, center update; the JAX package's k-means is one XLA
-while_loop, no Pallas kernel), with native C++ connectivity on the host:
-the card's exact Lab against cv2 and the CPU path on all 2^24 colors; SLIC
-at 512x512 (BASELINE.md config 4: S=26, 10 iterations, m=20) on a random
-and a smooth image through the op, the ``SuperpixelSLIC`` module and the
-CLI with the k-means kernels' counters reset just before and read just
-after, the labels bit-equal to the CPU path; the same at 2160x3840
-(invariants only); CIEDE2000 (the plain route) within its tolerance of the
-CPU.  Each prints a call's wall time, its split (Lab, k-means, the copies,
-the host connectivity) and counters (iterations, host syncs, launches an
-iteration and the k-means kernels' among them, device-busy share, peak
-memory, superpixels), and a ``{"slic": ...}`` line holds them.
+Then SLIC superpixels, whose k-means runs on three kernels of the port's
+own for each colour metric (csrc/slic_kmeans.cu: association with in-scan
+sums, means and snap keys, center update, the first two an instantiation
+for each of euclidean, ciede2000 and ciede2000_ref; the JAX package's
+k-means is one XLA while_loop, no Pallas kernel), with the connectivity
+pass on the host: the card's exact Lab against cv2 and the CPU path on all
+2^24 colors; SLIC at 512x512 (BASELINE.md config 4: S=26, 10 iterations,
+m=20) on a random and a smooth image through the op, the
+``SuperpixelSLIC`` module and the CLI with the k-means kernels' counters
+reset just before and read just after, the labels bit-equal to the CPU
+path; the same at 2160x3840 (invariants only).  Phase 23 drives both
+CIEDE2000 metrics through the op and the module (counters reset and read
+the same way), holds the kernels' ΔE function (the pair kernel) to
+core/ciede2000.py on the card bit for bit (23a), the ΔE kernel route to
+``impl="torch"`` over a grid (23b), the card's labels to the CPU's at
+130x130 (23c), and times 512x512 calls of both metrics and one 4K call
+(23d).  Each timed call prints its wall time, its split (Lab, k-means, the
+copies, the host connectivity) and counters (iterations, host syncs,
+launches an iteration and the k-means kernels' among them, device-busy
+share, peak memory, superpixels), and a ``{"slic": ...}`` line holds them.
 
 Then the parallel layer and the timing twins (phases 24-26): the batch
 fan-out on ``make_mesh()`` at BASELINE.md config 5b (64 4K frames, k=9) and
@@ -73,13 +79,14 @@ launches counted; then ``measure``, ``trace`` and ``vip-torch-benchmark``
 at its default size and at 4K.  A ``{"parallel": ...}`` line holds the
 times.
 
-Last, the SLIC kernels (phases 27-28): the kernel route against the plain
-route on the card over a grid of shapes (512x512, 4K, 97x131, 3x5), S (2,
-7, 26, 64, larger than the image), iterations (1, 10), m (1, 20, 40) and
-images (noise, smooth, constant, two-color ties), labels, distances,
-centers, drift and iterations all equal; each kernel against its plain
-piece on the same state; each kernel's device time an iteration, its bound
-and its plain piece's time at 512x512 and 4K, and the whole k-means both
+Last, the SLIC kernels (phases 27-28): the euclidean kernel route against
+the plain route on the card over a grid of shapes (512x512, 4K, 97x131,
+3x5), S (2, 7, 26, 64, larger than the image), iterations (1, 10), m (1,
+20, 40) and images (noise, smooth, constant, two-color ties), labels,
+distances, centers, drift and iterations all equal; each kernel (each
+metric's instantiation) against its plain piece on the same state; each
+kernel's device time an iteration, its bound and its plain piece's time at
+512x512 (every metric) and 4K (euclidean), and the whole k-means both
 ways.
 
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
@@ -160,6 +167,15 @@ SLIC_GRID_SIZES = (2, 7, 26, 64, 5000)
 SLIC_GRID_KINDS = ("random", "smooth", "constant", "two")
 SLIC_GRID_RUNS = ((10, 20.0), (1, 1.0), (10, 40.0), (10, 1.0))
 DELTA_E_TOL = (5e-4, 5e-2)                # rtol, atol: tests/test_ciede2000.py's
+DELTA_E_METRICS = ("ciede2000", "ciede2000_ref")
+DELTA_E_GRID_SHAPES = ((512, 512), (97, 131), (3, 5))  # phase 23b, with SLIC_GRID_SIZES and _KINDS
+DELTA_E_4K_ITERATIONS = 3                 # phase 23b's 4K smooth case (the plain route is slow)
+# operations of one squared ΔE of a (center, pixel) pair, counted from
+# csrc/slic_kmeans.cu::delta_e_square: each IEEE add, sub, mul, div and sqrt and
+# each call of powf, atan2f, sinf, cosf and expf counts one; compares, selects,
+# negations and fabsf count none.  Each side's chroma, sqrt(a*a + b*b), apart.
+DELTA_E_OPS = 101
+CHROMA_OPS = 4
 PARALLEL_BATCH = 64                       # BASELINE.md config 5b: 64 4K frames
 BTF_BATCH = 8                             # config 3b: 8 600x900 frames
 SHARD_COUNTS = (2, 4, 8)                  # logical shards of the 4K BF
@@ -359,20 +375,20 @@ def boundary_recall(ref, got, tol: int = 2) -> float:
 
 
 def slic_phases(dev, random_4k: np.ndarray) -> dict:
-    """Phases 20-23: SLIC superpixels and their exact Lab.  The euclidean
-    k-means runs on the port's kernels (csrc/slic_kmeans.cu; the JAX
-    package's is a pure-XLA program, no Pallas kernel), the ΔE k-means on the
-    plain route, the connectivity pass in native C++ on the host.
-    ``random_4k`` is the main path's 2160x3840 image.  Prints the timing
-    split of a call and its counters, and a ``{"slic": ...}`` line with them.
-    Returns the k-means kernels' launches on the main path of phases 21-22
-    (op, module, CLI at 512x512; module at 4K), counted from 0."""
+    """Phases 20-23: SLIC superpixels and their exact Lab.  The k-means runs
+    on the port's kernels for every metric (csrc/slic_kmeans.cu; the JAX
+    package's is a pure-XLA program, no Pallas kernel), the connectivity
+    pass on the host.  ``random_4k`` is the main path's 2160x3840 image.
+    Prints the timing split of a call and its counters, and a
+    ``{"slic": ...}`` line with them.  Returns the k-means kernels' launches
+    on the main paths of phases 21-23 (euclidean: op, module, CLI at
+    512x512, module at 4K; each ΔE metric: op and module at 512x512),
+    counted from 0, by kernel and by (kernel, metric)."""
     import cv2
     import torch
 
     import various_image_processings_tpu_torch as vt
     from various_image_processings_tpu_torch.cli import slic as cli_slic
-    from various_image_processings_tpu_torch.core.ciede2000 import ciede2000_square
     from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
     from various_image_processings_tpu_torch.core.rng import random_image
     from various_image_processings_tpu_torch.models import slic
@@ -381,19 +397,21 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
     from various_image_processings_tpu_torch.utils.io import imread, imwrite
 
     t_start = time.perf_counter()
-    main_launches = dict.fromkeys(SLIC_KERNELS, 0)
+    main_launches = Counter()
 
     def reset_kernels() -> None:
         torch.cuda.synchronize()
         for name in SLIC_KERNELS:
             setattr(kslic, f"{name}_launches", 0)
+        kslic.metric_launches.clear()
 
     def read_kernels() -> dict:
-        """The counts since the reset, added to the main path's."""
+        """The counts since the reset, added to the main path's (by kernel,
+        and by (kernel, metric) for the association and snap keys)."""
         torch.cuda.synchronize()
         got = {name: getattr(kslic, f"{name}_launches") for name in SLIC_KERNELS}
-        for name, n in got.items():
-            main_launches[name] += n
+        main_launches.update(got)
+        main_launches.update(kslic.metric_launches)
         return got
     # 20. Lab on all 2^24 colors: the card's integer path against cv2 and
     #     against the CPU path (in bands of rows, to bound host memory)
@@ -528,8 +546,8 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
 
     results = {}
     def check_kmeans(label: str, t: dict) -> None:
-        """The profiled euclidean call ran its k-means on the kernels alone:
-        3 launches an enqueued iteration, none read back but the download."""
+        """The profiled call ran its k-means on the kernels alone: 3
+        launches an enqueued iteration, none read back but the download."""
         want = 3 * iters
         if t["host_syncs"] != 1 or (t["kmeans_launches"] is not None
                                     and (t["kmeans_launches"] != want
@@ -611,45 +629,166 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         show(f"{h}x{w} {name}", t)
         check_kmeans(f"{h}x{w} {name}", t)
 
-    # 23. CIEDE2000: one SLIC run at 512x512 on the card, its metric held
-    #     to the JAX package's tolerance of the CPU's on that run's own
-    #     (pixel, center) pairs and on seeded Lab pairs; its labels against
-    #     the CPU path at 130x130 (the CPU's CIEDE2000 k-means at 512x512
-    #     takes tens of seconds): equal, or else a boundary recall >= 0.95 at
-    #     2 px and a segment count within 5%
-    rtol, atol = DELTA_E_TOL
-    h, w = SLIC_SHAPE
-    img_np = images["smooth"]
-    lab = bgr2lab_u8_exact(torch.from_numpy(img_np).to(dev))
-    raw, centers, _, _ = slic.slic_device(lab, h, w, s_size, iters, m, "ciede2000")
-    pix = lab.reshape(-1, 3).float().T
-    cen = centers[raw.reshape(-1).long(), 2:].T
-    pairs = torch.from_numpy(np.random.default_rng(7).integers(
-        -255, 256, (6, 1 << 16)).astype(np.float32))
-    de_card = torch.cat([ciede2000_square(*cen, *pix), ciede2000_square(*pairs.to(dev))]).cpu()
-    de_cpu = torch.cat([ciede2000_square(*cen.cpu(), *pix.cpu()), ciede2000_square(*pairs)])
-    de_ok = bool(torch.allclose(de_card, de_cpu, rtol=rtol, atol=atol))
-    small = images["smooth"][:130, :130].copy()
-    want = vt.superpixel_slic(small, s_size, iters, m, "ciede2000", device="cpu")
-    got = vt.superpixel_slic(torch.from_numpy(small).to(dev), s_size, iters, m, "ciede2000")
-    equal = torch.equal(got.cpu(), want)
-    recall = boundary_recall(want, got)
-    n_want, n_got = int(want.max()) + 1, int(got.max()) + 1
-    phase(f"CIEDE2000: card vs CPU on the {h}x{w} run's {h * w} (pixel, center) pairs and "
-          f"65536 seeded Lab pairs max |diff| {max_abs(de_card, de_cpu):.3g} (rtol {rtol}, "
-          f"atol {atol}: {de_ok}); SLIC {small.shape[0]}x{small.shape[1]} smooth "
-          f"metric=ciede2000: labels equal "
-          f"{equal}, boundary recall at 2 px {recall:.4f}, {n_got} superpixels (CPU {n_want})")
-    if not de_ok or not (equal or (recall >= 0.95 and abs(n_got - n_want) <= 0.05 * n_want)):
-        raise SystemExit("CIEDE2000 outside its tolerance")
-    model = vt.SuperpixelSLIC(h, w, s_size, iters, m, "ciede2000", device=dev)
-    # not profiled: its ~46000 launches a call take the profiler many seconds
-    results["512_smooth_ciede2000"] = t = measure(model, torch.from_numpy(img_np).to(dev), 1,
-                                                  profile=False)
-    show(f"{h}x{w} smooth ciede2000", t)
+    # 23. the CIEDE2000 metrics, whose k-means runs on the kernels'
+    #     instantiations for each metric (csrc/slic_kmeans.cu)
+    results.update(delta_e_phases(dev, images["smooth"], reset_kernels, read_kernels, measure,
+                                  show, check_kmeans))
     print(json.dumps({"slic": results}), flush=True)
     phase(f"SLIC phases 20-23 took {time.perf_counter() - t_start:.1f} s")
     return main_launches
+
+
+def delta_e_pairs():
+    """(6, n) f32 Lab pairs on the CPU: 65536 seeded integers in -255..255
+    (the pairs phase 23 used before the ΔE kernels), 65536 seeded floats in
+    -200..200, and every pair of a lattice of colours (a, b in -130..130 step
+    10, seeded L: a = b = 0, a = 0 with b != 0, equal colours, hue
+    differences on both sides of ±half, wrapped either way);
+    tests/test_torch_cuda.py draws the same."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    ints = rng.integers(-255, 256, (6, 1 << 16)).astype(np.float32)
+    floats = rng.uniform(-200.0, 200.0, (6, 1 << 16)).astype(np.float32)
+    ab = np.arange(-130, 131, 10, dtype=np.float32)
+    aa, bb = np.meshgrid(ab, ab)
+    lattice = np.stack([rng.integers(0, 256, aa.size).astype(np.float32), aa.ravel(),
+                        bb.ravel()])
+    i, j = np.meshgrid(np.arange(aa.size), np.arange(aa.size))
+    pairs = np.concatenate([lattice[:, i.ravel()], lattice[:, j.ravel()]])
+    return torch.from_numpy(np.concatenate([ints, floats, pairs], 1))
+
+
+def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, measure, show,
+                   check_kmeans) -> dict:
+    """Phase 23: SLIC with the CIEDE2000 metrics, whose k-means runs on the
+    kernels' instantiation for each metric.  The main path (op and module at
+    512x512 smooth, counts reset just before and read just after); 23a the
+    pair kernel against core/ciede2000.py on the card (bit-equal) and the
+    card's ΔE against the CPU's (within DELTA_E_TOL); 23b the kernel route
+    against ``impl="torch"`` on the card over the grid; 23c the card against
+    the CPU path at 130x130; 23d each metric's call at 512x512 and one 4K
+    ciede2000 call, timed, split and counted.  Returns 23d's results."""
+    import torch
+
+    import various_image_processings_tpu_torch as vt
+    from various_image_processings_tpu_torch.core import ciede2000
+    from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    t_start = time.perf_counter()
+    s_size, iters, m = SLIC_PARAMS
+    h, w = SLIC_SHAPE
+    img = torch.from_numpy(smooth_np).to(dev)
+    for metric in DELTA_E_METRICS:
+        reset_kernels()
+        slic.host_syncs = slic.iterations = 0
+        got_op = vt.superpixel_slic(img, s_size, iters, m, metric)
+        op_syncs, op_iters = slic.host_syncs, slic.iterations
+        model = vt.SuperpixelSLIC(h, w, s_size, iters, m, metric, device=dev)
+        got_module = model.apply(img)
+        counts = read_kernels()
+        by_metric = {(name, mt): n for (name, mt), n in kslic.metric_launches.items()}
+        want_counts = {("association", metric): 2 * iters, ("snap_keys", metric): 2 * iters}
+        phase(f"SLIC {h}x{w} smooth metric={metric} through op and module: labels equal "
+              f"{torch.equal(got_op, got_module)}, on {got_op.device}; op: {op_iters} "
+              f"iterations, {op_syncs} host syncs; k-means kernel launches {counts}, by "
+              f"instantiation {by_metric}")
+        if (not torch.equal(got_op, got_module) or got_op.device != img.device or op_syncs != 1
+                or set(counts.values()) != {2 * iters} or by_metric != want_counts):
+            raise SystemExit(f"SLIC {metric} main path wrong")
+
+    # 23a. the pair kernel against core/ciede2000.py on the card, bit for bit,
+    #      on seeded and edge pairs and every (pixel, center) pair of a
+    #      512x512 run; the card's ΔE against the CPU's within DELTA_E_TOL
+    rtol, atol = DELTA_E_TOL
+    lab = bgr2lab_u8_exact(img)
+    edge = delta_e_pairs()
+    pair_worst = {}
+    for metric in DELTA_E_METRICS:
+        fn = getattr(ciede2000, f"{metric}_square")
+        raw, centers, _, _ = slic.slic_device(lab, h, w, s_size, iters, m, metric)
+        run = torch.cat([centers[raw.reshape(-1).long(), 2:].T, lab.reshape(-1, 3).float().T])
+        diffs = []
+        for v in (edge.to(dev), run.contiguous()):
+            want, got = fn(*v), kslic.delta_e(*v, metric)
+            diffs.append((max_abs(got, want), int((got != want).sum())))
+        pair_worst[metric] = max(d for d, _ in diffs)
+        seeded = edge[:, :1 << 16]
+        de_card = torch.cat([fn(*run), fn(*seeded.to(dev))]).cpu()
+        de_cpu = torch.cat([fn(*run.cpu()), fn(*seeded)])
+        de_ok = bool(torch.allclose(de_card, de_cpu, rtol=rtol, atol=atol))
+        phase(f"23a. {metric}: pair kernel vs core/ciede2000.py on the card, max |diff| "
+              f"(values that differ) over {edge.shape[1]} seeded and edge pairs {diffs[0][0]} "
+              f"({diffs[0][1]}), over the {h}x{w} run's {h * w} (center, pixel) pairs "
+              f"{diffs[1][0]} ({diffs[1][1]}) (tolerance 0); card vs CPU on the run's pairs and "
+              f"65536 seeded pairs max |diff| {max_abs(de_card, de_cpu):.3g} (rtol {rtol}, "
+              f"atol {atol}: {de_ok})")
+        if pair_worst[metric] or not de_ok:
+            raise SystemExit(f"{metric}: the pair kernel or the card's ΔE is off")
+
+    # 23b. the kernel route against impl="torch" on the card
+    cases = 0
+    for metric in DELTA_E_METRICS:
+        grid = [(shape, sz, kind) for shape in DELTA_E_GRID_SHAPES for sz in SLIC_GRID_SIZES
+                for kind in SLIC_GRID_KINDS]
+        for shape, sz, kind in grid + [(MAIN_SHAPE, s_size, "smooth")]:
+            i = (SLIC_GRID_SIZES.index(sz) + SLIC_GRID_KINDS.index(kind)) % len(SLIC_GRID_RUNS)
+            n_it, mm = SLIC_GRID_RUNS[i] if shape != MAIN_SHAPE else (DELTA_E_4K_ITERATIONS, m)
+            lab_g = slic_lab(kind, *shape, dev)
+            got = slic.slic_device(lab_g, *shape, sz, n_it, mm, metric, impl="cuda")
+            ran = int(slic.device_iterations)
+            slic.iterations = 0
+            want = slic.slic_device(lab_g, *shape, sz, n_it, mm, metric, impl="torch")
+            equal = [a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)]
+            if not all(equal) or ran != slic.iterations:
+                raise SystemExit(f"SLIC {metric} kernels differ from the plain route at {shape} "
+                                 f"S={sz} {kind} {n_it} it m={mm:g}: (labels, centers, dists, "
+                                 f"drift) equal {equal}, iterations {ran} against "
+                                 f"{slic.iterations}")
+            cases += 1
+    slic.device_iterations = None
+    phase(f"23b. SLIC ΔE kernels vs the plain route on the card: {cases} cases (metrics "
+          f"{DELTA_E_METRICS}, shapes {DELTA_E_GRID_SHAPES}, S {SLIC_GRID_SIZES}, images "
+          f"{SLIC_GRID_KINDS}, (iterations, m) {SLIC_GRID_RUNS}; and 4K smooth S={s_size} "
+          f"{DELTA_E_4K_ITERATIONS} it): labels, distances, centers, drift and iterations run "
+          f"all equal (tolerance 0) ({time.perf_counter() - t_start:.1f} s into phase 23)")
+
+    # 23c. the card against the CPU path at 130x130 (the CPU's ΔE k-means at
+    #      512x512 takes tens of seconds): equal labels, or else a boundary
+    #      recall >= 0.95 at 2 px and a segment count within 5%
+    small = smooth_np[:130, :130].copy()
+    for metric in DELTA_E_METRICS:
+        want = vt.superpixel_slic(small, s_size, iters, m, metric, device="cpu")
+        got = vt.superpixel_slic(torch.from_numpy(small).to(dev), s_size, iters, m, metric)
+        equal = torch.equal(got.cpu(), want)
+        recall = boundary_recall(want, got)
+        n_want, n_got = int(want.max()) + 1, int(got.max()) + 1
+        phase(f"23c. SLIC {small.shape[0]}x{small.shape[1]} smooth metric={metric}: card labels "
+              f"equal to the CPU path {equal}, boundary recall at 2 px {recall:.4f}, {n_got} "
+              f"superpixels (CPU {n_want})")
+        if not (equal or (recall >= 0.95 and abs(n_got - n_want) <= 0.05 * n_want)):
+            raise SystemExit(f"{metric}: the card's labels are outside the recall criterion")
+
+    # 23d. timed, split and counted: 512x512 smooth for each metric, one 4K call
+    results = {}
+    for metric in DELTA_E_METRICS:
+        model = vt.SuperpixelSLIC(h, w, s_size, iters, m, metric, device=dev)
+        model.apply(img)
+        results[f"512_smooth_{metric}"] = t = measure(model, img)
+        show(f"{h}x{w} smooth {metric}", t)
+        check_kmeans(f"{h}x{w} smooth {metric}", t)
+    h4, w4 = MAIN_SHAPE
+    img4 = torch.from_numpy(smooth_image(h4, w4, 4)).to(dev)
+    model = vt.SuperpixelSLIC(h4, w4, s_size, iters, m, "ciede2000", device=dev)
+    model.apply(img4)
+    results["4k_smooth_ciede2000"] = t = measure(model, img4, 1)
+    show(f"{h4}x{w4} smooth ciede2000", t)
+    check_kmeans(f"{h4}x{w4} smooth ciede2000", t)
+    results["pair_max_abs_err"] = pair_worst
+    phase(f"phase 23 took {time.perf_counter() - t_start:.1f} s")
+    return results
 
 
 def slic_lab(kind: str, h: int, w: int, dev, seed: int = 0):
@@ -716,19 +855,20 @@ def slic_kernel_phases(dev) -> dict:
           f"{SLIC_GRID_RUNS}): labels, distances, centers, drift and iterations run all equal "
           f"(tolerance 0) ({time.perf_counter() - t_start:.1f} s)")
 
-    # 28. each kernel against its plain piece, then times and bounds
+    # 28. each kernel (each metric's instantiation) against its plain piece,
+    #     then times and bounds
     s_size, iters, m = SLIC_PARAMS
-    worst = dict.fromkeys(SLIC_KERNELS, 0.0)
+    worst = Counter()  # (kernel, metric) -> max |diff|
 
-    def diff(name: str, a, b) -> None:
-        worst[name] = max(worst[name], max_abs(a, b))
+    def diff(name: str, metric: str, a, b) -> None:
+        worst[name, metric] = max(worst[name, metric], max_abs(a, b))
 
-    def pieces(lab, h, w, s, n_it, displaced=None) -> list[dict]:
+    def pieces(lab, h, w, s, n_it, displaced=None, metric="euclidean") -> list[dict]:
         """``n_it`` iterations through each kernel and the plain pieces side
         by side from the same state (every iteration forced active); the
         work each iteration did, for the bounds."""
         space_norm, color_norm = slic._norms(s, m)
-        grid = slic._Grid(lab, h, w, s, m, "euclidean")
+        grid = slic._Grid(lab, h, w, s, m, metric)
         centers_t = grid.init_centers()
         labels_t = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=dev)
         dists_t = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=dev)
@@ -744,14 +884,14 @@ def slic_kernel_phases(dev) -> dict:
             before = dists.clone()
             labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
             kslic.associate(lab, centers, labels, dists, sums, state, it, s, space_norm,
-                            color_norm)
+                            color_norm, metric)
             for a, b in ((labels, grid.from_blocks(labels_t)), (dists, grid.from_blocks(dists_t)),
                          (sums, sums_t.reshape(6, -1).T), (state[1 + it, 1], changed_t.int())):
-                diff("association", a, b)
+                diff("association", metric, a, b)
             means_t = grid.center_means(centers_t, sums_t)
             keys_t = grid.snap_keys(means_t, labels_t)
-            kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s)
-            diff("snap_keys", keys, keys_t)
+            kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s, metric)
+            diff("snap_keys", metric, keys, keys_t)
             centers_t = grid.move_centers(centers_t, keys_t)
             drift = torch.maximum(drift, grid.cell_drift(centers_t))
             moved = int((keys < slic._BIG_KEY).sum())
@@ -764,7 +904,7 @@ def slic_kernel_phases(dev) -> dict:
                          (state[0, 1], torch.tensor(it + 1)), (state[2 + it, 0], changed_t.int()),
                          (sums, torch.zeros_like(sums)), (keys, torch.full_like(keys,
                                                                                 slic._BIG_KEY))):
-                diff("update", a, b)
+                diff("update", metric, a, b)
         return work
 
     def scan_pairs(centers, h, w, s) -> tuple[int, int]:
@@ -784,24 +924,28 @@ def slic_kernel_phases(dev) -> dict:
                 on_grid += int(ok.sum())
         return scanned, on_grid
 
-    def bounds(work: list[dict]) -> dict:
+    def bounds(work: list[dict], metric: str = "euclidean") -> dict:
         """Each kernel's least time an iteration, averaged over the
         iterations: bytes (each input read once, each output written once)
-        over HBM against f32 operations over their peak."""
+        over HBM against f32 operations over their peak.  A colour distance
+        is 8 operations (euclidean) or DELTA_E_OPS, and the ΔE metrics add
+        each pixel's and each center's (or mean's) chroma."""
+        color, chroma = (8, 0) if metric == "euclidean" else (DELTA_E_OPS, CHROMA_OPS)
         out = {name: [] for name in SLIC_KERNELS}
         for it in work:
             p, n = it["pixels"], it["centers"]
             out["association"].append(bound(
                 p * 11 + it["changed"] * 8 + n * 20 + it["members"] * 48,
-                it["on_grid"] * 4 + it["scanned"] * 16))
+                it["on_grid"] * 4 + it["scanned"] * (8 + color) + (p + n) * chroma))
             out["snap_keys"].append(bound(p * 7 + n * 68 + it["moved"] * 8,
-                                          it["labelled"] * 10 + n * 12))
+                                          it["labelled"] * (2 + color + chroma)
+                                          + n * (12 + chroma)))
             out["update"].append(bound(n * 28 + it["moved"] * 23 + n * 56 + 8, n * 6))
         return {name: (statistics.mean(b for b, _ in v),
                        Counter(by for _, by in v).most_common(1)[0][0])
                 for name, v in out.items()}
 
-    def kernel_times(lab, h, w, s, runs: int = 5) -> dict:
+    def kernel_times(lab, h, w, s, runs: int = 5, metric: str = "euclidean") -> dict:
         """Device ms of each kernel an active iteration (median of ``runs``
         k-means of ``iters`` iterations from the init state, queued behind a
         sleep kernel so the host's launches are hidden), and the iterations
@@ -816,9 +960,9 @@ def slic_kernel_phases(dev) -> dict:
             for it in range(iters):
                 ev[it][0].record()
                 kslic.associate(lab, centers, labels, dists, sums, state, it, s, space_norm,
-                                color_norm)
+                                color_norm, metric)
                 ev[it][1].record()
-                kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s)
+                kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s, metric)
                 ev[it][2].record()
                 kslic.update(lab, centers, keys, sums, state, it, s)
                 ev[it][3].record()
@@ -829,10 +973,10 @@ def slic_kernel_phases(dev) -> dict:
                                      for it in range(ran)) / ran)
         return {name: statistics.median(v) for name, v in per.items()}, ran
 
-    def plain_times(lab, h, w, s, n: int = 3) -> dict:
+    def plain_times(lab, h, w, s, n: int = 3, metric: str = "euclidean") -> dict:
         """Device ms of each plain piece on the first iteration's state,
         ``n`` calls queued behind a sleep kernel."""
-        grid = slic._Grid(lab, h, w, s, m, "euclidean")
+        grid = slic._Grid(lab, h, w, s, m, metric)
         centers = grid.init_centers()
         labels = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=dev)
         dists = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=dev)
@@ -857,16 +1001,16 @@ def slic_kernel_phases(dev) -> dict:
             out[name] = start.elapsed_time(end) / n
         return out
 
-    def whole_ms(lab, h, w, s, impl: str, calls: int = 3) -> float:
+    def whole_ms(lab, h, w, s, impl: str, calls: int = 3, metric: str = "euclidean") -> float:
         """CUDA-event ms of one slic_device call (host launches included),
         median of ``calls``."""
-        slic.slic_device(lab, h, w, s, iters, m, impl=impl)
+        slic.slic_device(lab, h, w, s, iters, m, metric, impl=impl)
         times = []
         for _ in range(calls):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
-            slic.slic_device(lab, h, w, s, iters, m, impl=impl)
+            slic.slic_device(lab, h, w, s, iters, m, metric, impl=impl)
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
@@ -888,7 +1032,7 @@ def slic_kernel_phases(dev) -> dict:
             phase(f"SLIC {label} smooth S={s_size} m={m:g}: {name} kernel {k_ms[name]:.4f} ms an "
                   f"iteration ({ran} run), bound {b_ms:.4f} ms by {b_by} "
                   f"({k_ms[name] / b_ms:.1f}x), plain piece {p_ms[name]:.4f} ms; max |diff| "
-                  f"against the plain piece over every step {worst[name]}")
+                  f"against the plain piece over every step {worst[name, 'euclidean']}")
         phase(f"SLIC {label} smooth k-means, {iters} iterations: kernel route "
               f"{route_ms['cuda']:.3f} ms a call, plain route {route_ms['torch']:.3f} ms (CUDA "
               f"events, host launches included); scanned pairs a pixel "
@@ -896,8 +1040,33 @@ def slic_kernel_phases(dev) -> dict:
               f"an iteration {[x['changed'] for x in work]}")
         results[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "bound": bnd,
                           "route_ms": route_ms, "iterations": ran}
+    # the ΔE instantiations at 512x512 smooth, and their pieces on the
+    # displaced 97x131 states
+    h, w = SLIC_SHAPE
+    lab = slic_lab("smooth", h, w, dev)
+    for metric in DELTA_E_METRICS:
+        pieces(slic_lab("random", 97, 131, dev), 97, 131, 13, 3, displaced=0, metric=metric)
+        pieces(slic_lab("random", 97, 131, dev, 1), 97, 131, 13, 3, displaced=1, metric=metric)
+        work = pieces(lab, h, w, s_size, iters, metric=metric)
+        k_ms, ran = kernel_times(lab, h, w, s_size, metric=metric)
+        bnd = bounds(work[:ran], metric)
+        p_ms = plain_times(lab, h, w, s_size, metric=metric)
+        route_ms = {impl: whole_ms(lab, h, w, s_size, impl, metric=metric)
+                    for impl in ("cuda", "torch")}
+        for name in SLIC_KERNELS:
+            b_ms, b_by = bnd[name]
+            phase(f"SLIC 512x512 smooth S={s_size} m={m:g} {metric}: {name} kernel "
+                  f"{k_ms[name]:.4f} ms an iteration ({ran} run), bound {b_ms:.4f} ms by {b_by} "
+                  f"({k_ms[name] / b_ms:.1f}x), plain piece {p_ms[name]:.4f} ms; max |diff| "
+                  f"against the plain piece over every step {worst[name, metric]}")
+        phase(f"SLIC 512x512 smooth k-means {metric}, {iters} iterations: kernel route "
+              f"{route_ms['cuda']:.3f} ms a call, plain route {route_ms['torch']:.3f} ms (CUDA "
+              f"events, host launches included); scanned pairs a pixel "
+              f"{statistics.mean(x['scanned'] for x in work) / (h * w):.2f}")
+        results[f"512x512 {metric}"] = {"kernel_ms": k_ms, "plain_ms": p_ms, "bound": bnd,
+                                        "route_ms": route_ms, "iterations": ran}
     if any(worst.values()):
-        raise SystemExit(f"SLIC kernels differ from their plain pieces: {worst}")
+        raise SystemExit(f"SLIC kernels differ from their plain pieces: {dict(worst)}")
     phase(f"SLIC kernel phases 27-28 took {time.perf_counter() - t_start:.1f} s")
     return {"worst": worst, **results}
 
@@ -2524,22 +2693,31 @@ def main() -> int:
             "at": fill_k[name]["at"],
         })
     s_size, iters, m = SLIC_PARAMS
-    for name in SLIC_KERNELS:
-        b_ms, b_by = slic_k["512x512"]["bound"][name]
+    # the euclidean instantiations, the update kernel (every metric's), then
+    # the association and snap keys of each ΔE metric
+    slic_entries = [("association", "euclidean"), ("snap_keys", "euclidean"), ("update", None)]
+    slic_entries += [(name, metric) for metric in DELTA_E_METRICS
+                     for name in ("association", "snap_keys")]
+    for name, metric in slic_entries:
+        cell = slic_k["512x512" if metric in (None, "euclidean") else f"512x512 {metric}"]
+        b_ms, b_by = cell["bound"][name]
+        delta_e = metric not in (None, "euclidean")
         entries.append({
-            "name": f"slic_{name}",
+            "name": f"slic_{name}" + (f"_{metric}" if delta_e else ""),
             "route": "cuda",
             "source": "various_image_processings_tpu_torch/csrc/slic_kmeans.cu",
             "replaces": "various_image_processings_tpu/models/slic.py:129 (XLA while_loop, "
                         "no Pallas kernel)",
-            "launches": slic_launches[name],
-            "max_abs_err": slic_k["worst"][name],
-            "ms": slic_k["512x512"]["kernel_ms"][name],
-            "plain_ms": slic_k["512x512"]["plain_ms"][name],
+            "launches": slic_launches[name, metric] if metric else slic_launches[name],
+            "max_abs_err": max(v for (k, mt), v in slic_k["worst"].items()
+                               if k == name and (metric is None or mt == metric)),
+            "ms": cell["kernel_ms"][name],
+            "plain_ms": cell["plain_ms"][name],
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
-            "at": f"{SLIC_SHAPE[0]}x{SLIC_SHAPE[1]} smooth S={s_size} m={m:g}, an iteration",
+            "at": f"{SLIC_SHAPE[0]}x{SLIC_SHAPE[1]} smooth S={s_size} m={m:g}"
+                  + (f" {metric}" if delta_e else "") + ", an iteration",
         })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -946,17 +946,94 @@ def test_slic_kernel_route_reads_nothing_back(cuda):
     assert slic.host_syncs == 1 and 1 <= slic.iterations <= 10  # the download
 
 
-@pytest.mark.parametrize("metric", ["ciede2000", "ciede2000_ref"])
-def test_slic_delta_e_takes_the_plain_route_on_the_card(cuda, metric):
+DELTA_E_METRICS = ["ciede2000", "ciede2000_ref"]
+
+
+@pytest.mark.parametrize("kind", SLIC_KINDS)
+@pytest.mark.parametrize("s", SLIC_SIZES)
+@pytest.mark.parametrize("shape", SLIC_SHAPES[2:])
+@pytest.mark.parametrize("metric", DELTA_E_METRICS)
+def test_slic_delta_e_kernels_bit_equal_to_plain_on_the_card(cuda, metric, shape, s, kind):
+    """The ΔE kernel route against ``impl="torch"`` on the card, over the
+    small shapes of the grid (chip_smoke.py phase 23b takes all of it)."""
+    from various_image_processings_tpu_torch.models import slic
+
+    iters, m = SLIC_RUNS[(SLIC_SIZES.index(s) + SLIC_KINDS.index(kind)) % len(SLIC_RUNS)]
+    lab = slic_lab(kind, shape, cuda)
+    got = slic.slic_device(lab, *shape, s, iters, m, metric, impl="cuda")
+    ran = int(slic.device_iterations)
+    slic.iterations = 0
+    want = slic.slic_device(lab, *shape, s, iters, m, metric, impl="torch")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert ran == slic.iterations
+
+
+@pytest.mark.parametrize("metric", DELTA_E_METRICS)
+def test_slic_delta_e_reads_nothing_back(cuda, metric):
+    """A ΔE k-means on a CUDA tensor: 3 kernel launches an iteration, those
+    of its metric, and no host read; ``apply`` reads once."""
     from various_image_processings_tpu_torch.models import slic
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
 
-    lab = slic_lab("smooth", (40, 40), cuda)
-    with pytest.raises(ValueError, match=metric):
-        slic.slic_device(lab, 40, 40, 20, 3, 20.0, metric, impl="cuda")
-    before = kslic.association_launches
-    slic.slic_device(lab, 40, 40, 20, 3, 20.0, metric)
-    assert kslic.association_launches == before and slic.device_iterations is None
+    lab = slic_lab("smooth", (130, 130), cuda)
+    slic.host_syncs = slic.iterations = 0
+    kslic.metric_launches.clear()
+    before = kslic.update_launches
+    slic.slic_device(lab, 130, 130, 26, 10, 20.0, metric)
+    torch.cuda.synchronize()
+    assert slic.host_syncs == 0 and slic.iterations == 0
+    assert dict(kslic.metric_launches) == {("association", metric): 10,
+                                           ("snap_keys", metric): 10}
+    assert kslic.update_launches - before == 10
+    model = vt.SuperpixelSLIC(130, 130, 26, 10, metric=metric)
+    slic.host_syncs = slic.iterations = 0
+    model.apply(smooth_u8((130, 130), 3).to(cuda))
+    assert slic.host_syncs == 1 and 1 <= slic.iterations <= 10
+
+
+def delta_e_pairs():
+    """(6, n) f32 Lab pairs: seeded integers in -255..255 and seeded floats;
+    every pair of a lattice of colours (a, b in -130..130 step 10, so a = b
+    = 0, a = 0 with b != 0, equal colours and hue differences on both sides
+    of ±half, wrapped either way); as chip_smoke.py phase 23a draws them."""
+    rng = np.random.default_rng(7)
+    ints = rng.integers(-255, 256, (6, 1 << 16)).astype(np.float32)
+    floats = rng.uniform(-200.0, 200.0, (6, 1 << 16)).astype(np.float32)
+    ab = np.arange(-130, 131, 10, dtype=np.float32)
+    aa, bb = np.meshgrid(ab, ab)
+    lattice = np.stack([rng.integers(0, 256, aa.size).astype(np.float32), aa.ravel(),
+                        bb.ravel()])
+    i, j = np.meshgrid(np.arange(aa.size), np.arange(aa.size))
+    pairs = np.concatenate([lattice[:, i.ravel()], lattice[:, j.ravel()]])
+    return torch.from_numpy(np.concatenate([ints, floats, pairs], 1))
+
+
+@pytest.mark.parametrize("metric", DELTA_E_METRICS)
+def test_delta_e_pair_kernel_bit_equal_on_the_card(cuda, metric):
+    from various_image_processings_tpu_torch.core import ciede2000
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    v = delta_e_pairs().to(cuda)
+    want = getattr(ciede2000, f"{metric}_square")(*v)
+    before = kslic.delta_e_launches
+    got = kslic.delta_e(*v.contiguous(), metric)
+    assert kslic.delta_e_launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", DELTA_E_METRICS)
+def test_slic_batched_delta_e_equals_single_calls(cuda, metric):
+    from various_image_processings_tpu_torch import parallel
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    imgs = torch.stack([smooth_u8((64, 96), i) for i in range(4)]).to(cuda)
+    mesh = parallel.make_mesh(batch=2, spatial=1, devices=[cuda] * 2)
+    kslic.metric_launches.clear()
+    out = parallel.superpixel_slic_batched(imgs, 16, 5, 20.0, metric, mesh=mesh)
+    assert out.is_cuda and kslic.metric_launches["association", metric] == 4 * 5
+    for i in range(4):
+        assert torch.equal(out[i], vt.superpixel_slic(imgs[i], 16, 5, 20.0, metric))
 
 
 @pytest.mark.parametrize("displaced", [0, 1])
@@ -964,12 +1041,22 @@ def test_slic_each_kernel_against_its_plain_piece(cuda, displaced):
     """One kernel at a time against the plain version's piece on the same
     state, three iterations, center 0 moved off the image before iteration
     ``displaced`` (it then has no pixel, or only stale labels)."""
+    each_kernel_against_its_plain_piece(cuda, displaced, "euclidean")
+
+
+@pytest.mark.parametrize("displaced", [0, 1])
+@pytest.mark.parametrize("metric", DELTA_E_METRICS)
+def test_slic_delta_e_each_kernel_against_its_plain_piece(cuda, metric, displaced):
+    each_kernel_against_its_plain_piece(cuda, displaced, metric)
+
+
+def each_kernel_against_its_plain_piece(cuda, displaced, metric):
     from various_image_processings_tpu_torch.models import slic
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
 
     h, w, s, m = 97, 131, 13, 20.0
     lab = slic_lab("random", (h, w), cuda)
-    grid = slic._Grid(lab, h, w, s, m, "euclidean")
+    grid = slic._Grid(lab, h, w, s, m, metric)
     centers_t = grid.init_centers()
     labels_t = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=cuda)
     dists_t = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=cuda)
@@ -988,14 +1075,14 @@ def test_slic_each_kernel_against_its_plain_piece(cuda, displaced):
             centers_t[:2, 0, 0] = -3.0 * s
         labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
         kslic.associate(lab, centers, labels, dists, sums, state, it, s, grid.space_norm,
-                        grid.color_norm)
+                        grid.color_norm, metric)
         assert torch.equal(labels, grid.from_blocks(labels_t))
         assert torch.equal(dists, grid.from_blocks(dists_t))
         assert torch.equal(sums, sums_t.reshape(6, -1).T)
         assert int(state[1 + it, 1]) == int(changed_t)
         means_t = grid.center_means(centers_t, sums_t)
         keys_t = grid.snap_keys(means_t, labels_t)
-        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s)
+        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s, metric)
         assert torch.equal(keys, keys_t)
         centers_t = grid.move_centers(centers_t, keys_t)
         drift = torch.maximum(drift, grid.cell_drift(centers_t))

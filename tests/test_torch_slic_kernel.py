@@ -9,10 +9,11 @@ version (``models/slic.py::_Grid``'s ``association``, ``center_means``,
 the early exit, to ``slic_device(..., impl="torch")``.  The grids cover
 images that are not whole cells, S = 2, S larger than the image, a center
 that loses every pixel, exact distance ties and a constant image that stops
-early.  Then the routing: ``impl="cuda"`` on a CPU tensor and with a ΔE
-metric raise, ``"auto"`` on the CPU takes the plain version, and
-``_download`` counts the iterations a kernel-route call leaves on the device.
-No JAX here."""
+early.  The twins take a metric: tests/test_torch_slic_delta_e.py holds
+them to the plain pieces with the ΔE metrics.  Then the routing:
+``impl="cuda"`` on a CPU tensor raises (with every metric), ``"auto"`` on
+the CPU takes the plain version, and ``_download`` counts the iterations a
+kernel-route call leaves on the device.  No JAX here."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from various_image_processings_tpu_torch.core.ciede2000 import (  # noqa: E402
+    ciede2000_ref_square, ciede2000_square)
 from various_image_processings_tpu_torch.core.pad import cdiv  # noqa: E402
 from various_image_processings_tpu_torch.models import slic as P  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import slic as kslic  # noqa: E402
@@ -29,7 +32,22 @@ BIG_KEY = np.iinfo(np.int64).max
 OFFSETS = [(dy, dx) for dy in (-2, -1, 0, 1, 2) for dx in (-2, -1, 0, 1, 2)]
 
 
-def twin_association(lab, centers, labels, dists, s, space_norm, color_norm):
+def twin_color(c_l, c_a, c_b, l, a, b, metric="euclidean"):
+    """The kernels' colour distance of (center or mean, pixel), f32 arrays:
+    the reference's euclidean one, or core/ciede2000's CPU function of the
+    metric (the kernels take sqrt(a² + b²) once a side: the same operation,
+    so the same value)."""
+    if metric == "euclidean":
+        dl = (c_l - l) * F32(2.55)
+        da, db = c_a - a, c_b - b
+        return dl * dl + da * da + db * db
+    fn = {"ciede2000": ciede2000_square, "ciede2000_ref": ciede2000_ref_square}[metric]
+    planes = np.broadcast_arrays(c_l, c_a, c_b, l, a, b)
+    return fn(*(torch.from_numpy(np.ascontiguousarray(v, F32)) for v in planes)).numpy()
+
+
+def twin_association(lab, centers, labels, dists, s, space_norm, color_norm,
+                     metric="euclidean"):
     """Pixel-major association: every pixel's ≤25 candidates in ascending
     id, strict < against the running (label, distance), (x, y, l, a, b, 1)
     added to a candidate's sums at its turn where it scans the pixel and the
@@ -52,9 +70,7 @@ def twin_association(lab, centers, labels, dists, s, space_norm, color_norm):
         c = centers[cid]
         ddx, ddy = xf - c[..., 0], yf - c[..., 1]
         scanned = on_grid & (np.abs(ddx) <= F32(s)) & (np.abs(ddy) <= F32(s))
-        dl = (c[..., 2] - lf) * F32(2.55)
-        da, db = c[..., 3] - af, c[..., 4] - bf
-        color = dl * dl + da * da + db * db
+        color = twin_color(c[..., 2], c[..., 3], c[..., 4], lf, af, bf, metric)
         d = F32(space_norm) * (ddx * ddx + ddy * ddy) + F32(color_norm) * color
         ties += int((scanned & (d == run_d)).sum())
         better = scanned & (d < run_d)
@@ -66,10 +82,11 @@ def twin_association(lab, centers, labels, dists, s, space_norm, color_norm):
     return run_l, run_d, bool((run_d < dists).any()), sums, ties
 
 
-def twin_keys(lab, centers, labels, sums):
+def twin_keys(lab, centers, labels, sums, metric="euclidean"):
     """Means floor(f32(sum) / f32(count)) (the state where count is 0), then
-    each labelled pixel's floor(distance to its center's mean) << 32 |
-    raster, the least a center → (means (N, 3), keys (N,) int64)."""
+    each labelled pixel's floor(distance to its center's mean) * 2^32 +
+    raster (signed: a ΔE² below 0 floors to -1), the least a center →
+    (means (N, 3), keys (N,) int64)."""
     count = sums[:, 5]
     quotient = sums[:, 2:5].astype(F32) / np.maximum(count, 1).astype(F32)[:, None]
     means = np.where(count[:, None] > 0, np.floor(quotient), centers[:, 2:5])
@@ -77,12 +94,10 @@ def twin_keys(lab, centers, labels, sums):
     lbl = labels[member]
     m = means[lbl]
     pix = lab[member].astype(F32)
-    dl = (m[:, 0] - pix[:, 0]) * F32(2.55)
-    da, db = m[:, 1] - pix[:, 1], m[:, 2] - pix[:, 2]
-    key = np.floor(dl * dl + da * da + db * db).astype(np.int64)
+    key = np.floor(twin_color(*m.T, *pix.T, metric)).astype(np.int64)
     raster = np.flatnonzero(member.reshape(-1))
     keys = np.full(len(centers), BIG_KEY, np.int64)
-    np.minimum.at(keys, lbl, (key << 32) | raster)
+    np.minimum.at(keys, lbl, key * (1 << 32) + raster)
     return means, keys
 
 
@@ -101,7 +116,7 @@ def twin_update(lab, centers, keys, s, width, per_row):
     return out, int(drift.max())
 
 
-def twin_run(lab, s, num_iteration, color_scale):
+def twin_run(lab, s, num_iteration, color_scale, metric="euclidean"):
     """Whole runs as the kernels run them: each iteration active only if the
     last one changed a pixel → (labels, centers, dists, drift, iterations run,
     tied pixels)."""
@@ -115,8 +130,8 @@ def twin_run(lab, s, num_iteration, color_scale):
     drift = ran = ties = 0
     for _ in range(num_iteration):
         labels, dists, changed, sums, tied = twin_association(lab, centers, labels, dists, s,
-                                                              space_norm, color_norm)
-        _, keys = twin_keys(lab, centers, labels, sums)
+                                                              space_norm, color_norm, metric)
+        _, keys = twin_keys(lab, centers, labels, sums, metric)
         centers, d = twin_update(lab, centers, keys, s, w, pr)
         drift, ran, ties = max(drift, d), ran + 1, ties + tied
         if not changed:
@@ -230,9 +245,13 @@ def test_impl_cuda_on_a_cpu_tensor_raises():
 
 @pytest.mark.parametrize("metric", ["ciede2000", "ciede2000_ref"])
 def test_impl_cuda_with_a_delta_e_metric_raises(metric):
+    """The kernels take every metric, so ``impl="cuda"`` with a ΔE metric
+    raises here for the CPU tensor alone, before any kernel is sought."""
     lab = torch.from_numpy(lab_image("random", 12, 12))
-    with pytest.raises(ValueError, match=metric):
+    before = dict(kslic.metric_launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         P.slic_device(lab, 12, 12, 4, 2, 20.0, metric, impl="cuda")
+    assert dict(kslic.metric_launches) == before
 
 
 def test_unknown_impl_raises():

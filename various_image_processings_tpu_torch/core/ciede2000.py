@@ -15,7 +15,12 @@ each float/double promotion of the C++; the host-side merge of
 
 ``atan2``, ``sin``, ``cos``, ``exp``, ``sqrt`` and ``pow`` differ by ulps
 between the CPU, the card and other libraries, so these metrics are held to
-tolerances, not to bits (tests/test_torch_ciede2000.py).
+tolerances, not to bits (tests/test_torch_ciede2000.py).  On the card the
+SLIC kernels' ΔE (csrc/slic_kmeans.cu) repeats ``_square`` operation by
+operation with the CUDA math library PyTorch's CUDA ops call, and is held to
+it bit for bit.  On the CPU PyTorch's ``pow`` and ``atan2`` round differently
+in their vector and scalar loops, so there a value's bits may depend on
+where it lies in its tensor.
 """
 
 from __future__ import annotations
@@ -86,7 +91,9 @@ def _square(l1, a1, b1, l2, a2, b2, full: float, half: float, deg) -> torch.Tens
          + 0.24 * torch.cos(2.0 * bar_h)
          + 0.32 * torch.cos(3.0 * bar_h + deg(6.0))
          - 0.20 * torch.cos(4.0 * bar_h - deg(63.0)))
-    ratio = (bar_h - deg(275.0)) / deg(25.0)
+    # a true division on every device: PyTorch's CUDA division by a Python
+    # float multiplies by its reciprocal
+    ratio = (bar_h - deg(275.0)) / torch.tensor(deg(25.0), device=l1.device)
     dtheta = deg(30.0) * torch.exp(-(ratio * ratio))
     bar_cp7 = bar_cp ** 7
     r_c = 2.0 * torch.sqrt(bar_cp7 / (bar_cp7 + _POW25_7))

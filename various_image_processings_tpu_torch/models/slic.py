@@ -30,17 +30,19 @@ whose results do not depend on the order of floating-point reductions:
   native components and a Python merge for the ΔE metrics, and the
   NumPy/scipy path when the caller asks for ``impl="numpy"``.
 
-Two routes compute the same bits (``slic_device``'s ``impl``).  The
-kernels (``ops/cuda/slic.py``, ``csrc/slic_kmeans.cu``: association with
-in-scan sums, means and snap keys, center update; three launches an
-iteration) take a CUDA tensor with the euclidean metric.  The plain version,
-``_Grid``, takes a CPU tensor and the ΔE metrics on any device: the image
-lives in a blocked layout, (per_col, S, per_row, S) after padding to whole
+Two routes compute the same bits on the card (``slic_device``'s
+``impl``).  The kernels (``ops/cuda/slic.py``, ``csrc/slic_kmeans.cu``:
+association with in-scan sums, means and snap keys, center update; three
+launches an iteration) take a CUDA tensor with any of the three metrics,
+each an instantiation of the kernels.  The plain version, ``_Grid``, takes
+a CPU tensor, and a CUDA one when the caller asks: the image lives in a
+blocked layout, (per_col, S, per_row, S) after padding to whole
 cells, so a center's values broadcast over its cell and per-cell sums are
 reductions of integer planes: nothing moves between cells and pixels through
 a floating-point product.  Each distance is written op by op (``d * d``, no
-fused ops), so each product and sum rounds alone and the CPU and the card
-give the same bits.
+fused ops), so each product and sum rounds alone: for the euclidean metric
+the CPU and the card give the same bits (the ΔE metrics' transcendentals
+differ by ulps between them).
 """
 
 from __future__ import annotations
@@ -246,7 +248,8 @@ class _Grid:
 
     def snap_keys(self, means: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """(N,) int64: each center's least floor(color distance to its
-        mean) << 32 | raster index over its pixels, int64 max if it has none."""
+        mean) * 2^32 + raster index over its pixels (a ΔE² that rounds below
+        0 floors to -1), int64 max if it has none."""
         member = labels >= 0
         lbl = labels.clamp_min(0).to(torch.int64)
         m = means.reshape(5, self.n)
@@ -291,22 +294,17 @@ def slic_device(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
     its home cell: values ≤ 2 mean the 5×5 gather covered every reference
     ±S window.
 
-    ``impl``: ``"cuda"`` runs the k-means on the kernels (a CUDA tensor and
-    the euclidean metric only: a ΔE metric raises), ``"torch"`` the plain
-    version on the tensor's device, ``"auto"`` the kernels for a CUDA tensor
-    with the euclidean metric and the plain version otherwise.  The ΔE
-    metrics have no kernel: on the card they take the plain version.  The
-    grid seeds (``_init_centers``) are plain torch on both routes.  The
-    kernel route reads nothing back to the host; the iterations it ran wait
-    in ``device_iterations`` for ``_download``."""
+    ``impl``: ``"cuda"`` runs the k-means on the kernels (a CUDA tensor
+    only), ``"torch"`` the plain version on the tensor's device, ``"auto"``
+    the kernels for a CUDA tensor and the plain version for a CPU one, for
+    every metric.  The grid seeds (``_init_centers``) are plain torch on
+    both routes.  The kernel route reads nothing back to the host; the
+    iterations it ran wait in ``device_iterations`` for ``_download``."""
     global device_iterations
     check_impl(impl)
-    if impl == "cuda" and metric != "euclidean":
-        raise ValueError(f"the SLIC kernels compute the euclidean metric only, not {metric!r}: "
-                         "pass impl='auto' or impl='torch'")
     device_iterations = None
-    if resolve_impl(impl, lab_u8) == "cuda" and metric == "euclidean":
-        return _kmeans_cuda(lab_u8, height, width, sp_size, num_iteration, color_scale)
+    if resolve_impl(impl, lab_u8) == "cuda":
+        return _kmeans_cuda(lab_u8, height, width, sp_size, num_iteration, color_scale, metric)
     return _kmeans_plain(lab_u8, height, width, sp_size, num_iteration, color_scale, metric)
 
 
@@ -333,7 +331,7 @@ def _kmeans_plain(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
 
 
 def _kmeans_cuda(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
-                 num_iteration: int, color_scale: float):
+                 num_iteration: int, color_scale: float, metric: str):
     """The kernel route: every iteration enqueued, three launches each, the
     early exit decided on the card (``ops/cuda/slic.py``)."""
     global device_iterations
@@ -345,8 +343,8 @@ def _kmeans_cuda(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
     space_norm, color_norm = _norms(sp_size, color_scale)
     for it in range(num_iteration):
         kslic.associate(lab, centers, labels, dists, sums, state, it, sp_size, space_norm,
-                        color_norm)
-        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, sp_size)
+                        color_norm, metric)
+        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, sp_size, metric)
         kslic.update(lab, centers, keys, sums, state, it, sp_size)
     device_iterations = state[0, 1]
     return labels, centers, dists, state[0, 0].to(torch.float32)
@@ -538,7 +536,7 @@ class SuperpixelSLIC:
     the JAX package's ``SuperpixelSLIC``: takes (height, width) directly (the
     reference's constructor and wrapper swap them twice).  Lab and the
     k-means run on ``device`` (the GPU unless the caller passes
-    ``device="cpu"``; on the GPU the euclidean k-means runs on the kernels,
+    ``device="cpu"``; on the GPU the k-means runs on the kernels,
     ``slic_device``'s ``"auto"``); the connectivity pass runs on the host;
     ``apply`` returns the final int32 labels as a tensor on ``device``, with
     one device→host read a call on the kernel route."""

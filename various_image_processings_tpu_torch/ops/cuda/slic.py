@@ -1,5 +1,8 @@
 """Wrappers of the Hopper SLIC k-means kernels (csrc/slic_kmeans.cu): one
 iteration is ``associate``, ``snap_keys`` and ``update``, in that order.
+``associate`` and ``snap_keys`` take the colour metric (``METRICS``), which
+picks the kernels' instantiation; ``delta_e`` runs the kernels' CIEDE2000
+function on arrays of pairs, so it can be held to core/ciede2000.py alone.
 
 They take the k-means state as CUDA tensors in the layouts the kernels
 read and update it in place on PyTorch's current stream; nothing is read
@@ -9,13 +12,16 @@ holds (max drift in cells, iterations run), row 1 + it iteration it's
 returns at once (the early exit on the device).  Anything the kernels do not
 take raises; a launch the runtime refuses raises.  ``association_launches``,
 ``snap_keys_launches`` and ``update_launches`` count successful launches, so
-a run can show its main path went through the kernels.
+a run can show its main path went through the kernels; ``metric_launches``
+counts the association and snap-key launches by (kernel, metric), and
+``delta_e_launches`` the pair kernel's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -24,6 +30,11 @@ from ._build import check_launch, check_table, check_tensor, load_library, strea
 association_launches = 0
 snap_keys_launches = 0
 update_launches = 0
+delta_e_launches = 0
+metric_launches: Counter = Counter()  # (kernel, metric) -> launches
+
+# the metric ids of the C entry points, one kernel instantiation each
+METRICS = {"euclidean": 0, "ciede2000": 1, "ciede2000_ref": 2}
 
 # the kernels sum 32 pixels' x in 32 bits and pack a raster index in 32
 MAX_WIDTH = 1 << 27
@@ -37,17 +48,24 @@ def _lib() -> ctypes.CDLL:
     lib.vip_slic_association.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,          # lab, centers, labels, dists, sums, flags
         i32, i32, i32, i32, i32,               # height, width, S, per_col, per_row
-        ctypes.c_float, ctypes.c_float, ptr,   # space_norm, color_norm, stream
+        ctypes.c_float, ctypes.c_float, i32,   # space_norm, color_norm, metric
+        ptr,                                   # stream
     ]
     lib.vip_slic_snap_keys.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,          # lab, centers, labels, sums, keys, flags
-        i32, i32, i32, i32, i32, ptr,          # height, width, S, per_col, per_row, stream
+        i32, i32, i32, i32, i32,               # height, width, S, per_col, per_row
+        i32, ptr,                              # metric, stream
     ]
     lib.vip_slic_update.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # lab, centers, keys, sums, stats, flags, next
         i32, i32, i32, i32, i32, ptr,          # n, width, S, per_row, iteration, stream
     ]
-    for name in ("vip_slic_association", "vip_slic_snap_keys", "vip_slic_update"):
+    lib.vip_slic_delta_e.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # l1, a1, b1, l2, a2, b2, out
+        ctypes.c_longlong, i32, ptr,           # n, metric, stream
+    ]
+    for name in ("vip_slic_association", "vip_slic_snap_keys", "vip_slic_update",
+                 "vip_slic_delta_e"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -64,6 +82,12 @@ def _grid(lab: torch.Tensor, sp_size: int) -> tuple[int, int, int, int]:
         raise ValueError(f"SLIC kernels take width < {MAX_WIDTH} and fewer than 2^31 pixels, "
                          f"got {height}x{width}")
     return height, width, -(-height // sp_size), -(-width // sp_size)
+
+
+def _metric_id(metric: str) -> int:
+    if metric not in METRICS:
+        raise ValueError(f"unknown SLIC metric {metric!r}: the kernels take {tuple(METRICS)}")
+    return METRICS[metric]
 
 
 def _check_state(lab, centers, state, n: int) -> None:
@@ -83,11 +107,13 @@ def _flags(state: torch.Tensor, iteration: int) -> int:
 
 def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
               dists: torch.Tensor, sums: torch.Tensor, state: torch.Tensor, iteration: int,
-              sp_size: int, space_norm: float, color_norm: float) -> None:
+              sp_size: int, space_norm: float, color_norm: float,
+              metric: str = "euclidean") -> None:
     """Association with in-scan sums: updates ``labels`` (H, W) int32 and
     ``dists`` (H, W) f32, adds to ``sums`` (N, 6) int64 of x, y, l, a, b and
     count, and sets the iteration's changed flag if a distance fell."""
     global association_launches
+    metric_id = _metric_id(metric)
     height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
     _check_state(lab, centers, state, n)
@@ -98,17 +124,19 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
         err = _lib().vip_slic_association(
             lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), dists.data_ptr(),
             sums.data_ptr(), _flags(state, iteration), height, width, sp_size, per_col,
-            per_row, space_norm, color_norm, stream_of(lab))
+            per_row, space_norm, color_norm, metric_id, stream_of(lab))
     check_launch(err, "SLIC association")
     association_launches += 1
+    metric_launches["association", metric] += 1
 
 
 def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
               sums: torch.Tensor, keys: torch.Tensor, state: torch.Tensor, iteration: int,
-              sp_size: int) -> None:
+              sp_size: int, metric: str = "euclidean") -> None:
     """Means and snap keys: takes into ``keys`` (N,) int64 each center's
-    least floor(distance to its mean) << 32 | raster index over its pixels."""
+    least floor(distance to its mean) * 2^32 + raster index over its pixels."""
     global snap_keys_launches
+    metric_id = _metric_id(metric)
     height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
     _check_state(lab, centers, state, n)
@@ -119,9 +147,10 @@ def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
         err = _lib().vip_slic_snap_keys(
             lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), sums.data_ptr(),
             keys.data_ptr(), _flags(state, iteration), height, width, sp_size, per_col,
-            per_row, stream_of(lab))
+            per_row, metric_id, stream_of(lab))
     check_launch(err, "SLIC snap keys")
     snap_keys_launches += 1
+    metric_launches["snap_keys", metric] += 1
 
 
 def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: torch.Tensor,
@@ -143,3 +172,27 @@ def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: t
             stream_of(lab))
     check_launch(err, "SLIC update")
     update_launches += 1
+
+
+def delta_e(l1: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor, l2: torch.Tensor,
+            a2: torch.Tensor, b2: torch.Tensor, metric: str = "ciede2000") -> torch.Tensor:
+    """The squared ΔE of ``metric`` ("ciede2000" or "ciede2000_ref") of each
+    pair (l1, a1, b1)[i], (l2, a2, b2)[i]: six f32 CUDA tensors of one shape,
+    through the kernels' device function → f32 of that shape."""
+    global delta_e_launches
+    metric_id = _metric_id(metric)
+    if metric_id == METRICS["euclidean"]:
+        raise ValueError("the pair kernel computes the CIEDE2000 metrics only")
+    planes = (l1, a1, b1, l2, a2, b2)
+    for name, t in zip(("l1", "a1", "b1", "l2", "a2", "b2"), planes):
+        check_tensor(name, t, (torch.float32,), (t.ndim,))
+        check_table(name, t, torch.float32, tuple(l1.shape), l1.device)
+    out = torch.empty_like(l1)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(l1.device):
+        err = _lib().vip_slic_delta_e(*(t.data_ptr() for t in planes), out.data_ptr(),
+                                      out.numel(), metric_id, stream_of(l1))
+    check_launch(err, "SLIC delta E")
+    delta_e_launches += 1
+    return out

@@ -25,9 +25,10 @@ def superpixel_slic(image, superpixel_size: int = 30, num_iteration: int = 10,
 
     There is no ``impl`` parameter, as in the JAX package: the k-means takes
     ``models/slic.py::slic_device``'s ``"auto"`` route, the hand-written
-    kernels (``csrc/slic_kmeans.cu``) for an image on the GPU with the
-    euclidean metric, the plain PyTorch version on the CPU and for the ΔE
-    metrics.  The connectivity pass runs in native C++ on the host."""
+    kernels (``csrc/slic_kmeans.cu``) for an image on the GPU with any of
+    the three metrics, the plain PyTorch version on the CPU.  The
+    connectivity pass runs on the host (native C++; for the ΔE metrics,
+    native components and a Python merge)."""
     from ..models.slic import SuperpixelSLIC
     img = _validate.as_tensor(image, device)
     _validate.check_u8_color("image", img)

@@ -134,9 +134,9 @@ def superpixel_slic_batched(images, superpixel_size: int = 30,
     """(B, H, W, 3) u8 BGR → (B, H, W) int32 labels on the mesh's first
     device, each equal to ``superpixel_slic`` of its image.
 
-    The k-means runs image by image on its batch row's device (on a GPU
-    with the euclidean metric, on the kernels: ``slic_device``'s
-    ``"auto"``, with no host read until the image's download); one
+    The k-means runs image by image on its batch row's device (on a GPU,
+    on the kernels for every metric: ``slic_device``'s ``"auto"``, with no
+    host read until the image's download); one
     RuntimeWarning fires when the batch's largest center drift passes 2
     cells (as the JAX function does, once for the batch); the connectivity
     pass runs per image on the host."""
