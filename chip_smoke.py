@@ -70,8 +70,15 @@ share, peak memory, superpixels), and a ``{"slic": ...}`` line holds them.
 
 Then the parallel layer and the timing twins (phases 24-26): the batch
 fan-out on ``make_mesh()`` at BASELINE.md config 5b (64 4K frames, k=9) and
-config 3b (8 600x900 BTFs), the ABF and gradient on 8 4K frames, SLIC on 4
-512x512 images and Wexler on 2 402x700 images; row sharding on 2, 4 and 8
+config 3b (8 600x900 BTFs), the ABF and gradient on 8 4K frames, and
+Wexler on 2 402x700 images; batched SLIC (24s), whose batch rows each run
+their images as one device program (the JAX package's vmapped k-means), on
+8 smooth 512x512 images, a batch whose images stop at different
+iterations, 2 smooth ones with each CIEDE2000 metric, 4 smooth 4K frames and
+a 2x1 logical mesh, each byte-equal to per-image ``superpixel_slic``, with
+``num_iteration`` launches of each k-means kernel and one host read a batch
+row, its wall, split, launches and busy share against B x the single call;
+row sharding on 2, 4 and 8
 logical shards of the card (BF, JBF, ABF, gradient, BTF with a halo
 exchange before every stage, and both batch-spatial functions on a 2x2
 mesh), every output byte-equal to the single-device op and each path's
@@ -87,7 +94,9 @@ distances, centers, drift and iterations all equal; each kernel (each
 metric's instantiation) against its plain piece on the same state; each
 kernel's device time an iteration, its bound and its plain piece's time at
 512x512 (every metric) and 4K (euclidean), and the whole k-means both
-ways.
+ways; then (28b) 8 smooth 512x512 images, the batched k-means bit-equal to
+each image's single one and each kernel's time an iteration per image at a
+batch of 1, 4 and 8 against the batch's bound.
 
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
@@ -159,6 +168,8 @@ BTF_LARGE_KSIZE = 77                      # its JBF runs at k' = 153, past 149
 SLIC_SHAPE = (512, 512)                   # BASELINE.md config 4
 SLIC_PARAMS = (26, 10, 20.0)              # superpixel size S, iterations, color scale m
 SLIC_CALLS = 3                            # warm calls timed a configuration
+SLIC_BATCH = 8                            # phase 24s's batch of 512x512 images
+SLIC_BATCH_CALLS = 3                      # warm calls timed a batch case
 SLIC_KERNELS = ("association", "snap_keys", "update")  # csrc/slic_kmeans.cu, in launch order
 # phase 27's grid: every (shape, S) with every image kind, each kind with
 # another (iterations, m); S = 5000 is larger than every image
@@ -357,6 +368,37 @@ def smooth_image(h: int, w: int, seed: int) -> np.ndarray:
     return up.round().clamp(0, 255)[0].permute(1, 2, 0).to(torch.uint8).contiguous().numpy()
 
 
+def kernel_counts(prof) -> tuple[int, int, float]:
+    """Kernel launches in a torch.profiler run, of which the SLIC k-means
+    kernels', and their device microseconds (copies excluded)."""
+    import torch
+
+    n = n_kmeans = busy = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or "Memcpy" in evt.key \
+                or "Memset" in evt.key:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        busy += evt.self_cuda_time_total if us is None else us
+        n += evt.count
+        if any(f"slic_{name}_kernel" in evt.key for name in SLIC_KERNELS):
+            n_kmeans += evt.count
+    return n, n_kmeans, busy
+
+
+def cell_ramp(h: int, w: int, s: int, step: int) -> np.ndarray:
+    """u8 BGR: blue rising along x and red along y by ``step`` a pixel in
+    each S x S cell, from 100 at the cell's center (green 120).  Its cell
+    means sit near the centers' colours, so the k-means stops early (after
+    5 to 9 of 10 iterations at 512x512, S=26, m=20)."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.empty((h, w, 3), np.uint8)
+    img[..., 0] = 100 + (xx % s - s // 2 + 1) * step
+    img[..., 1] = 120
+    img[..., 2] = 100 + (yy % s - s // 2 + 1) * step
+    return img
+
+
 def boundary_recall(ref, got, tol: int = 2) -> float:
     """Share of ``ref``'s label boundary pixels with a boundary pixel of
     ``got`` within ``tol`` pixels (Chebyshev), two (H, W) label tensors."""
@@ -446,21 +488,6 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         lab_np = labels.cpu().numpy()
         _, ncomp = native.ccl_4conn(lab_np)
         return int(lab_np.min()) == 0 and ncomp == int(lab_np.max()) + 1
-
-    def kernel_counts(prof) -> tuple[int, int, float]:
-        """Kernel launches, of which the k-means kernels', and their device
-        microseconds (copies excluded)."""
-        n = n_kmeans = busy = 0
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA or "Memcpy" in evt.key \
-                    or "Memset" in evt.key:
-                continue
-            us = getattr(evt, "self_device_time_total", None)
-            busy += evt.self_cuda_time_total if us is None else us
-            n += evt.count
-            if any(f"slic_{name}_kernel" in evt.key for name in SLIC_KERNELS):
-                n_kmeans += evt.count
-        return n, n_kmeans, busy
 
     def measure(model, img, calls: int = SLIC_CALLS, profile: bool = True) -> dict:
         """Warm wall per call of ``model.apply`` (already called once), the
@@ -821,8 +848,10 @@ def slic_kernel_phases(dev) -> dict:
     97x131 state with a center moved off the image), then each kernel's
     device time an iteration (queued behind a sleep kernel, CUDA events
     between the launches), its plain piece's and its bound from this run's
-    work, and the whole k-means both ways.  Returns, per kernel, its
-    max |diff| and times at 512x512 and 4K."""
+    work, and the whole k-means both ways.  28b: the batch axis, as above
+    at a batch of 1, 4 and 8 smooth 512x512 images in one launch.  Returns,
+    per kernel, its max |diff| and times at 512x512 and 4K, and at each
+    batch."""
     import torch
 
     from various_image_processings_tpu_torch.core.pad import cdiv
@@ -872,7 +901,9 @@ def slic_kernel_phases(dev) -> dict:
         centers_t = grid.init_centers()
         labels_t = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=dev)
         dists_t = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=dev)
-        centers, labels, dists, sums, keys, state = slic.kmeans_state(lab, h, w, s, n_it)
+        # the kernels take a batch: one image here, its views below
+        batch = slic.kmeans_state(lab[None], h, w, s, n_it)
+        centers, labels, dists, sums, keys, state = (t[0] for t in batch)
         drift = torch.zeros((), device=dev)
         work = []
         for it in range(n_it):
@@ -883,14 +914,15 @@ def slic_kernel_phases(dev) -> dict:
             scanned, on_grid = scan_pairs(centers, h, w, s)
             before = dists.clone()
             labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
-            kslic.associate(lab, centers, labels, dists, sums, state, it, s, space_norm,
-                            color_norm, metric)
+            kslic.associate(lab[None], *batch[:4], batch[5], it, s, space_norm, color_norm,
+                            metric)
             for a, b in ((labels, grid.from_blocks(labels_t)), (dists, grid.from_blocks(dists_t)),
                          (sums, sums_t.reshape(6, -1).T), (state[1 + it, 1], changed_t.int())):
                 diff("association", metric, a, b)
             means_t = grid.center_means(centers_t, sums_t)
             keys_t = grid.snap_keys(means_t, labels_t)
-            kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s, metric)
+            kslic.snap_keys(lab[None], batch[0], batch[1], batch[3], batch[4], batch[5], it, s,
+                            metric)
             diff("snap_keys", metric, keys, keys_t)
             centers_t = grid.move_centers(centers_t, keys_t)
             drift = torch.maximum(drift, grid.cell_drift(centers_t))
@@ -899,7 +931,7 @@ def slic_kernel_phases(dev) -> dict:
                          "on_grid": on_grid, "changed": int((dists < before).sum()),
                          "members": int((sums[:, 5] > 0).sum()),
                          "labelled": int((labels >= 0).sum()), "moved": moved})
-            kslic.update(lab, centers, keys, sums, state, it, s)
+            kslic.update(lab[None], batch[0], batch[4], batch[3], batch[5], it, s)
             for a, b in ((centers, centers_t.reshape(5, -1).T), (state[0, 0], drift),
                          (state[0, 1], torch.tensor(it + 1)), (state[2 + it, 0], changed_t.int()),
                          (sums, torch.zeros_like(sums)), (keys, torch.full_like(keys,
@@ -945,33 +977,35 @@ def slic_kernel_phases(dev) -> dict:
                        Counter(by for _, by in v).most_common(1)[0][0])
                 for name, v in out.items()}
 
-    def kernel_times(lab, h, w, s, runs: int = 5, metric: str = "euclidean") -> dict:
-        """Device ms of each kernel an active iteration (median of ``runs``
-        k-means of ``iters`` iterations from the init state, queued behind a
-        sleep kernel so the host's launches are hidden), and the iterations
-        run."""
+    def kernel_times(labs, h, w, s, runs: int = 5, metric: str = "euclidean") -> dict:
+        """Device ms of each kernel an iteration of a (B, H, W, 3) batch, in
+        which an image is active (median of ``runs`` k-means of ``iters``
+        iterations from the init state, queued behind a sleep kernel so the
+        host's launches are hidden), and the iterations the longest image
+        ran; with the iterations each image ran."""
         space_norm, color_norm = slic._norms(s, m)
         per = {name: [] for name in SLIC_KERNELS}
         for _ in range(runs):
-            centers, labels, dists, sums, keys, state = slic.kmeans_state(lab, h, w, s, iters)
+            centers, labels, dists, sums, keys, state = slic.kmeans_state(labs, h, w, s, iters)
             ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(iters)]
             torch.cuda.synchronize()
             torch.cuda._sleep(200_000_000)
             for it in range(iters):
                 ev[it][0].record()
-                kslic.associate(lab, centers, labels, dists, sums, state, it, s, space_norm,
+                kslic.associate(labs, centers, labels, dists, sums, state, it, s, space_norm,
                                 color_norm, metric)
                 ev[it][1].record()
-                kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s, metric)
+                kslic.snap_keys(labs, centers, labels, sums, keys, state, it, s, metric)
                 ev[it][2].record()
-                kslic.update(lab, centers, keys, sums, state, it, s)
+                kslic.update(labs, centers, keys, sums, state, it, s)
                 ev[it][3].record()
             torch.cuda.synchronize()
-            ran = int(state[0, 1])
+            each = state[:, 0, 1].tolist()
+            ran = max(each)
             for k, name in enumerate(SLIC_KERNELS):
                 per[name].append(sum(ev[it][k].elapsed_time(ev[it][k + 1])
                                      for it in range(ran)) / ran)
-        return {name: statistics.median(v) for name, v in per.items()}, ran
+        return {name: statistics.median(v) for name, v in per.items()}, ran, each
 
     def plain_times(lab, h, w, s, n: int = 3, metric: str = "euclidean") -> dict:
         """Device ms of each plain piece on the first iteration's state,
@@ -1023,7 +1057,7 @@ def slic_kernel_phases(dev) -> dict:
     for label, (h, w) in (("512x512", SLIC_SHAPE), ("4K", MAIN_SHAPE)):
         lab = slic_lab("smooth", h, w, dev)
         work = pieces(lab, h, w, s_size, iters)
-        k_ms, ran = kernel_times(lab, h, w, s_size)
+        k_ms, ran, _ = kernel_times(lab[None], h, w, s_size)
         bnd = bounds(work[:ran])
         p_ms = plain_times(lab, h, w, s_size)
         route_ms = {impl: whole_ms(lab, h, w, s_size, impl) for impl in ("cuda", "torch")}
@@ -1040,6 +1074,39 @@ def slic_kernel_phases(dev) -> dict:
               f"an iteration {[x['changed'] for x in work]}")
         results[label] = {"kernel_ms": k_ms, "plain_ms": p_ms, "bound": bnd,
                           "route_ms": route_ms, "iterations": ran}
+    # 28b. the batch axis (grid.y): SLIC_BATCH smooth 512x512 images, each
+    #      held against its plain pieces; the batched k-means bit-equal to
+    #      each image's single one; each kernel's device ms an iteration at
+    #      B = 1, 4 and 8 in one launch, per image, against the batch's
+    #      bound (the work of each image's iterations, summed)
+    h, w = SLIC_SHAPE
+    labs = torch.stack([slic_lab("smooth", h, w, dev, seed) for seed in range(SLIC_BATCH)])
+    works = [pieces(labs[i], h, w, s_size, iters) for i in range(SLIC_BATCH)]
+    got = slic.slic_device_batched(labs, h, w, s_size, iters, m)
+    ran_each = slic.device_iterations.tolist()
+    for i in range(SLIC_BATCH):
+        one = slic.slic_device(labs[i], h, w, s_size, iters, m)
+        if (int(slic.device_iterations) != ran_each[i]
+                or not all(torch.equal(a[i], b) for a, b in zip(got, one))):
+            raise SystemExit(f"SLIC batched k-means image {i} differs from its single call")
+    slic.device_iterations = None
+    phase(f"28b. SLIC {SLIC_BATCH}x{h}x{w} smooth batched k-means: labels, centers, distances, "
+          f"drift and iterations ({ran_each}) bit-equal to each image's single call")
+    results["batch"] = {}
+    for b in (1, 4, SLIC_BATCH):
+        k_ms, ran, each = kernel_times(labs[:b], h, w, s_size)
+        summed = [{key: sum(works[i][it][key] for i in range(b) if it < each[i])
+                   for key in works[0][it]} for it in range(ran)]
+        bnd = bounds(summed)
+        per_image = {name: k_ms[name] / b for name in SLIC_KERNELS}
+        for name in SLIC_KERNELS:
+            b_ms, b_by = bnd[name]
+            phase(f"28b. SLIC B={b} x {h}x{w} smooth S={s_size} m={m:g}: {name} kernel "
+                  f"{k_ms[name]:.4f} ms an iteration for the batch, {per_image[name]:.4f} ms an "
+                  f"image; bound {b_ms:.4f} ms by {b_by} ({k_ms[name] / b_ms:.1f}x); "
+                  f"iterations run {each}")
+        results["batch"][b] = {"kernel_ms": k_ms, "per_image_ms": per_image, "bound": bnd,
+                               "iterations": each}
     # the ΔE instantiations at 512x512 smooth, and their pieces on the
     # displaced 97x131 states
     h, w = SLIC_SHAPE
@@ -1048,7 +1115,7 @@ def slic_kernel_phases(dev) -> dict:
         pieces(slic_lab("random", 97, 131, dev), 97, 131, 13, 3, displaced=0, metric=metric)
         pieces(slic_lab("random", 97, 131, dev, 1), 97, 131, 13, 3, displaced=1, metric=metric)
         work = pieces(lab, h, w, s_size, iters, metric=metric)
-        k_ms, ran = kernel_times(lab, h, w, s_size, metric=metric)
+        k_ms, ran, _ = kernel_times(lab[None], h, w, s_size, metric=metric)
         bnd = bounds(work[:ran], metric)
         p_ms = plain_times(lab, h, w, s_size, metric=metric)
         route_ms = {impl: whole_ms(lab, h, w, s_size, impl, metric=metric)
@@ -1071,7 +1138,180 @@ def slic_kernel_phases(dev) -> dict:
     return {"worst": worst, **results}
 
 
-def parallel_phases(dev) -> dict:
+def slic_batch_phase(dev, mesh, reset, read, expect, same, since) -> tuple[dict, Counter]:
+    """Phase 24s: ``superpixel_slic_batched``, whose batch rows each run
+    their images as one device program (the JAX package's vmapped k-means):
+    8 smooth 512x512 images (config 4), a mixed batch whose images stop at
+    different iterations, 2 smooth ones with each CIEDE2000 metric, 4 smooth
+    4K frames, and the 8 smooth ones on a 2x1 logical mesh of the card.
+    Each case is driven once with the counters reset just before and read
+    just after (``num_iteration`` launches of each k-means kernel a batch
+    row, one host read a row before the connectivity pass), held byte-equal
+    to per-image ``superpixel_slic``, then timed: the batch's warm wall, its
+    split (Lab and set-up, k-means by CUDA events, the download, the host
+    connectivity pass, the upload), its launches and device-busy share
+    (torch.profiler) and B x the single call, in the same run.  Returns the
+    times and the k-means kernels' launches on these runs, by kernel and by
+    (kernel, metric)."""
+    import warnings
+
+    import torch
+
+    import various_image_processings_tpu_torch as vt
+    from various_image_processings_tpu_torch import parallel as par
+    from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
+    from various_image_processings_tpu_torch.core.rng import random_image
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    s_size, iters, m = SLIC_PARAMS
+    sh, sw = SLIC_SHAPE
+    h4, w4 = MAIN_SHAPE
+    smooth = [smooth_image(sh, sw, seed) for seed in range(1, SLIC_BATCH + 1)]
+    stripes = np.empty((sh, sw, 3), np.uint8)
+    stripes[:] = (20, 200, 60)
+    stripes[:, (np.arange(sw) // 4) % 2 == 1] = (220, 30, 140)
+    mixed = [cell_ramp(sh, sw, s_size, 2), smooth[0], cell_ramp(sh, sw, s_size, 1),
+             random_image(sh, sw), cell_ramp(sh, sw, s_size, 3), smooth[1],
+             np.full((sh, sw, 3), 97, np.uint8), stripes]
+    logical = par.make_mesh(batch=2, spatial=1, devices=[dev] * 2)
+    cases = [("8x512 smooth", np.stack(smooth), "euclidean", mesh),
+             ("8x512 mixed", np.stack(mixed), "euclidean", mesh),
+             ("2x512 smooth ciede2000", np.stack(smooth[:2]), "ciede2000", mesh),
+             ("2x512 smooth ciede2000_ref", np.stack(smooth[:2]), "ciede2000_ref", mesh),
+             ("4x4K smooth", np.stack([smooth_image(h4, w4, seed) for seed in range(1, 5)]),
+              "euclidean", mesh),
+             ("8x512 smooth, 2x1 logical mesh", np.stack(smooth), "euclidean", logical)]
+    launches = Counter()
+    results = {}
+    for label, images_np, metric, on in cases:
+        imgs = torch.from_numpy(images_np).to(dev)
+        b, h, w = imgs.shape[:3]
+        rows = on.shape["batch"]
+        singles = [vt.superpixel_slic(imgs[i], s_size, iters, m, metric) for i in range(b)]
+        par.superpixel_slic_batched(imgs, s_size, iters, m, metric, mesh=on)  # warm
+        # the main path, counted
+        reset()
+        kslic.metric_launches.clear()
+        slic.host_syncs = slic.iterations = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = par.superpixel_slic_batched(imgs, s_size, iters, m, metric, mesh=on)
+        syncs, ran = slic.host_syncs, slic.iterations
+        got = read()
+        by_metric = dict(kslic.metric_launches)
+        expect(f"SLIC batched {label}", got,
+               {f"slic_{name}": rows * iters for name in SLIC_KERNELS})
+        if syncs != rows or by_metric != {("association", metric): rows * iters,
+                                          ("snap_keys", metric): rows * iters}:
+            raise SystemExit(f"SLIC batched {label}: {syncs} host syncs (expected {rows}), "
+                             f"launches by metric {by_metric}")
+        launches.update({name: got[f"slic_{name}"] for name in SLIC_KERNELS})
+        launches.update(by_metric)
+        for i in range(b):
+            same(f"SLIC batched {label} image {i}", out[i], singles[i])
+        slic.iterations = 0
+        for i in range(b):
+            vt.superpixel_slic(imgs[i], s_size, iters, m, metric)
+        each = slic.iterations
+        if each != ran:
+            raise SystemExit(f"SLIC batched {label}: {ran} iterations, single calls {each}")
+
+        def wall(fn) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        # the batch and B single calls in turns
+        batch_ms, single_ms = [], []
+        for _ in range(SLIC_BATCH_CALLS):
+            batch_ms.append(wall(lambda: par.superpixel_slic_batched(imgs, s_size, iters, m,
+                                                                     metric, mesh=on)))
+            single_ms.append(wall(lambda: [vt.superpixel_slic(imgs[i], s_size, iters, m, metric)
+                                           for i in range(b)]))
+        # the split of one batch call on one sub-batch a row, as the function runs it
+        split = Counter()
+        per = b // rows
+        space_norm, color_norm = slic._norms(s_size, m)
+        for row in range(rows):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            lab = bgr2lab_u8_exact(imgs[row * per:(row + 1) * per].contiguous())
+            centers, labels, dists, sums, keys, state = slic.kmeans_state(lab, h, w, s_size,
+                                                                          iters)
+            ev[1].record()
+            for it in range(iters):
+                kslic.associate(lab, centers, labels, dists, sums, state, it, s_size,
+                                space_norm, color_norm, metric)
+                kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s_size, metric)
+                kslic.update(lab, centers, keys, sums, state, it, s_size)
+            ev[2].record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            slic.device_iterations = state[:, 0, 1]
+            raw, lab_h, _ = slic._download(labels, lab, state[:, 0, 0].to(torch.float32))
+            t2 = time.perf_counter()
+            finals, conn_each = [], []
+            for i in range(per):
+                t_i = time.perf_counter()
+                finals.append(slic.enforce_connectivity(raw[i], lab_h[i], s_size, metric))
+                conn_each.append((time.perf_counter() - t_i) * 1e3)
+            final = np.stack(finals)
+            t3 = time.perf_counter()
+            torch.from_numpy(final).to(dev)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for i in range(per):
+                if not np.array_equal(final[i], out[row * per + i].cpu().numpy()):
+                    raise SystemExit(f"SLIC batched {label}: the split call differs")
+            split.setdefault("connectivity_each_ms", []).extend(conn_each)
+            split.update({"lab_setup_ms": ev[0].elapsed_time(ev[1]),
+                          "kmeans_ms": ev[1].elapsed_time(ev[2]), "d2h_ms": (t2 - t1) * 1e3,
+                          "connectivity_ms": (t3 - t2) * 1e3, "h2d_ms": (t4 - t3) * 1e3,
+                          "split_wall_ms": (t4 - t0) * 1e3})
+        # image 0's connectivity pass right after a download of that image
+        # alone (its planes just written by the copy), as a single call runs it
+        one_raw, one_lab, _ = slic._download(labels[0], lab[0], state[0, 0, 0].float())
+        t0 = time.perf_counter()
+        slic.enforce_connectivity(one_raw, one_lab, s_size, metric)
+        split["connectivity_alone_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            par.superpixel_slic_batched(imgs, s_size, iters, m, metric, mesh=on)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        n_launch, n_kmeans, busy_us = kernel_counts(prof)
+        t = {"images": b, "rows": rows, "metric": metric, "wall_ms": statistics.median(batch_ms),
+             "walls_ms": batch_ms, "b_single_ms": statistics.median(single_ms),
+             "b_singles_ms": single_ms, **split, "iterations": ran, "host_syncs": syncs,
+             "launches": n_launch, "kmeans_launches": n_kmeans,
+             "device_busy": busy_us / 1e6 / prof_wall if busy_us else None,
+             "drift_warnings": len(caught)}
+        results[label] = t
+        busy = "not measured" if t["device_busy"] is None else f"{t['device_busy']:.3f}"
+        phase(f"24s. SLIC batched {label} (S={s_size}, {iters} it, m={m:g}, {metric}, mesh "
+              f"{rows}x1): labels byte-equal to superpixel_slic per image; k-means launches "
+              f"{iters} of each kernel a batch row ({rows * iters} in all), {syncs} host syncs "
+              f"before connectivity, {ran} iterations (B single calls: {each}); warm wall "
+              f"{t['wall_ms']:.3f} ms a batch (runs {', '.join(f'{x:.3f}' for x in batch_ms)}) "
+              f"against B x the single call {t['b_single_ms']:.3f} ms (host clock, this run); "
+              f"split: Lab and set-up {split['lab_setup_ms']:.3f} ms, k-means "
+              f"{split['kmeans_ms']:.3f} ms (CUDA events), device->host {split['d2h_ms']:.3f} "
+              f"ms, host connectivity {split['connectivity_ms']:.3f} ms (per image "
+              f"{', '.join(f'{x:.3f}' for x in split['connectivity_each_ms'])}; image 0 after "
+              f"its own download {split['connectivity_alone_ms']:.3f}), host->device "
+              f"{split['h2d_ms']:.3f} ms (sum {split['split_wall_ms']:.3f}); kernel launches a "
+              f"batch {n_launch} (k-means {n_kmeans}), device busy {busy} of the profiled "
+              f"batch (torch.profiler); drift warnings {len(caught)} {since()}")
+    return results, launches
+
+
+def parallel_phases(dev) -> tuple[dict, Counter]:
     """Phases 24-26: the parallel layer and the timing twins.  24: batch
     fan-out on ``make_mesh()`` at BASELINE.md configs 5b and 3b, the ABF
     and gradient, SLIC and Wexler; 25: row sharding on logical shards of one
@@ -1079,7 +1319,8 @@ def parallel_phases(dev) -> dict:
     ``trace`` and ``vip-torch-benchmark``.  Every batched and sharded output
     is held byte-equal to the single-device op, and each path's kernel
     launches are counted from 0.  Prints a ``{"parallel": ...}`` line and
-    returns its object."""
+    returns its object, with the SLIC k-means kernels' launches on the
+    batched SLIC path (``slic_batch_phase``)."""
     import contextlib
     import io
     import warnings
@@ -1210,32 +1451,9 @@ def parallel_phases(dev) -> dict:
                                               "n_times_single_ms": len(eight) * single_ms}
     del frames, eight, out
 
-    # SLIC, config 4 on 4 smooth 512x512 images
-    sh, sw = SLIC_SHAPE
-    s_size, iters, m = SLIC_PARAMS
-    slic_in = torch.stack([torch.from_numpy(smooth_image(sh, sw, seed)) for seed in
-                           range(1, 5)]).to(dev)
-    singles = [vt.superpixel_slic(slic_in[i], s_size, iters, m) for i in range(4)]  # warm-up
-    reset()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        t0 = time.perf_counter()
-        labels = par.superpixel_slic_batched(slic_in, s_size, iters, m, mesh=mesh)
-        torch.cuda.synchronize()
-        batch_s = time.perf_counter() - t0
-    expect("SLIC batched", read(), {f"slic_{name}": 4 * iters for name in SLIC_KERNELS})
-    for i in range(4):
-        same(f"SLIC batched image {i}", labels[i], singles[i])
-    t0 = time.perf_counter()
-    for i in range(4):
-        vt.superpixel_slic(slic_in[i], s_size, iters, m)
-    torch.cuda.synchronize()
-    single_s = time.perf_counter() - t0
-    phase(f"SLIC batched, 4x{sh}x{sw} S={s_size} {iters} it m={m:g}: labels equal to "
-          f"superpixel_slic per image, {4 * iters} launches of each k-means kernel; warm: "
-          f"{batch_s * 1e3:.1f} ms a batch, 4 single calls "
-          f"{single_s * 1e3:.1f} ms (host clock); drift warnings {len(caught)} {since()}")
-    results["batched"]["slic_4x512"] = {"ms": batch_s * 1e3, "singles_ms": single_s * 1e3}
+    # SLIC: each batch row's images as one device program (24s)
+    results["batched"]["slic"], slic_launches = slic_batch_phase(dev, mesh, reset, read, expect,
+                                                                 same, since)
 
     # Wexler, config 5a on two 402x700 images (phase 15's texture and its mirror)
     wh, ww = WEXLER_SHAPE
@@ -1394,7 +1612,7 @@ def parallel_phases(dev) -> dict:
     results["seconds"] = time.perf_counter() - t_start
     phase(f"phases 24-26 took {results['seconds']:.1f} s")
     print(json.dumps({"parallel": results}), flush=True)
-    return results
+    return results, slic_launches
 
 
 def queued_ms(fn, n: int = 50) -> float:
@@ -2603,7 +2821,7 @@ def main() -> int:
             raise SystemExit("full-range fill outside the hole-PSNR window")
 
     slic_launches = slic_phases(dev, img_np)
-    parallel_phases(dev)
+    slic_launches.update(parallel_phases(dev)[1])  # the batched SLIC path's
     slic_k = slic_kernel_phases(dev)
 
     main_label = "600x900"

@@ -1024,6 +1024,8 @@ def test_delta_e_pair_kernel_bit_equal_on_the_card(cuda, metric):
 
 @pytest.mark.parametrize("metric", DELTA_E_METRICS)
 def test_slic_batched_delta_e_equals_single_calls(cuda, metric):
+    """Each of the mesh's 2 batch rows runs its 2 images as one sub-batch:
+    5 association launches a sub-batch, not 5 an image."""
     from various_image_processings_tpu_torch import parallel
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
 
@@ -1031,9 +1033,67 @@ def test_slic_batched_delta_e_equals_single_calls(cuda, metric):
     mesh = parallel.make_mesh(batch=2, spatial=1, devices=[cuda] * 2)
     kslic.metric_launches.clear()
     out = parallel.superpixel_slic_batched(imgs, 16, 5, 20.0, metric, mesh=mesh)
-    assert out.is_cuda and kslic.metric_launches["association", metric] == 4 * 5
+    assert out.is_cuda and kslic.metric_launches["association", metric] == 2 * 5
     for i in range(4):
         assert torch.equal(out[i], vt.superpixel_slic(imgs[i], 16, 5, 20.0, metric))
+
+
+SLIC_BATCH_KINDS = ["constant", "random", "smooth", "two"]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("metric", ["euclidean", *DELTA_E_METRICS])
+@pytest.mark.parametrize("shape", [(26, 39), (97, 131)])
+def test_slic_batched_kernels_bit_equal_to_single_runs(cuda, shape, metric, batch):
+    """One batched kernel route (3 launches an iteration for the whole
+    batch) against each image's single kernel route and its plain route:
+    labels, centers, distances, drift and iterations run all equal.  The
+    batches of 8 stop at different iterations (6 to 10 at 26x39, 9 and 10
+    at 97x131, on the CPU's plain route)."""
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    (h, w), s, iters, m = shape, 13, 10, 20.0
+    lab = torch.stack([slic_lab(SLIC_BATCH_KINDS[i % 4], (h, w), cuda, seed=i)
+                       for i in range(batch)])
+    torch.cuda.synchronize()
+    before = kslic.association_launches, kslic.snap_keys_launches, kslic.update_launches
+    got = slic.slic_device_batched(lab, h, w, s, iters, m, metric)
+    ran = slic.device_iterations.cpu().tolist()
+    after = kslic.association_launches, kslic.snap_keys_launches, kslic.update_launches
+    assert [b - a for a, b in zip(before, after)] == [iters] * 3
+    for i in range(batch):
+        single = slic.slic_device(lab[i], h, w, s, iters, m, metric)
+        assert int(slic.device_iterations) == ran[i]
+        slic.iterations = 0
+        plain = slic.slic_device(lab[i], h, w, s, iters, m, metric, impl="torch")
+        assert slic.iterations == ran[i]
+        for a, b, c in zip(got, single, plain):
+            assert torch.equal(a[i], b) and torch.equal(a[i], c)
+    assert batch < 8 or min(ran) < max(ran), ran
+
+
+def test_slic_batched_one_program_a_sub_batch(cuda):
+    """superpixel_slic_batched on a 1x1 mesh: one sub-batch, ``iters``
+    launches of each k-means kernel, one host read before connectivity."""
+    from various_image_processings_tpu_torch import parallel
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    imgs = torch.stack([smooth_u8((130, 130), i) for i in range(4)]).to(cuda)
+    mesh = parallel.make_mesh(batch=1, spatial=1, devices=[cuda])
+    torch.cuda.synchronize()
+    before = kslic.association_launches, kslic.snap_keys_launches, kslic.update_launches
+    slic.host_syncs = slic.iterations = 0
+    out = parallel.superpixel_slic_batched(imgs, 26, 10, 20.0, mesh=mesh)
+    syncs, its = slic.host_syncs, slic.iterations
+    after = kslic.association_launches, kslic.snap_keys_launches, kslic.update_launches
+    assert [b - a for a, b in zip(before, after)] == [10, 10, 10]
+    assert syncs == 1 and 4 <= its <= 40
+    slic.iterations = 0
+    for i in range(4):
+        assert torch.equal(out[i], vt.superpixel_slic(imgs[i], 26, 10, 20.0))
+    assert slic.iterations == its
 
 
 @pytest.mark.parametrize("displaced", [0, 1])
@@ -1060,13 +1120,10 @@ def each_kernel_against_its_plain_piece(cuda, displaced, metric):
     centers_t = grid.init_centers()
     labels_t = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=cuda)
     dists_t = torch.full(grid.pix.shape[1:], slic._BIG, dtype=torch.float32, device=cuda)
-    centers = centers_t.reshape(5, -1).T.contiguous()
-    labels = torch.full((h, w), -1, dtype=torch.int32, device=cuda)
-    dists = torch.full((h, w), slic._BIG, dtype=torch.float32, device=cuda)
-    sums = torch.zeros((grid.n, 6), dtype=torch.int64, device=cuda)
-    keys = torch.full((grid.n,), slic._BIG_KEY, dtype=torch.int64, device=cuda)
-    state = torch.zeros((5, 2), dtype=torch.int32, device=cuda)
-    state[1, 0] = 1
+    # the kernels take a batch: one image, the state's views of it below
+    batch = slic.kmeans_state(lab[None], h, w, s, 3)
+    assert torch.equal(batch[0][0], centers_t.reshape(5, -1).T)
+    centers, labels, dists, sums, keys, state = (t[0] for t in batch)
     drift = torch.zeros((), device=cuda)
     for it in range(3):
         state[1 + it, 0] = 1  # each kernel runs, whatever the last iteration changed
@@ -1074,7 +1131,7 @@ def each_kernel_against_its_plain_piece(cuda, displaced, metric):
             centers[0, :2] = -3.0 * s
             centers_t[:2, 0, 0] = -3.0 * s
         labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
-        kslic.associate(lab, centers, labels, dists, sums, state, it, s, grid.space_norm,
+        kslic.associate(lab[None], *batch[:4], batch[5], it, s, grid.space_norm,
                         grid.color_norm, metric)
         assert torch.equal(labels, grid.from_blocks(labels_t))
         assert torch.equal(dists, grid.from_blocks(dists_t))
@@ -1082,11 +1139,12 @@ def each_kernel_against_its_plain_piece(cuda, displaced, metric):
         assert int(state[1 + it, 1]) == int(changed_t)
         means_t = grid.center_means(centers_t, sums_t)
         keys_t = grid.snap_keys(means_t, labels_t)
-        kslic.snap_keys(lab, centers, labels, sums, keys, state, it, s, metric)
+        kslic.snap_keys(lab[None], batch[0], batch[1], batch[3], batch[4], batch[5], it, s,
+                        metric)
         assert torch.equal(keys, keys_t)
         centers_t = grid.move_centers(centers_t, keys_t)
         drift = torch.maximum(drift, grid.cell_drift(centers_t))
-        kslic.update(lab, centers, keys, sums, state, it, s)
+        kslic.update(lab[None], batch[0], batch[4], batch[3], batch[5], it, s)
         assert torch.equal(centers, centers_t.reshape(5, -1).T)
         assert int(state[0, 0]) == int(drift) and int(state[0, 1]) == it + 1
         assert int(state[2 + it, 0]) == int(changed_t)

@@ -202,14 +202,15 @@ def test_slic_batched_matches_per_image():
 
 
 def test_slic_batched_warns_once_past_two_cells(monkeypatch):
-    # every image's k-means reports a drift of 3 cells: one warning for the batch
-    real = tbatch.mslic.slic_device
+    # every sub-batch's k-means reports a drift of 3 cells an image: one
+    # warning for the batch
+    real = tbatch.mslic.slic_device_batched
 
     def drifting(*args):
         labels, centers, dists, drift = real(*args)
         return labels, centers, dists, torch.full_like(drift, 3.0)
 
-    monkeypatch.setattr(tbatch.mslic, "slic_device", drifting)
+    monkeypatch.setattr(tbatch.mslic, "slic_device_batched", drifting)
     imgs = batch_images(2, 24, 24)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

@@ -34,10 +34,16 @@
 // CIEDE2000 difference of arrays of pairs with the same device function, so
 // the function can be held to core/ciede2000.py on its own.
 //
+// A batch of images of one shape runs in the same launches, as the JAX
+// package vmaps its k-means: grid.y is the image, whose planes, centers,
+// sums, keys and state row are its own, at 64-bit offsets (the raster index
+// in a key stays the image's, in 32 bits).
+//
 // Early exit on the device: the host enqueues every iteration; each kernel
-// reads its iteration's active flag first and returns at once when it is
-// clear (the JAX loop's cond, (it < n) & (num_updated > 0)).  Nothing is
-// read by the host.
+// reads its image's active flag for the iteration first and returns at once
+// when it is clear (the JAX loop's cond, (it < n) & (num_updated > 0); in
+// a batch the vmapped loop's masking: an image that stopped stays as it
+// was while the others go on).  Nothing is read by the host.
 //
 // Exactness: the sums are integers, added with 64-bit atomics, so their
 // order does not matter.  Every float product and sum is rounded on its own
@@ -76,6 +82,7 @@ constexpr int kThreads = 256;
 constexpr int kWindow = 20;  // cells a side of a block's candidate window, at most
 constexpr int kSlots = kWindow * kWindow;
 constexpr int kLargeTile = 64;  // tile side past S = 64
+constexpr int kMaxBatch = 65535;  // images a launch: grid.y's extent
 constexpr unsigned kFull = 0xffffffffu;
 constexpr long long kNoKey = LLONG_MAX;  // torch.iinfo(int64).max
 // x ^ kSignBit orders signed 64-bit keys as unsigned ones (the shared atomics)
@@ -231,9 +238,19 @@ __global__ void __launch_bounds__(kThreads)
 slic_association_kernel(const uint8_t* __restrict__ lab, const float* __restrict__ centers,
                         int32_t* __restrict__ labels, float* __restrict__ dists,
                         unsigned long long* __restrict__ sums, int32_t* __restrict__ flags,
-                        int height, int width, int s, int per_col, int per_row, int side,
-                        int tiles_x, float space_norm, float color_norm) {
-  if (flags[0] == 0) return;  // the iteration is not active (the whole grid)
+                        int flag_stride, int height, int width, int s, int per_col, int per_row,
+                        int side, int tiles_x, float space_norm, float color_norm) {
+  // this block's image: its flags, planes, centers and sums
+  const int64_t image = blockIdx.y;
+  flags += image * flag_stride;
+  if (flags[0] == 0) return;  // the iteration is not active for this image
+  const int64_t pixels = static_cast<int64_t>(height) * width;
+  const int64_t n = static_cast<int64_t>(per_col) * per_row;
+  lab += image * pixels * 3;
+  labels += image * pixels;
+  dists += image * pixels;
+  centers += image * n * 5;
+  sums += image * n * 6;
   // x, y, l, a, b of each window slot's center, and its chroma for ΔE
   constexpr int kPlanes = M::kDeltaE ? 6 : 5;
   __shared__ float cen[kPlanes][kSlots];
@@ -358,9 +375,17 @@ __global__ void __launch_bounds__(kThreads)
 slic_snap_keys_kernel(const uint8_t* __restrict__ lab, const float* __restrict__ centers,
                       const int32_t* __restrict__ labels, const long long* __restrict__ sums,
                       long long* __restrict__ keys, const int32_t* __restrict__ flags,
-                      int height, int width, int s, int per_col, int per_row, int side,
-                      int tiles_x) {
-  if (flags[0] == 0) return;
+                      int flag_stride, int height, int width, int s, int per_col, int per_row,
+                      int side, int tiles_x) {
+  const int64_t image = blockIdx.y;
+  if (flags[image * flag_stride] == 0) return;
+  const int64_t pixels = static_cast<int64_t>(height) * width;
+  const int64_t n = static_cast<int64_t>(per_col) * per_row;
+  lab += image * pixels * 3;
+  labels += image * pixels;
+  centers += image * n * 5;
+  sums += image * n * 6;
+  keys += image * n;
   // l, a, b of each window slot's mean, and its chroma for ΔE
   constexpr int kPlanes = M::kDeltaE ? 4 : 3;
   __shared__ float mean[kPlanes][kSlots];
@@ -442,9 +467,17 @@ __global__ void __launch_bounds__(kThreads)
 slic_update_kernel(const uint8_t* __restrict__ lab, float* __restrict__ centers,
                    long long* __restrict__ keys, unsigned long long* __restrict__ sums,
                    int32_t* __restrict__ stats, const int32_t* __restrict__ flags,
-                   int32_t* __restrict__ next_flags, int n, int width, int s, int per_row,
-                   int iteration) {
+                   int32_t* __restrict__ next_flags, int flag_stride, int n, int height,
+                   int width, int s, int per_row, int iteration) {
+  const int64_t image = blockIdx.y;
+  flags += image * flag_stride;
   if (flags[0] == 0) return;
+  stats += image * flag_stride;
+  next_flags += image * flag_stride;
+  lab += image * static_cast<int64_t>(height) * width * 3;
+  centers += image * n * 5;
+  keys += image * n;
+  sums += image * n * 6;
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int drift = 0;
   if (c < n) {
@@ -470,8 +503,8 @@ slic_update_kernel(const uint8_t* __restrict__ lab, float* __restrict__ centers,
   }
   drift = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(drift)));
   if (threadIdx.x % 32 == 0 && drift > 0) atomicMax(&stats[0], drift);
-  if (c == 0) {
-    next_flags[0] = flags[1];  // the next iteration runs if a pixel changed
+  if (c == 0) {  // once an image
+    next_flags[0] = flags[1];  // the next iteration runs if a pixel of it changed
     stats[1] = iteration + 1;  // iterations run
   }
 }
@@ -499,29 +532,30 @@ int tiles(int height, int width, int s, int* tiles_x) {
 
 template <class M>
 int launch_association(const void* lab, const void* centers, void* labels, void* dists,
-                       void* sums, void* flags, int height, int width, int s, int per_col,
-                       int per_row, float space_norm, float color_norm, cudaStream_t stream) {
+                       void* sums, void* flags, int flag_stride, int batch, int height,
+                       int width, int s, int per_col, int per_row, float space_norm,
+                       float color_norm, cudaStream_t stream) {
   int tiles_x = 0;
-  const int blocks = tiles(height, width, s, &tiles_x);
-  slic_association_kernel<M><<<blocks, kThreads, 0, stream>>>(
+  const dim3 grid(tiles(height, width, s, &tiles_x), batch);
+  slic_association_kernel<M><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(lab), static_cast<const float*>(centers),
       static_cast<int32_t*>(labels), static_cast<float*>(dists),
-      static_cast<unsigned long long*>(sums), static_cast<int32_t*>(flags), height, width, s,
-      per_col, per_row, tile_side(s), tiles_x, space_norm, color_norm);
+      static_cast<unsigned long long*>(sums), static_cast<int32_t*>(flags), flag_stride, height,
+      width, s, per_col, per_row, tile_side(s), tiles_x, space_norm, color_norm);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class M>
 int launch_snap_keys(const void* lab, const void* centers, const void* labels, const void* sums,
-                     void* keys, const void* flags, int height, int width, int s, int per_col,
-                     int per_row, cudaStream_t stream) {
+                     void* keys, const void* flags, int flag_stride, int batch, int height,
+                     int width, int s, int per_col, int per_row, cudaStream_t stream) {
   int tiles_x = 0;
-  const int blocks = tiles(height, width, s, &tiles_x);
-  slic_snap_keys_kernel<M><<<blocks, kThreads, 0, stream>>>(
+  const dim3 grid(tiles(height, width, s, &tiles_x), batch);
+  slic_snap_keys_kernel<M><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(lab), static_cast<const float*>(centers),
       static_cast<const int32_t*>(labels), static_cast<const long long*>(sums),
-      static_cast<long long*>(keys), static_cast<const int32_t*>(flags), height, width, s,
-      per_col, per_row, tile_side(s), tiles_x);
+      static_cast<long long*>(keys), static_cast<const int32_t*>(flags), flag_stride, height,
+      width, s, per_col, per_row, tile_side(s), tiles_x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -541,68 +575,81 @@ int launch_delta_e(const void* l1, const void* a1, const void* b1, const void* l
 }  // namespace
 
 // metric: 0 euclidean, 1 ciede2000, 2 ciede2000_ref (ops/cuda/slic.py::METRICS);
-// any other value launches nothing and returns cudaErrorInvalidValue.
+// any other value, or a batch outside [1, 65535], launches nothing and
+// returns cudaErrorInvalidValue.
+//
+// Every k-means entry point takes a batch of images of one shape, one after
+// another in memory: lab (B, H, W, 3) u8; centers (B, N, 5) f32 x, y, l, a,
+// b with N = per_col * per_row; labels (B, H, W) int32; dists (B, H, W) f32;
+// sums (B, N, 6) int64; keys (B, N) int64; and the state, int32 (B, T, 2):
+// image b's row 0 (max drift in cells, iterations run) and its rows 1 + it
+// (active, changed), flag_stride = 2 T int32 values from one image's to the
+// next.  flags and stats point at image 0's.
 extern "C" {
 
-// lab: (H, W, 3) u8; centers: (N, 5) f32 x, y, l, a, b with N = per_col *
-// per_row; labels (H, W) int32 and dists (H, W) f32, updated in place;
-// sums: (N, 6) int64, added to; flags: the iteration's (active, changed)
-// int32 pair.  Returns the launch's cudaError_t (0 on success).
+// labels and dists are updated in place; sums are added to; flags: the
+// iteration's (active, changed) pair of image 0.  Returns the launch's
+// cudaError_t (0 on success).
 int vip_slic_association(const void* lab, const void* centers, void* labels, void* dists,
-                         void* sums, void* flags, int height, int width, int s, int per_col,
-                         int per_row, float space_norm, float color_norm, int metric,
-                         void* stream) {
+                         void* sums, void* flags, int flag_stride, int batch, int height,
+                         int width, int s, int per_col, int per_row, float space_norm,
+                         float color_norm, int metric, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || batch > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   switch (metric) {
     case 0:
-      return launch_association<Euclidean>(lab, centers, labels, dists, sums, flags, height,
-                                           width, s, per_col, per_row, space_norm, color_norm,
-                                           st);
+      return launch_association<Euclidean>(lab, centers, labels, dists, sums, flags, flag_stride,
+                                           batch, height, width, s, per_col, per_row,
+                                           space_norm, color_norm, st);
     case 1:
-      return launch_association<Ciede2000>(lab, centers, labels, dists, sums, flags, height,
-                                           width, s, per_col, per_row, space_norm, color_norm,
-                                           st);
+      return launch_association<Ciede2000>(lab, centers, labels, dists, sums, flags, flag_stride,
+                                           batch, height, width, s, per_col, per_row,
+                                           space_norm, color_norm, st);
     case 2:
-      return launch_association<Ciede2000Ref>(lab, centers, labels, dists, sums, flags, height,
-                                              width, s, per_col, per_row, space_norm,
-                                              color_norm, st);
+      return launch_association<Ciede2000Ref>(lab, centers, labels, dists, sums, flags,
+                                              flag_stride, batch, height, width, s, per_col,
+                                              per_row, space_norm, color_norm, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// keys: (N,) int64, all int64 max before the first iteration; each center's
-// least packed key is taken in with atomicMin.
+// keys: all int64 max before the first iteration; each center's least
+// packed key is taken in with atomicMin.
 int vip_slic_snap_keys(const void* lab, const void* centers, const void* labels,
-                       const void* sums, void* keys, const void* flags, int height, int width,
-                       int s, int per_col, int per_row, int metric, void* stream) {
+                       const void* sums, void* keys, const void* flags, int flag_stride,
+                       int batch, int height, int width, int s, int per_col, int per_row,
+                       int metric, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || batch > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   switch (metric) {
     case 0:
-      return launch_snap_keys<Euclidean>(lab, centers, labels, sums, keys, flags, height, width,
-                                         s, per_col, per_row, st);
+      return launch_snap_keys<Euclidean>(lab, centers, labels, sums, keys, flags, flag_stride,
+                                         batch, height, width, s, per_col, per_row, st);
     case 1:
-      return launch_snap_keys<Ciede2000>(lab, centers, labels, sums, keys, flags, height, width,
-                                         s, per_col, per_row, st);
+      return launch_snap_keys<Ciede2000>(lab, centers, labels, sums, keys, flags, flag_stride,
+                                         batch, height, width, s, per_col, per_row, st);
     case 2:
-      return launch_snap_keys<Ciede2000Ref>(lab, centers, labels, sums, keys, flags, height,
-                                            width, s, per_col, per_row, st);
+      return launch_snap_keys<Ciede2000Ref>(lab, centers, labels, sums, keys, flags,
+                                            flag_stride, batch, height, width, s, per_col,
+                                            per_row, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// stats: int32 (max drift in cells, iterations run); next_flags: the next
-// iteration's (active, changed) pair, whose active is set here.
+// stats: image 0's row 0; next_flags: image 0's pair of the next iteration,
+// whose active is set here for each image.
 int vip_slic_update(const void* lab, void* centers, void* keys, void* sums, void* stats,
-                    const void* flags, void* next_flags, int n, int width, int s, int per_row,
-                    int iteration, void* stream) {
-  slic_update_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+                    const void* flags, void* next_flags, int flag_stride, int batch, int n,
+                    int height, int width, int s, int per_row, int iteration, void* stream) {
+  if (batch < 1 || batch > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kThreads - 1) / kThreads, batch);
+  slic_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(lab), static_cast<float*>(centers),
       static_cast<long long*>(keys), static_cast<unsigned long long*>(sums),
       static_cast<int32_t*>(stats), static_cast<const int32_t*>(flags),
-      static_cast<int32_t*>(next_flags), n, width, s, per_row, iteration);
+      static_cast<int32_t*>(next_flags), flag_stride, n, height, width, s, per_row, iteration);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,7 +34,10 @@ Two routes compute the same bits on the card (``slic_device``'s
 ``impl``).  The kernels (``ops/cuda/slic.py``, ``csrc/slic_kmeans.cu``:
 association with in-scan sums, means and snap keys, center update; three
 launches an iteration) take a CUDA tensor with any of the three metrics,
-each an instantiation of the kernels.  The plain version, ``_Grid``, takes
+each an instantiation of the kernels, and a batch of images of one shape in
+the same launches (``slic_device_batched``, the counterpart of the JAX
+package's ``jax.vmap`` of its k-means: each image stops where its own run
+would; ``slic_device`` is a batch of one).  The plain version, ``_Grid``, takes
 a CPU tensor, and a CUDA one when the caller asks: the image lives in a
 blocked layout, (per_col, S, per_row, S) after padding to whole
 cells, so a center's values broadcast over its cell and per-cell sums are
@@ -64,9 +67,10 @@ _OFFSETS_5X5 = [(dy, dx) for dy in (-2, -1, 0, 1, 2) for dx in (-2, -1, 0, 1, 2)
 
 host_syncs = 0  # device-to-host reads made by SLIC since the last reset
 iterations = 0  # k-means iterations run since the last reset
-# the iterations the last kernel-path call ran, a 0-d int32 tensor on its
-# device (None after a plain call): the card decides the early exit, so the
-# host learns the count only from ``_download``, which adds it to ``iterations``
+# the iterations the last kernel-path call ran, an int32 tensor on its device
+# (0-d after ``slic_device``, (B,) after ``slic_device_batched``; None after a
+# plain call): the card decides the early exit, so the host learns the count
+# only from ``_download``, which adds it to ``iterations``
 device_iterations: torch.Tensor | None = None
 
 
@@ -108,7 +112,8 @@ def _init_centers(lab_f: torch.Tensor, height: int, width: int, sp_size: int,
     """Grid seeds, each with the color of the least 4-neighbour Laplacian
     pixel of its 3×3 window, centre first (reference :165-223: only the
     color is re-sampled; the position stays at the cell center).
-    Returns (cx (N,), cy (N,), colors (N, 3)), f32."""
+    ``lab_f``: (..., H, W, 3) f32, an image or a batch of them.
+    Returns (cx (N,), cy (N,), colors (..., N, 3)), f32."""
     dev = lab_f.device
     gy = torch.arange(per_col, device=dev)
     gx = torch.arange(per_row, device=dev)
@@ -119,21 +124,23 @@ def _init_centers(lab_f: torch.Tensor, height: int, width: int, sp_size: int,
 
     # Laplacian of the Lab image with reflect-101 borders (cv::Laplacian
     # ksize=1), summed over channels; integer-valued, so exact in any order
+    lead = lab_f.shape[:-3]
     ry = torch.from_numpy(reflect101_indices(height, 1, 1)).to(dev)
     rx = torch.from_numpy(reflect101_indices(width, 1, 1)).to(dev)
-    grad = torch.zeros((height, width), dtype=torch.float32, device=dev)
+    grad = torch.zeros((*lead, height, width), dtype=torch.float32, device=dev)
     for ch in range(3):
-        c = lab_f[:, :, ch]
-        p = c[ry][:, rx]
-        grad = grad + (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:] - 4.0 * c)
+        c = lab_f[..., ch]
+        p = c[..., ry, :][..., rx]
+        grad = grad + (p[..., :-2, 1:-1] + p[..., 2:, 1:-1] + p[..., 1:-1, :-2]
+                       + p[..., 1:-1, 2:] - 4.0 * c)
 
     offsets = [(0, 0)] + [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
     idxs = torch.stack([torch.clamp(cyy + dy, 0, height - 1) * width
                         + torch.clamp(cxx + dx, 0, width - 1) for dy, dx in offsets])
-    vals = grad.reshape(-1)[idxs]                 # (10, N)
-    best = torch.argmin(vals, dim=0)              # documented: the first minimum
-    pick = torch.gather(idxs, 0, best[None])[0]
-    colors = lab_f.reshape(-1, 3)[pick]
+    vals = grad.reshape(*lead, -1)[..., idxs]     # (..., 10, N)
+    best = torch.argmin(vals, dim=-2)             # documented: the first minimum
+    pick = torch.gather(idxs.expand(vals.shape), -2, best.unsqueeze(-2)).squeeze(-2)
+    colors = torch.take_along_dim(lab_f.reshape(*lead, -1, 3), pick[..., None], dim=-2)
     return cxx.to(torch.float32), cyy.to(torch.float32), colors
 
 
@@ -299,13 +306,39 @@ def slic_device(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
     the kernels for a CUDA tensor and the plain version for a CPU one, for
     every metric.  The grid seeds (``_init_centers``) are plain torch on
     both routes.  The kernel route reads nothing back to the host; the
-    iterations it ran wait in ``device_iterations`` for ``_download``."""
+    iterations it ran wait in ``device_iterations`` for ``_download``.
+    A batch of one of ``slic_device_batched``."""
+    global device_iterations
+    out = slic_device_batched(lab_u8[None], height, width, sp_size, num_iteration,
+                              color_scale, metric, impl)
+    if device_iterations is not None:
+        device_iterations = device_iterations[0]
+    return tuple(t[0] for t in out)
+
+
+def slic_device_batched(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
+                        num_iteration: int, color_scale: float, metric: str = "euclidean",
+                        impl: str = "auto"):
+    """``slic_device`` of each image of a (B, H, W, 3) u8 Lab batch →
+    (labels (B, H, W) int32, centers (B, N, 5) f32, distances (B, H, W) f32,
+    max_drift_cells (B,) f32), each image's equal to its own call.
+
+    The counterpart of the JAX package's ``jax.vmap`` of its k-means: on
+    the kernels (a CUDA tensor) the batch runs in the same launches, three
+    an iteration, each image's early exit its own, and nothing is read
+    back; the iterations each image ran wait in ``device_iterations``, (B,),
+    for ``_download``.  The plain version (a CPU tensor, or ``impl="torch"``)
+    runs image by image: the reference the kernels are held to."""
     global device_iterations
     check_impl(impl)
     device_iterations = None
+    if lab_u8.ndim != 4:
+        raise ValueError(f"lab must be a (B, H, W, 3) batch, got shape {tuple(lab_u8.shape)}")
     if resolve_impl(impl, lab_u8) == "cuda":
         return _kmeans_cuda(lab_u8, height, width, sp_size, num_iteration, color_scale, metric)
-    return _kmeans_plain(lab_u8, height, width, sp_size, num_iteration, color_scale, metric)
+    runs = [_kmeans_plain(lab, height, width, sp_size, num_iteration, color_scale, metric)
+            for lab in lab_u8]
+    return tuple(torch.stack(parts) for parts in zip(*runs))
 
 
 def _kmeans_plain(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
@@ -332,8 +365,9 @@ def _kmeans_plain(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
 
 def _kmeans_cuda(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
                  num_iteration: int, color_scale: float, metric: str):
-    """The kernel route: every iteration enqueued, three launches each, the
-    early exit decided on the card (``ops/cuda/slic.py``)."""
+    """The kernel route on a (B, H, W, 3) batch: every iteration enqueued,
+    three launches each for the whole batch, each image's early exit decided
+    on the card (``ops/cuda/slic.py``)."""
     global device_iterations
     from ..ops.cuda import slic as kslic
 
@@ -346,30 +380,32 @@ def _kmeans_cuda(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
                         color_norm, metric)
         kslic.snap_keys(lab, centers, labels, sums, keys, state, it, sp_size, metric)
         kslic.update(lab, centers, keys, sums, state, it, sp_size)
-    device_iterations = state[0, 1]
-    return labels, centers, dists, state[0, 0].to(torch.float32)
+    device_iterations = state[:, 0, 1]
+    return labels, centers, dists, state[:, 0, 0].to(torch.float32)
 
 
 def kmeans_state(lab: torch.Tensor, height: int, width: int, sp_size: int,
                  num_iteration: int):
-    """The kernel route's state before its first iteration, on ``lab``'s
-    device: (centers (N, 5) f32 from the plain ``_init_centers``, labels
-    (H, W) int32 all -1, dists (H, W) f32 all f32 max, sums (N, 6) int64
-    zeros, keys (N,) int64 all int64 max, state (num_iteration + 2, 2)
-    int32: row 0 (max drift in cells, iterations run), row 1 + it iteration
-    it's (active, changed), the first iteration active)."""
+    """The kernel route's state before its first iteration for a (B, H, W,
+    3) batch, on ``lab``'s device, one set of torch ops for the batch:
+    (centers (B, N, 5) f32 from the plain ``_init_centers``, labels (B, H,
+    W) int32 all -1, dists (B, H, W) f32 all f32 max, sums (B, N, 6) int64
+    zeros, keys (B, N) int64 all int64 max, state (B, num_iteration + 2, 2)
+    int32: image b's row 0 (max drift in cells, iterations run), its row
+    1 + it iteration it's (active, changed), the first iteration active)."""
     dev = lab.device
+    b = lab.shape[0]
     per_col, per_row = cdiv(height, sp_size), cdiv(width, sp_size)
     n = per_col * per_row
     cx, cy, colors = _init_centers(lab.to(torch.float32), height, width, sp_size, per_col,
                                    per_row)
-    centers = torch.cat([cx[:, None], cy[:, None], colors], 1)
-    labels = torch.full((height, width), -1, dtype=torch.int32, device=dev)
-    dists = torch.full((height, width), _BIG, dtype=torch.float32, device=dev)
-    sums = torch.zeros((n, 6), dtype=torch.int64, device=dev)
-    keys = torch.full((n,), _BIG_KEY, dtype=torch.int64, device=dev)
-    state = torch.zeros((num_iteration + 2, 2), dtype=torch.int32, device=dev)
-    state[1, 0] = 1
+    centers = torch.cat([torch.stack([cx, cy], 1).expand(b, n, 2), colors], 2)
+    labels = torch.full((b, height, width), -1, dtype=torch.int32, device=dev)
+    dists = torch.full((b, height, width), _BIG, dtype=torch.float32, device=dev)
+    sums = torch.zeros((b, n, 6), dtype=torch.int64, device=dev)
+    keys = torch.full((b, n), _BIG_KEY, dtype=torch.int64, device=dev)
+    state = torch.zeros((b, num_iteration + 2, 2), dtype=torch.int32, device=dev)
+    state[:, 1, 0] = 1
     return centers, labels, dists, sums, keys, state
 
 
@@ -506,22 +542,25 @@ def enforce_connectivity(labels: np.ndarray, lab: np.ndarray, sp_size: int,
 
 
 def _download(labels: torch.Tensor, lab: torch.Tensor, drift: torch.Tensor):
-    """Raw labels, Lab image and drift to the host in ONE device→host copy.
-    After a kernel-route call the copy carries the iterations it ran too,
-    which are added to ``iterations``."""
+    """Raw labels, Lab image and drift to the host in ONE device→host copy,
+    for one image (drift 0-d → a float) or a batch (labels (B, H, W), Lab
+    (B, H, W, 3), drift (B,) → a (B,) array).  After a kernel-route call the
+    copy carries the iterations each image ran too, whose sum is added to
+    ``iterations``: what one call an image would add."""
     global device_iterations, iterations
     parts = [labels.reshape(-1).view(torch.uint8), lab.reshape(-1),
-             drift.reshape(1).view(torch.uint8)]
+             drift.reshape(-1).view(torch.uint8)]
     ran, device_iterations = device_iterations, None
-    if ran is not None:
-        parts.append(ran.reshape(1).view(torch.uint8))
+    if ran is not None:  # a column of the state: strided for a batch
+        parts.append(ran.reshape(-1).contiguous().view(torch.uint8))
     host = _host(torch.cat(parts))
-    n = labels.numel()
+    n, end = labels.numel(), 7 * labels.numel() + 4 * drift.numel()
     if ran is not None:
-        iterations += int(host[7 * n + 4:].view(np.int32)[0])
+        iterations += int(host[end:].view(np.int32).sum())
+    drifts = host[7 * n:end].view(np.float32)
     return (host[:4 * n].view(np.int32).reshape(labels.shape),
             host[4 * n:7 * n].reshape(lab.shape),
-            float(host[7 * n:7 * n + 4].view(np.float32)[0]))
+            float(drifts[0]) if drift.ndim == 0 else drifts.reshape(drift.shape))
 
 
 def check_params(superpixel_size: int, metric: str) -> None:

@@ -4,16 +4,20 @@ iteration is ``associate``, ``snap_keys`` and ``update``, in that order.
 picks the kernels' instantiation; ``delta_e`` runs the kernels' CIEDE2000
 function on arrays of pairs, so it can be held to core/ciede2000.py alone.
 
-They take the k-means state as CUDA tensors in the layouts the kernels
-read and update it in place on PyTorch's current stream; nothing is read
-back to the host.  ``state`` is an int32 (num_iteration + 2, 2) tensor: row 0
-holds (max drift in cells, iterations run), row 1 + it iteration it's
-(active, changed) flags, so a kernel of an iteration that is not active
-returns at once (the early exit on the device).  Anything the kernels do not
-take raises; a launch the runtime refuses raises.  ``association_launches``,
-``snap_keys_launches`` and ``update_launches`` count successful launches, so
-a run can show its main path went through the kernels; ``metric_launches``
-counts the association and snap-key launches by (kernel, metric), and
+They take the k-means state of a batch of B images of one shape (B = 1
+for a single image) as CUDA tensors in the layouts the kernels read, and
+update it in place on PyTorch's current stream; nothing is read back to the
+host.  ``lab`` is (B, H, W, 3) u8 and every other tensor has the batch as
+its first dimension.  ``state`` is an int32 (B, num_iteration + 2, 2)
+tensor: image b's row 0 holds its (max drift in cells, iterations run), its
+row 1 + it iteration it's (active, changed) flags, so a kernel of an
+iteration that is not active for an image returns at once for it (the
+early exit on the device, image by image, as the JAX package's vmapped loop
+masks it).  Anything the kernels do not take raises; a launch the runtime
+refuses raises.  ``association_launches``, ``snap_keys_launches`` and
+``update_launches`` count successful launches (one a batch), so a run can
+show its main path went through the kernels; ``metric_launches`` counts the
+association and snap-key launches by (kernel, metric), and
 ``delta_e_launches`` the pair kernel's.
 """
 
@@ -36,52 +40,64 @@ metric_launches: Counter = Counter()  # (kernel, metric) -> launches
 # the metric ids of the C entry points, one kernel instantiation each
 METRICS = {"euclidean": 0, "ciede2000": 1, "ciede2000_ref": 2}
 
-# the kernels sum 32 pixels' x in 32 bits and pack a raster index in 32
+# the kernels sum 32 pixels' x in 32 bits and pack an image's raster index
+# in 32; a launch takes at most MAX_BATCH images (the grid's y extent)
 MAX_WIDTH = 1 << 27
 MAX_PIXELS = (1 << 31) - 1
+MAX_BATCH = 65535
+
+
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each C entry point's parameters, in csrc/slic_kmeans.cu's order
+ARGTYPES = {
+    "vip_slic_association": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,    # lab, centers, labels, dists, sums, flags
+        _I32, _I32,                            # flag_stride, batch
+        _I32, _I32, _I32, _I32, _I32,          # height, width, S, per_col, per_row
+        _F32, _F32, _I32,                      # space_norm, color_norm, metric
+        _PTR,                                  # stream
+    ],
+    "vip_slic_snap_keys": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,    # lab, centers, labels, sums, keys, flags
+        _I32, _I32,                            # flag_stride, batch
+        _I32, _I32, _I32, _I32, _I32,          # height, width, S, per_col, per_row
+        _I32, _PTR,                            # metric, stream
+    ],
+    "vip_slic_update": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # lab, centers, keys, sums, stats, flags, next
+        _I32, _I32, _I32,                      # flag_stride, batch, n
+        _I32, _I32, _I32, _I32, _I32, _PTR,    # height, width, S, per_row, iteration, stream
+    ],
+    "vip_slic_delta_e": [
+        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # l1, a1, b1, l2, a2, b2, out
+        ctypes.c_longlong, _I32, _PTR,         # n, metric, stream
+    ],
+}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vip_slic_association.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,          # lab, centers, labels, dists, sums, flags
-        i32, i32, i32, i32, i32,               # height, width, S, per_col, per_row
-        ctypes.c_float, ctypes.c_float, i32,   # space_norm, color_norm, metric
-        ptr,                                   # stream
-    ]
-    lib.vip_slic_snap_keys.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,          # lab, centers, labels, sums, keys, flags
-        i32, i32, i32, i32, i32,               # height, width, S, per_col, per_row
-        i32, ptr,                              # metric, stream
-    ]
-    lib.vip_slic_update.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # lab, centers, keys, sums, stats, flags, next
-        i32, i32, i32, i32, i32, ptr,          # n, width, S, per_row, iteration, stream
-    ]
-    lib.vip_slic_delta_e.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # l1, a1, b1, l2, a2, b2, out
-        ctypes.c_longlong, i32, ptr,           # n, metric, stream
-    ]
-    for name in ("vip_slic_association", "vip_slic_snap_keys", "vip_slic_update",
-                 "vip_slic_delta_e"):
+    for name, argtypes in ARGTYPES.items():
+        getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _grid(lab: torch.Tensor, sp_size: int) -> tuple[int, int, int, int]:
-    """(height, width, per_col, per_row) of a k-means on ``lab``."""
-    check_tensor("lab", lab, (torch.uint8,), (3,))
-    height, width, channels = lab.shape
+def _grid(lab: torch.Tensor, sp_size: int) -> tuple[int, int, int, int, int]:
+    """(batch, height, width, per_col, per_row) of a k-means on ``lab``."""
+    check_tensor("lab", lab, (torch.uint8,), (4,))
+    batch, height, width, channels = lab.shape
     if channels != 3:
-        raise ValueError(f"lab must be an (H, W, 3) image, got shape {tuple(lab.shape)}")
+        raise ValueError(f"lab must be a (B, H, W, 3) batch, got shape {tuple(lab.shape)}")
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"SLIC kernels take 1 to {MAX_BATCH} images a launch, got {batch}")
     if sp_size < 2:
         raise ValueError("superpixel_size must be >= 2")
     if width >= MAX_WIDTH or height * width > MAX_PIXELS:
-        raise ValueError(f"SLIC kernels take width < {MAX_WIDTH} and fewer than 2^31 pixels, "
-                         f"got {height}x{width}")
-    return height, width, -(-height // sp_size), -(-width // sp_size)
+        raise ValueError(f"SLIC kernels take width < {MAX_WIDTH} and fewer than 2^31 pixels "
+                         f"an image, got {height}x{width}")
+    return batch, height, width, -(-height // sp_size), -(-width // sp_size)
 
 
 def _metric_id(metric: str) -> int:
@@ -90,41 +106,44 @@ def _metric_id(metric: str) -> int:
     return METRICS[metric]
 
 
-def _check_state(lab, centers, state, n: int) -> None:
+def _check_state(lab, centers, state, batch: int, n: int) -> None:
     dev = lab.device
-    check_table("centers", centers, torch.float32, (n, 5), dev)
-    if state.ndim != 2 or state.shape[0] < 3:
-        raise ValueError(f"state must be an (iterations + 2, 2) table, got {tuple(state.shape)}")
-    check_table("state", state, torch.int32, (state.shape[0], 2), dev)
+    check_table("centers", centers, torch.float32, (batch, n, 5), dev)
+    if state.ndim != 3 or state.shape[1] < 3:
+        raise ValueError(f"state must be a (B, iterations + 2, 2) table, got "
+                         f"{tuple(state.shape)}")
+    check_table("state", state, torch.int32, (batch, state.shape[1], 2), dev)
 
 
-def _flags(state: torch.Tensor, iteration: int) -> int:
-    """Address of iteration ``iteration``'s (active, changed) pair."""
-    if not 0 <= iteration < state.shape[0] - 2:
-        raise ValueError(f"iteration {iteration} outside the state's {state.shape[0] - 2}")
-    return state.data_ptr() + (1 + iteration) * 8
+def _flags(state: torch.Tensor, iteration: int) -> tuple[int, int]:
+    """(address of image 0's (active, changed) pair of iteration
+    ``iteration``, int32 values from one image's state to the next)."""
+    if not 0 <= iteration < state.shape[1] - 2:
+        raise ValueError(f"iteration {iteration} outside the state's {state.shape[1] - 2}")
+    return state.data_ptr() + (1 + iteration) * 8, state.shape[1] * 2
 
 
 def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
               dists: torch.Tensor, sums: torch.Tensor, state: torch.Tensor, iteration: int,
               sp_size: int, space_norm: float, color_norm: float,
               metric: str = "euclidean") -> None:
-    """Association with in-scan sums: updates ``labels`` (H, W) int32 and
-    ``dists`` (H, W) f32, adds to ``sums`` (N, 6) int64 of x, y, l, a, b and
-    count, and sets the iteration's changed flag if a distance fell."""
+    """Association with in-scan sums: updates ``labels`` (B, H, W) int32 and
+    ``dists`` (B, H, W) f32, adds to ``sums`` (B, N, 6) int64 of x, y, l, a,
+    b and count, and sets an image's changed flag of the iteration if one of
+    its distances fell."""
     global association_launches
     metric_id = _metric_id(metric)
-    height, width, per_col, per_row = _grid(lab, sp_size)
+    batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
-    _check_state(lab, centers, state, n)
-    check_table("labels", labels, torch.int32, (height, width), lab.device)
-    check_table("dists", dists, torch.float32, (height, width), lab.device)
-    check_table("sums", sums, torch.int64, (n, 6), lab.device)
+    _check_state(lab, centers, state, batch, n)
+    check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
+    check_table("dists", dists, torch.float32, (batch, height, width), lab.device)
+    check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
     with torch.cuda.device(lab.device):
         err = _lib().vip_slic_association(
             lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), dists.data_ptr(),
-            sums.data_ptr(), _flags(state, iteration), height, width, sp_size, per_col,
-            per_row, space_norm, color_norm, metric_id, stream_of(lab))
+            sums.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size,
+            per_col, per_row, space_norm, color_norm, metric_id, stream_of(lab))
     check_launch(err, "SLIC association")
     association_launches += 1
     metric_launches["association", metric] += 1
@@ -133,21 +152,22 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
 def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
               sums: torch.Tensor, keys: torch.Tensor, state: torch.Tensor, iteration: int,
               sp_size: int, metric: str = "euclidean") -> None:
-    """Means and snap keys: takes into ``keys`` (N,) int64 each center's
-    least floor(distance to its mean) * 2^32 + raster index over its pixels."""
+    """Means and snap keys: takes into ``keys`` (B, N) int64 each center's
+    least floor(distance to its mean) * 2^32 + raster index (in its image)
+    over its pixels."""
     global snap_keys_launches
     metric_id = _metric_id(metric)
-    height, width, per_col, per_row = _grid(lab, sp_size)
+    batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
-    _check_state(lab, centers, state, n)
-    check_table("labels", labels, torch.int32, (height, width), lab.device)
-    check_table("sums", sums, torch.int64, (n, 6), lab.device)
-    check_table("keys", keys, torch.int64, (n,), lab.device)
+    _check_state(lab, centers, state, batch, n)
+    check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
+    check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
+    check_table("keys", keys, torch.int64, (batch, n), lab.device)
     with torch.cuda.device(lab.device):
         err = _lib().vip_slic_snap_keys(
             lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), sums.data_ptr(),
-            keys.data_ptr(), _flags(state, iteration), height, width, sp_size, per_col,
-            per_row, metric_id, stream_of(lab))
+            keys.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size,
+            per_col, per_row, metric_id, stream_of(lab))
     check_launch(err, "SLIC snap keys")
     snap_keys_launches += 1
     metric_launches["snap_keys", metric] += 1
@@ -155,21 +175,22 @@ def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
 
 def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: torch.Tensor,
            state: torch.Tensor, iteration: int, sp_size: int) -> None:
-    """Center update: snaps ``centers`` (N, 5) f32, takes the drift's max
-    and the iteration count into state row 0, sets the next iteration's
-    active flag to this one's changed flag, and clears ``sums`` and ``keys``."""
+    """Center update: snaps ``centers`` (B, N, 5) f32, takes each image's
+    drift max and iteration count into its state row 0, sets its next
+    iteration's active flag to this one's changed flag, and clears ``sums``
+    and ``keys``."""
     global update_launches
-    _, width, per_col, per_row = _grid(lab, sp_size)
+    batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
-    _check_state(lab, centers, state, n)
-    check_table("sums", sums, torch.int64, (n, 6), lab.device)
-    check_table("keys", keys, torch.int64, (n,), lab.device)
-    flags = _flags(state, iteration)
+    _check_state(lab, centers, state, batch, n)
+    check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
+    check_table("keys", keys, torch.int64, (batch, n), lab.device)
+    flags, stride = _flags(state, iteration)
     with torch.cuda.device(lab.device):
         err = _lib().vip_slic_update(
             lab.data_ptr(), centers.data_ptr(), keys.data_ptr(), sums.data_ptr(),
-            state.data_ptr(), flags, flags + 8, n, width, sp_size, per_row, iteration,
-            stream_of(lab))
+            state.data_ptr(), flags, flags + 8, stride, batch, n, height, width, sp_size,
+            per_row, iteration, stream_of(lab))
     check_launch(err, "SLIC update")
     update_launches += 1
 

@@ -8,6 +8,8 @@ tensor on the mesh's first device.  Batch row i of the mesh takes images
 program computes the same images again on each spatial peer, which changes
 no result.  With a 1×1 mesh and inputs already on its device, nothing
 crosses a device: the only copy is the gather into the preallocated output.
+SLIC runs each batch row's images as one sub-batch, as the JAX function
+vmaps its k-means (``superpixel_slic_batched``).
 
 Not carried over, because eager PyTorch compiles nothing: the JAX module's
 ``lru_cache`` runner caches, and its fresh-closure churn detector
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 
 from ..core.colors import bgr2lab_u8_exact
@@ -134,41 +137,41 @@ def superpixel_slic_batched(images, superpixel_size: int = 30,
     """(B, H, W, 3) u8 BGR → (B, H, W) int32 labels on the mesh's first
     device, each equal to ``superpixel_slic`` of its image.
 
-    The k-means runs image by image on its batch row's device (on a GPU,
-    on the kernels for every metric: ``slic_device``'s ``"auto"``, with no
-    host read until the image's download); one
-    RuntimeWarning fires when the batch's largest center drift passes 2
-    cells (as the JAX function does, once for the batch); the connectivity
-    pass runs per image on the host."""
+    As the JAX function runs one vmapped k-means a shard, each batch row of
+    the mesh takes its images as one sub-batch on its device: Lab, then
+    ``slic_device_batched`` (on a GPU the k-means kernels, every metric,
+    with the sub-batch in the same launches: ``num_iteration`` of each
+    kernel in all, each image stopping where its own run would), then one
+    device→host copy.  One RuntimeWarning fires when the batch's largest
+    center drift passes 2 cells (as the JAX function does, once for the
+    batch); the connectivity pass runs per image on the host, and the
+    stacked labels reach the mesh's first device in one copy."""
     mesh = _mesh(mesh)
     mslic.check_params(superpixel_size, metric)
     images = _validate.as_tensor(images, mesh.first_device)
     b, h, w = images.shape[:3]
     per = _check_batch(b, mesh)
+    _validate.check_u8_color("image", images[0])
     raw, lab, drift = [], [], []
-    for j in range(b):
-        img = to_device(images[j], mesh.devices[j // per, 0])
-        _validate.check_u8_color("image", img)
-        lab_j = bgr2lab_u8_exact(img.contiguous())
-        labels, _, _, drift_j = mslic.slic_device(lab_j, h, w, int(superpixel_size),
-                                                  int(num_iteration), float(color_scale),
-                                                  metric)
-        raw_host, lab_host, drift_host = mslic._download(labels, lab_j, drift_j)
-        raw.append(raw_host)
-        lab.append(lab_host)
-        drift.append(drift_host)
-    max_drift = max(drift)
+    for row in range(b // per):
+        sub = to_device(images[row * per:(row + 1) * per], mesh.devices[row, 0])
+        lab_row = bgr2lab_u8_exact(sub.contiguous())
+        labels, _, _, drift_row = mslic.slic_device_batched(
+            lab_row, h, w, int(superpixel_size), int(num_iteration), float(color_scale), metric)
+        raw_host, lab_host, drift_host = mslic._download(labels, lab_row, drift_row)
+        raw.extend(raw_host)
+        lab.extend(lab_host)
+        drift.extend(drift_host)
+    max_drift = float(max(drift))
     if max_drift > 2.0:
         warnings.warn(
             f"SLIC center drift reached {max_drift:.0f} cells (> 2) in the "
             "batch: the 5x5 cell gather no longer covers every reference "
             "+/-S scan window (models/slic.py bounded-drift assumption)",
             RuntimeWarning, stacklevel=2)
-    out = torch.empty((b, h, w), dtype=torch.int32, device=mesh.first_device)
-    for j in range(b):
-        final = mslic.enforce_connectivity(raw[j], lab[j], int(superpixel_size), metric)
-        copy_into(out[j], torch.from_numpy(final))
-    return out
+    final = np.stack([mslic.enforce_connectivity(r, lab_j, int(superpixel_size), metric)
+                      for r, lab_j in zip(raw, lab)])
+    return torch.from_numpy(final).to(mesh.first_device)
 
 
 def inpainting_wexler_batched(images, masks, **kwargs):
