@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels from ``various_image_processings_tpu_torch/csrc``
 with nvcc (one process per source, in parallel) and prints what ptxas says of
-each kernel.  Then, for each path the port has:
+each kernel; the SLIC association (each metric's instantiation) and the
+diffusion start must spill nothing.  Then, for each path the port has:
 
 - the bilateral filter (4K k=9): holds the kernel against its plain PyTorch
   version over a parity grid, drives the path through the op, the
@@ -30,12 +31,16 @@ each kernel.  Then, for each path the port has:
   (csrc/wexler_fill.cu: ring pick, target filters, commit, diffusion start;
   the JAX package's loop is XLA while_loops, no Pallas kernel) against their
   plain pieces, every buffer bit-equal after every piece over a grid of
-  boxes, caps and masks (phase 14b); drives the path through the op, the
+  boxes, caps and masks (phase 14b; the diffusion start, a thread-block
+  cluster of min(bh, 16) row strips a channel, on boxes from 1x1 to
+  128x128); drives the path through the op, the
   ``WexlerInpainting`` module and the CLI with every counter reset just
   before and read just after, requires 4 launches an iteration, no plain
   piece, at most WEXLER_MAX_SYNCS host syncs a call and the output equal to
   the plain path on the card; times the search and fill kernels, their
-  plain versions and bounds (phase 16b), and the whole inpaint's wall time
+  plain versions and bounds (phase 16b; the diffusion start alone and with
+  the wrapper's clone of the image, beside the parent's time, with its
+  cluster), and the whole inpaint's wall time
   and device-busy share, and shows from two profiled energy passes that an
   iteration launches no torch op (phase 17; a ``{"wexler": ...}`` line
   holds these numbers).
@@ -93,10 +98,11 @@ the plain route on the card over a grid of shapes (512x512, 4K, 97x131,
 distances, centers, drift and iterations all equal; each kernel (each
 metric's instantiation) against its plain piece on the same state; each
 kernel's device time an iteration, its bound and its plain piece's time at
-512x512 (every metric) and 4K (euclidean), and the whole k-means both
-ways; then (28b) 8 smooth 512x512 images, the batched k-means bit-equal to
-each image's single one and each kernel's time an iteration per image at a
-batch of 1, 4 and 8 against the batch's bound.
+512x512 (every metric) and 4K (euclidean), the association's beside the
+parent's with its launch shape (32x8-pixel blocks, blocks an SM), and the
+whole k-means both ways; then (28b) 8 smooth 512x512 images, the batched
+k-means bit-equal to each image's single one and each kernel's time an
+iteration per image at a batch of 1, 4 and 8 against the batch's bound.
 
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
@@ -207,6 +213,17 @@ PARENT_MS = {
     ("BTF", "4K"): "1668.7-1681.2 MP/s",
     ("ABF", "4K"): "0.5239-0.5279",
     ("ABF", "512x512"): "0.0225",
+    # the SLIC association before its own 32x8 tiles (ms an iteration, an
+    # image) and the diffusion start before its clusters (128x128, dither,
+    # the image's clone included)
+    ("association", "512x512"): "0.0839",
+    ("association", "4K"): "0.5222",
+    ("association", "512x512 ciede2000"): "0.2511",
+    ("association", "512x512 ciede2000_ref"): "0.2584",
+    ("association", "B=1"): "0.0839",
+    ("association", "B=4"): "0.0277",
+    ("association", "B=8"): "0.0225",
+    ("wexler_diffusion", "128x128"): "1.5137",
 }
 
 # phase 26: one 4K bilateral filter under utils.profiling.trace, in its own process
@@ -1051,6 +1068,15 @@ def slic_kernel_phases(dev) -> dict:
         slic.device_iterations = None
         return statistics.median(times)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def association_grid(label, h, w, b, metric) -> None:
+        """The association's launch shape: blocks, blocks an SM can hold, waves."""
+        blocks, per_sm = kslic.association_shape(h, w, metric)
+        phase(f"SLIC {label} association grid ({metric}): {blocks} x {b} blocks of 32x8 "
+              f"pixels for {sms} SMs ({blocks * b / sms:.2f} an SM; {per_sm} resident an SM, "
+              f"{blocks * b / (sms * per_sm):.2f} waves)")
+
     pieces(slic_lab("random", 97, 131, dev), 97, 131, 13, 3, displaced=0)
     pieces(slic_lab("random", 97, 131, dev, 1), 97, 131, 13, 3, displaced=1)
     results = {}
@@ -1061,10 +1087,13 @@ def slic_kernel_phases(dev) -> dict:
         bnd = bounds(work[:ran])
         p_ms = plain_times(lab, h, w, s_size)
         route_ms = {impl: whole_ms(lab, h, w, s_size, impl) for impl in ("cuda", "torch")}
+        association_grid(label, h, w, 1, "euclidean")
         for name in SLIC_KERNELS:
             b_ms, b_by = bnd[name]
+            parent = (f" (parent {PARENT_MS['association', label]} ms)"
+                      if name == "association" else "")
             phase(f"SLIC {label} smooth S={s_size} m={m:g}: {name} kernel {k_ms[name]:.4f} ms an "
-                  f"iteration ({ran} run), bound {b_ms:.4f} ms by {b_by} "
+                  f"iteration{parent} ({ran} run), bound {b_ms:.4f} ms by {b_by} "
                   f"({k_ms[name] / b_ms:.1f}x), plain piece {p_ms[name]:.4f} ms; max |diff| "
                   f"against the plain piece over every step {worst[name, 'euclidean']}")
         phase(f"SLIC {label} smooth k-means, {iters} iterations: kernel route "
@@ -1099,11 +1128,14 @@ def slic_kernel_phases(dev) -> dict:
                    for key in works[0][it]} for it in range(ran)]
         bnd = bounds(summed)
         per_image = {name: k_ms[name] / b for name in SLIC_KERNELS}
+        association_grid(f"28b. B={b} x {h}x{w}", h, w, b, "euclidean")
         for name in SLIC_KERNELS:
             b_ms, b_by = bnd[name]
+            parent = (f" (parent {PARENT_MS['association', f'B={b}']} ms an image)"
+                      if name == "association" else "")
             phase(f"28b. SLIC B={b} x {h}x{w} smooth S={s_size} m={m:g}: {name} kernel "
                   f"{k_ms[name]:.4f} ms an iteration for the batch, {per_image[name]:.4f} ms an "
-                  f"image; bound {b_ms:.4f} ms by {b_by} ({k_ms[name] / b_ms:.1f}x); "
+                  f"image{parent}; bound {b_ms:.4f} ms by {b_by} ({k_ms[name] / b_ms:.1f}x); "
                   f"iterations run {each}")
         results["batch"][b] = {"kernel_ms": k_ms, "per_image_ms": per_image, "bound": bnd,
                                "iterations": each}
@@ -1120,10 +1152,14 @@ def slic_kernel_phases(dev) -> dict:
         p_ms = plain_times(lab, h, w, s_size, metric=metric)
         route_ms = {impl: whole_ms(lab, h, w, s_size, impl, metric=metric)
                     for impl in ("cuda", "torch")}
+        association_grid("512x512", h, w, 1, metric)
         for name in SLIC_KERNELS:
             b_ms, b_by = bnd[name]
+            parent = (f" (parent {PARENT_MS['association', f'512x512 {metric}']} ms)"
+                      if name == "association" else "")
             phase(f"SLIC 512x512 smooth S={s_size} m={m:g} {metric}: {name} kernel "
-                  f"{k_ms[name]:.4f} ms an iteration ({ran} run), bound {b_ms:.4f} ms by {b_by} "
+                  f"{k_ms[name]:.4f} ms an iteration{parent} ({ran} run), bound {b_ms:.4f} ms "
+                  f"by {b_by} "
                   f"({k_ms[name] / b_ms:.1f}x), plain piece {p_ms[name]:.4f} ms; max |diff| "
                   f"against the plain piece over every step {worst[name, metric]}")
         phase(f"SLIC 512x512 smooth k-means {metric}, {iters} iterations: kernel route "
@@ -1699,6 +1735,36 @@ FILL_PIECES = ("ring_pick", "filters", "search", "commit")
 FILL_BUFFERS = ("img", "rem", "p", "f", "b2", "valid", "keys", "tyx", "state")
 FILL_GRID_ITERATIONS = 8  # iterations a grid case at most
 FILL_KERNELS = ("wexler_ring_pick", "wexler_filters", "wexler_commit", "wexler_diffusion")
+# the diffusion start's boxes (label, image h, w, box (bh, bw, by0, bx0)): 1x1,
+# a row, a column, small and coarse-level shapes, the largest box, a box with
+# fewer rows than 16 strips, a box at the image border, and two whose threads
+# take more than one pixel each
+DIFFUSION_BOXES = (
+    ("1x1", 9, 9, (1, 1, 4, 4)),
+    ("1x128", 20, 140, (1, 128, 7, 5)),
+    ("128x1", 140, 20, (128, 1, 5, 7)),
+    ("7x13", 30, 40, (7, 13, 11, 17)),
+    ("50x87", 64, 100, (50, 87, 6, 8)),
+    ("128x128", 150, 160, (128, 128, 10, 20)),
+    ("5x200", 20, 220, (5, 200, 6, 9)),
+    ("border", 60, 70, (20, 33, 0, 37)),
+    ("100x150", 110, 160, (100, 150, 4, 5)),
+    ("2x1030", 6, 1040, (2, 1030, 2, 6)),
+)
+
+
+def diffusion_case(h: int, w: int, box: tuple, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(u8 image, f32 hole mask): a hole over ~85% of the box with known
+    pixels inside it (a hole-free column), the box's origin a hole pixel."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    bh, bw, by0, bx0 = box
+    hole = np.zeros((h, w), bool)
+    hole[by0:by0 + bh, bx0:bx0 + bw] = rng.random((bh, bw)) < 0.85
+    if bw > 4:
+        hole[by0:by0 + bh, bx0 + bw // 3] = False
+    hole[by0, bx0] = True
+    return src, hole.astype(np.float32)
 
 
 def fill_kernel_phases(dev) -> dict:
@@ -1770,23 +1836,35 @@ def fill_kernel_phases(dev) -> dict:
         cases += 1
         if "failing" in label and not int(k.state[kfill.FAIL]):
             raise SystemExit(f"fill grid FAILED: {label}: the pass did not fail")
-    # the diffusion start: a 128x128 box (BEAM_MAX_DIM) and the 5a coarsest level
+    # the diffusion start: a 128x128 box (BEAM_MAX_DIM) and the 5a coarsest
+    # level, then DIFFUSION_BOXES (a cluster of min(bh, 16) strips a channel)
     from various_image_processings_tpu_torch.core.rng import random_image
     diffusion_cases = 0
+    inputs = []
     for h, w in ((128, 128), (50, 87)):
-        img = torch.from_numpy(random_image(h, w)).to(dev)
         hole = np.zeros((h, w), bool)
         hole[h // 5 : h - h // 6, w // 4 : w - w // 5] = True
         hole[h // 2 :, w // 2 - 3 : w // 2 + 3] = True
         (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
-        rem = torch.from_numpy(hole.astype(np.float32)).to(dev)
+        inputs.append((f"{h}x{w}", random_image(h, w), hole.astype(np.float32),
+                       (bh, bw, by0, bx0)))
+    for label, h, w, box in DIFFUSION_BOXES:
+        inputs.append((label, *diffusion_case(h, w, box), box))
+    clusters = {}
+    for label, src, rem0, (bh, bw, by0, bx0) in inputs:
+        h, w = rem0.shape
+        img, rem = torch.from_numpy(src).to(dev), torch.from_numpy(rem0).to(dev)
+        clusters[label] = kfill.diffusion_shape(bh, bw)[0]
+        if clusters[label] != min(bh, 16):
+            raise SystemExit(f"diffusion start FAILED: box {bh}x{bw} got a cluster of "
+                             f"{clusters[label]} CTAs")
         for dither in (False, True):
             got = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither, "cuda")
             want = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither, "torch")
             d = max_diff(got, want)
             worst["wexler_diffusion"] = max(worst["wexler_diffusion"], float(d))
             if d:
-                raise SystemExit(f"diffusion start FAILED: {h}x{w} box {bh}x{bw} dither "
+                raise SystemExit(f"diffusion start FAILED: {label} box {bh}x{bw} dither "
                                  f"{dither}: max |diff| {d}")
             diffusion_cases += 1
     torch.cuda.synchronize()
@@ -1795,8 +1873,8 @@ def fill_kernel_phases(dev) -> dict:
           f"onion peel and energy passes, a hole at the image border, an island mask, a "
           f"failing search, a full-range image), every buffer bit-equal after every piece "
           f"(ring pick, filters, commit; the search where the image is exact); diffusion start "
-          f"{diffusion_cases} cases (boxes 128x128 and 50x87-level, dither off and on) "
-          f"bit-equal (tolerance 0); max |diff| {worst} "
+          f"{diffusion_cases} cases (boxes, with their CTAs a channel: {clusters}; dither off "
+          f"and on) bit-equal (tolerance 0); max |diff| {worst} "
           f"({time.perf_counter() - t_start:.1f} s)")
 
     # 16b. times at the 5a top level's energy pass, and bounds from this run's
@@ -1844,17 +1922,56 @@ def fill_kernel_phases(dev) -> dict:
     (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
     rem = torch.from_numpy(hole.astype(np.float32)).to(dev)
     n_hole = int(hole.sum())
+    ninth = float(np.float32(1.0 / 9.0))
+    into = img.clone()
+    lib = kfill._lib()
+
+    def kernel_alone() -> None:
+        """One launch into a preallocated output: the kernel without the
+        wrapper's clone of the image (not counted as a main-path launch)."""
+        err = lib.vip_wexler_diffusion(img.data_ptr(), rem.data_ptr(), into.data_ptr(), bh, bw,
+                                       by0, bx0, 128, 1, ninth,
+                                       torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"diffusion start launch failed: cudaError_t {err}")
+
+    alone_ms = queued_ms(kernel_alone, 20)
+    # a sweep's cost with neighbours (16 strips) and without (one strip: a
+    # 1x128 box, one CTA a channel)
+    row_img = torch.from_numpy(random_image(3, 130)).to(dev)
+    row_rem = torch.zeros((3, 130), device=dev)
+    row_rem[1, 1:129] = 1.0
+    row_out = row_img.clone()
+
+    def row_alone() -> None:
+        err = lib.vip_wexler_diffusion(row_img.data_ptr(), row_rem.data_ptr(),
+                                       row_out.data_ptr(), 1, 128, 1, 1, 130, 1, ninth,
+                                       torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"diffusion start launch failed: cudaError_t {err}")
+
+    row_ms = queued_ms(row_alone, 20)
     k_ms = queued_ms(lambda: wexler._alt_init_device(img, rem, 128, 128, (bh, bw), (by0, bx0),
                                                      True, "cuda"), 20)
+    if not torch.equal(into, wexler._alt_init_device(img, rem, 128, 128, (bh, bw), (by0, bx0),
+                                                     True, "torch")):
+        raise SystemExit("diffusion start FAILED: the kernel alone differs from the plain path")
     p_ms = cuda_time_ms(lambda: wexler._alt_init_device(img, rem, 128, 128, (bh, bw), (by0, bx0),
                                                         True, "torch"), iters=3, warmup=1)
     b_ms, b_by = bound(bh * bw * 7 + n_hole * 3, (bh + bw) * n_hole * 3 * 10 + bh * bw * 6)
-    out["wexler_diffusion"] = {"max_abs_err": worst["wexler_diffusion"], "ms": k_ms,
+    cluster, smem = kfill.diffusion_shape(bh, bw)
+    out["wexler_diffusion"] = {"max_abs_err": worst["wexler_diffusion"], "ms": alone_ms,
                                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                               "at": f"128x128, box {bh}x{bw}, {n_hole} hole pixels, dither"}
+                               "with_clone_ms": k_ms, "cluster": cluster,
+                               "at": f"128x128, box {bh}x{bw}, {n_hole} hole pixels, dither; "
+                                     f"the kernel alone ({k_ms:.4f} ms with the clone)"}
     phase(f"16b. wexler_diffusion 128x128 (box {bh}x{bw}, {n_hole} hole pixels, {bh + bw} "
-          f"sweeps, dither): kernel {k_ms:.4f} ms (a clone of the image included), plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
+          f"sweeps, dither): kernel {alone_ms:.4f} ms alone, {k_ms:.4f} ms with the clone of "
+          f"the image (parent, clone included: {PARENT_MS['wexler_diffusion', '128x128']}); "
+          f"{cluster} CTAs a channel in a cluster, {3 * cluster} CTAs, {smem} B of shared "
+          f"memory a CTA; plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({alone_ms / b_ms:.0f}x); {alone_ms * 1e3 / (bh + bw):.3f} us a sweep, against "
+          f"{row_ms * 1e3 / 129:.3f} on a 1x128 box (one CTA a channel, no neighbours)")
     return out
 
 
@@ -1908,8 +2025,17 @@ def main() -> int:
     kfill._lib()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
-    for name, (regs, st, ld) in ptxas_summary(_build.ptxas_report()).items():
+    ptxas = ptxas_summary(_build.ptxas_report())
+    for name, (regs, st, ld) in ptxas.items():
         phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    # the association (each metric's instantiation) and the diffusion start
+    # must spill nothing
+    unspilled = {name: (st, ld) for name, (_, st, ld) in ptxas.items()
+                 if "slic_association_kernel" in name or "wexler_diffusion_kernel" in name}
+    phase(f"association and diffusion-start kernels: {len(unspilled)} instantiations, spill "
+          f"(stores, loads) {sorted(set(unspilled.values()))} B")
+    if len(unspilled) != 4 or any(st or ld for st, ld in unspilled.values()):
+        raise SystemExit(f"the association or diffusion-start kernels spill: {unspilled}")
     funcs = sass_functions(str(_build.library_path()))
     for part, what in (("bilateral_kernelILb0ELi4E", "bilateral self, 4 pixels a thread"),
                        ("adaptive_bilateral_kernel", "adaptive bilateral"),

@@ -31,6 +31,8 @@ from various_image_processings_tpu_torch.ops.cuda import wexler_fill as cuda_fil
 from various_image_processings_tpu_torch.ops.cuda import wexler_search as cuda_search  # noqa: E402
 from various_image_processings_tpu_torch.ops.gradient import _gradient_math  # noqa: E402
 from guide_ties import tie_inputs  # noqa: E402
+from test_torch_wexler_diffusion_strips import (  # noqa: E402
+    BOXES as DIFFUSION_BOXES, case as diffusion_case, strip_diffusion)
 
 pytestmark = pytest.mark.cuda
 
@@ -786,6 +788,26 @@ def test_wexler_diffusion_kernel_bit_equal_to_plain(cuda, shape, dither):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dither", [False, True])
+@pytest.mark.parametrize("label", [b[0] for b in DIFFUSION_BOXES])
+def test_wexler_diffusion_kernel_on_every_box_shape(cuda, label, dither):
+    """The cluster kernel on boxes from 1x1 to 128x128 (a row, a column, a
+    box with fewer rows than 16 strips, a box at the image border): one
+    launch of min(bh, 16) CTAs a channel, bit-equal to the plain version on
+    the card and to the CPU strip twin."""
+    _, h, w, box = next(b for b in DIFFUSION_BOXES if b[0] == label)
+    bh, bw, by0, bx0 = box
+    src, rem0 = diffusion_case(h, w, box)
+    img, rem = torch.from_numpy(src).to(cuda), torch.from_numpy(rem0).to(cuda)
+    assert cuda_fill.diffusion_shape(bh, bw)[0] == min(bh, 16)
+    before = cuda_fill.diffusion_launches
+    got = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither)
+    assert cuda_fill.diffusion_launches == before + 1
+    want = wexler._alt_init_device(img, rem, h, w, (bh, bw), (by0, bx0), dither, "torch")
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), strip_diffusion(src, rem0, box, dither))
+
+
 def test_wexler_fill_wrappers_reject_what_the_kernels_do_not_take(cuda):
     k, _ = fill_passes("square", True, 16, cuda)
     box = k.box
@@ -1071,6 +1093,57 @@ def test_slic_batched_kernels_bit_equal_to_single_runs(cuda, shape, metric, batc
         for a, b, c in zip(got, single, plain):
             assert torch.equal(a[i], b) and torch.equal(a[i], c)
     assert batch < 8 or min(ran) < max(ran), ran
+
+
+@pytest.mark.parametrize("batch", [4, 8])
+@pytest.mark.parametrize("metric", ["euclidean", *DELTA_E_METRICS])
+@pytest.mark.parametrize("shape", [(26, 39), (97, 131)])
+def test_slic_batched_mixed_convergence_bit_equal(cuda, shape, metric, batch):
+    """Batches of 4 and 8 whose images stop at different iterations (on the
+    CPU's plain route, 26x39: 6 to 10; 97x131: 9 and 10): one batched kernel
+    route bit-equal to each image's single kernel route and plain route."""
+    from various_image_processings_tpu_torch.models import slic
+
+    (h, w), s, iters, m = shape, 13, 10, 20.0
+    lab = torch.stack([slic_lab(SLIC_BATCH_KINDS[i % 4], (h, w), cuda, seed=i)
+                       for i in range(batch)])
+    got = slic.slic_device_batched(lab, h, w, s, iters, m, metric)
+    ran = slic.device_iterations.cpu().tolist()
+    assert min(ran) < max(ran), ran
+    for i in range(batch):
+        single = slic.slic_device(lab[i], h, w, s, iters, m, metric)
+        assert int(slic.device_iterations) == ran[i]
+        plain = slic.slic_device(lab[i], h, w, s, iters, m, metric, impl="torch")
+        for a, b, c in zip(got, single, plain):
+            assert torch.equal(a[i], b) and torch.equal(a[i], c)
+
+
+# S where the association's 32 x 8 tiles and the cells meet differently: a
+# tile of 16 x 4 cells (S = 2), cells that straddle tiles, cells as wide as
+# a tile, wider, and past 64 (the snap keys' tile changes there)
+ASSOCIATION_SIZES = [2, 3, 4, 8, 9, 16, 31, 32, 33, 40, 64, 65]
+
+
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+@pytest.mark.parametrize("s", ASSOCIATION_SIZES)
+@pytest.mark.parametrize("metric", ["euclidean", *DELTA_E_METRICS])
+def test_slic_association_geometry_bit_equal(cuda, metric, s, kind):
+    """The kernel route against ``impl="torch"`` on the card at a shape that
+    is no whole number of tiles or cells; the association's launch is one
+    block a 32 x 8 tile."""
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+
+    shape, iters, m = (97, 131), 5, 20.0
+    assert kslic.association_shape(*shape, metric)[0] == 13 * 5
+    lab = slic_lab(kind, shape, cuda)
+    got = slic.slic_device(lab, *shape, s, iters, m, metric, impl="cuda")
+    ran = int(slic.device_iterations)
+    slic.iterations = 0
+    want = slic.slic_device(lab, *shape, s, iters, m, metric, impl="torch")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert ran == slic.iterations
 
 
 def test_slic_batched_one_program_a_sub_batch(cuda):

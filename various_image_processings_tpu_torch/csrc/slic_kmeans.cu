@@ -62,14 +62,29 @@
 // and distances where they changed (8 B), then reads labels and Lab again
 // (7 B): ~26 B a pixel, 6.8 MB at 512x512 (2 us at 3.35 TB/s), 216 MB at 4K.
 // CIEDE2000: operations, ~100 a (pixel, candidate) pair of which 11 are
-// calls of the math library, each tens of instructions.  A block takes a
-// square tile of pixels (whole cells for S <= 64, a piece of one or two
-// cells past that) and keeps its window of candidate centers (for the
-// CIEDE2000 metrics with their chroma sqrt(a^2 + b^2), computed once a
-// center), their sums and their least keys in shared memory.  Within a
-// warp, the pixels that add to the same center are summed by warp
-// reductions first, so the shared atomics are one a center and warp, and
-// the global atomics one a center and block.
+// calls of the math library, each tens of instructions.  Every block keeps
+// its window of candidate centers (for the CIEDE2000 metrics with their
+// chroma sqrt(a^2 + b^2), computed once a center) and their sums or least
+// keys in shared memory.
+//
+// The association's own geometry: a block of 8 warps takes a 32 x 8 pixel
+// tile (1024 blocks at 512x512 for 132 SMs, whatever S), and a warp an 8 x
+// 4 piece of it, so that a warp's pixels mostly share their cell, their
+// candidates and the outcome of the window test.  A warp first finds, from
+// its piece's pixel bounds, the candidate cells whose window may reach one
+// of its pixels (~5 of the 25 at S = 26); only those are visited, in
+// ascending id.  The ΔE metrics then gather the warp's (pixel, candidate)
+// pairs that pass the window into a list and evaluate the colour distance
+// over it with every lane busy (~4 pairs a pixel), keeping the values in
+// shared memory; the euclidean distance is short and is computed in the
+// scan.  The strict-< scan takes two candidates a turn (their distances
+// are independent) and notes each pixel's in-scan memberships; the warp
+// then sums the members of each center by warp reductions of packed
+// fields, and the block relative to its tile's origin in 32-bit shared
+// accumulators, which it adds, with count x origin, to the int64 sums with
+// one global atomic a center and field.  The snap-key kernel keeps square
+// tiles of whole cells (S <= 64; 64 x 64 pixels past that), and its warp
+// reductions.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +94,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kWindow = 20;  // cells a side of a block's candidate window, at most
 constexpr int kSlots = kWindow * kWindow;
 constexpr int kLargeTile = 64;  // tile side past S = 64
@@ -121,6 +137,18 @@ constexpr float kPow25To7 = 6103515625.0f;  // 25^7, rounded to f32 as PyTorch r
 // spans at most two cells a side: a window of 6).
 int tile_side(int s) { return s <= kLargeTile ? s * ((32 + s - 1) / s) : kLargeTile; }
 static_assert((32 + 1) / 2 + 4 <= kWindow, "the window at s = 2 fits the shared arrays");
+
+// The association's tile: 32 x 8 pixels, 4 x 2 warp pieces of 8 x 4 (lane
+// l at (l % 8, l / 8) of its warp's piece).  The tile spans at most 16 x 4
+// cells (S = 2, tiles start at even coordinates; fewer past that), so its
+// window of candidate cells is at most 20 x 8.
+constexpr int kTileW = 32;
+constexpr int kTileH = 8;
+constexpr int kPieceW = 8;
+constexpr int kPieceH = 4;
+static_assert(kTileW * kTileH == kThreads && kPieceW * kPieceH == 32, "a pixel a thread");
+constexpr int kAssocSlots = (kTileW / 2 + 4) * (kTileH / 2 + 4);
+constexpr int kCandidates = 25;  // the 5 x 5 cell neighbourhood
 
 // A block's pixel rectangle, clipped to the image, and its window of
 // candidate cells [wy0, wy0 + wh) x [wx0, wx0 + ww), which may run past the
@@ -233,13 +261,24 @@ __device__ __forceinline__ float color_distance(float l1, float a1, float b1, fl
   }
 }
 
+// A 32-bit add to a shared counter, as one instruction (atomicAdd from a
+// single lane would be rewritten as a warp-aggregated add).
+__device__ __forceinline__ void shared_add(unsigned* counter, unsigned v) {
+  asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(counter))),
+               "r"(v)
+               : "memory");
+}
+
+// 4 blocks an SM (ΔE: 54 registers, 46 KB of shared memory a block) or 5
+// (euclidean: 48 registers, no spill)
 template <class M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, M::kDeltaE ? 4 : 5)
 slic_association_kernel(const uint8_t* __restrict__ lab, const float* __restrict__ centers,
                         int32_t* __restrict__ labels, float* __restrict__ dists,
                         unsigned long long* __restrict__ sums, int32_t* __restrict__ flags,
                         int flag_stride, int height, int width, int s, int per_col, int per_row,
-                        int side, int tiles_x, float space_norm, float color_norm) {
+                        int tiles_x, float space_norm, float color_norm) {
   // this block's image: its flags, planes, centers and sums
   const int64_t image = blockIdx.y;
   flags += image * flag_stride;
@@ -251,121 +290,244 @@ slic_association_kernel(const uint8_t* __restrict__ lab, const float* __restrict
   dists += image * pixels;
   centers += image * n * 5;
   sums += image * n * 6;
-  // x, y, l, a, b of each window slot's center, and its chroma for ΔE
+  const int y0 = static_cast<int>(blockIdx.x / tiles_x) * kTileH;
+  const int x0 = static_cast<int>(blockIdx.x % tiles_x) * kTileW;
+
+  // this thread's pixel, loaded before the window so the two loads overlap
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int px0 = (warp % (kTileW / kPieceW)) * kPieceW;  // the warp's piece in the tile
+  const int py0 = (warp / (kTileW / kPieceW)) * kPieceH;
+  const int xr = px0 + lane % kPieceW, yr = py0 + lane / kPieceW;
+  const int x = x0 + xr, y = y0 + yr;
+  const bool valid = x < width && y < height;
+  const int64_t idx = static_cast<int64_t>(y) * width + x;
+  int run_l = -1;
+  float run_d = 0.0f;
+  unsigned pl = 0, pa = 0, pb = 0;
+  if (valid) {
+    run_l = labels[idx];
+    run_d = dists[idx];
+    pl = lab[idx * 3];
+    pa = lab[idx * 3 + 1];
+    pb = lab[idx * 3 + 2];
+  }
+
+  // x, y, l, a, b of each window slot's center, and its chroma for ΔE; the
+  // block's sums of (x - x0, y - y0, l, a, b, 1) of each slot's members: a
+  // slot has at most one member a pixel (a candidate is visited once), so
+  // each sum stays below 256 x 255 < 2^16 (32 bits would hold a tile of
+  // 64 x 64 pixels at any image width: the coordinates are the tile's own)
   constexpr int kPlanes = M::kDeltaE ? 6 : 5;
-  __shared__ float cen[kPlanes][kSlots];
-  __shared__ unsigned long long acc[6][kSlots];
-  const Tile t = tile_of(side, tiles_x, height, width, s);
-  const int slots = t.wh * t.ww;
-  for (int i = threadIdx.x; i < slots; i += kThreads) {
-    const int gy = t.wy0 + i / t.ww, gx = t.wx0 + i % t.ww;
+  __shared__ float cen[kPlanes][kAssocSlots];
+  __shared__ unsigned acc[6][kAssocSlots];
+  const int wy0 = y0 / s - 2, wx0 = x0 / s - 2;
+  const int wh = (min(y0 + kTileH, height) - 1) / s + 3 - wy0;
+  const int ww = (min(x0 + kTileW, width) - 1) / s + 3 - wx0;
+  // a thread a slot: window row warp, column lane (wh <= 8, ww <= 20)
+  const int wi = warp * ww + lane;
+  const bool window_slot = warp < wh && lane < ww;
+  if (window_slot) {
+    const int gy = wy0 + warp, gx = wx0 + lane;
     const bool in = gy >= 0 && gy < per_col && gx >= 0 && gx < per_row;
     const int64_t c = static_cast<int64_t>(gy) * per_row + gx;
 #pragma unroll
-    for (int k = 0; k < 5; ++k) cen[k][i] = in ? centers[c * 5 + k] : 0.0f;
-    if constexpr (M::kDeltaE) cen[5][i] = chroma(cen[3][i], cen[4][i]);
+    for (int k = 0; k < 5; ++k) cen[k][wi] = in ? centers[c * 5 + k] : 0.0f;
+    if constexpr (M::kDeltaE) cen[5][wi] = chroma(cen[3][wi], cen[4][wi]);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) acc[k][i] = 0ull;
+    for (int k = 0; k < 6; ++k) acc[k][wi] = 0u;
   }
   __syncthreads();
 
-  const int lane = threadIdx.x % 32;
-  const int npix = t.th * t.tw;
-  const float sf = static_cast<float>(s);
-  bool changed = false;
-  // the trip count is the block's, so every warp stays converged for its
-  // shuffles; lanes past the tile carry no pixel
-  for (int base = 0; base < npix; base += kThreads) {
-    const int p = base + threadIdx.x;
-    const bool valid = p < npix;
-    const int y = valid ? t.y0 + p / t.tw : 0;
-    const int x = valid ? t.x0 + p % t.tw : 0;
-    const int64_t idx = static_cast<int64_t>(y) * width + x;
-    int run_l = -1;
-    float run_d = 0.0f;
-    unsigned pl = 0, pa = 0, pb = 0;
+  const float xf = static_cast<float>(x), yf = static_cast<float>(y), sf = static_cast<float>(s);
+  const float lf = static_cast<float>(pl), af = static_cast<float>(pa),
+              bf = static_cast<float>(pb);
+  const float pc = M::kDeltaE ? chroma(af, bf) : 0.0f;
+  const float old_d = run_d;
+  const int cy = y / s, cx = x / s;
+  const int own = (cy - wy0) * ww + (cx - wx0);  // the slot of the pixel's own cell
+
+  // The piece's prefilter.  Its pixels' cells span [cya, cyb] x [cxa, cxb]:
+  // at most 4 x 2 (8 columns from a multiple of 8, 4 rows from a multiple
+  // of 4, S >= 2), so their candidates lie in a box of at most 8 x 6 cells
+  // from (cya - 2, cxa - 2), bit 8 row + column of `near`.  A lane passes a
+  // candidate only where fl(x - cx) lies in [-S, S] for its x in [xa, xb]
+  // (and y alike), and fl(. - cx) is monotone, so a candidate with
+  // fl(xb - cx) < -S or fl(xa - cx) > S passes no lane of the piece: `near`
+  // holds the cells on the grid that may pass one.  A lane's candidates k
+  // then come from its 5 x 5 block of `near`, and the loops below visit the
+  // candidates some lane may pass, in ascending k.
+  const int xa = x0 + px0, ya = y0 + py0;
+  const int xb = min(xa + kPieceW, width) - 1, yb = min(ya + kPieceH, height) - 1;
+  unsigned cand = 0;  // bit k: candidate k may scan this pixel
+  if (xa < width && ya < height) {  // a warp-uniform test: the piece has a pixel
+    const int cya = ya / s, cxa = xa / s;
+    const int uh = yb / s - cya + 5, uw = xb / s - cxa + 5;  // <= 6, <= 8
+    const float xaf = static_cast<float>(xa), xbf = static_cast<float>(xb);
+    const float yaf = static_cast<float>(ya), ybf = static_cast<float>(yb);
+    unsigned long long near = 0ull;
+#pragma unroll
+    for (int round = 0; round < 2; ++round) {
+      const int row = round * 4 + lane / 8, col = lane % 8;
+      const int gy = cya - 2 + row, gx = cxa - 2 + col;
+      bool hit = false;
+      if (row < uh && col < uw && gy >= 0 && gy < per_col && gx >= 0 && gx < per_row) {
+        const int slot = (gy - wy0) * ww + (gx - wx0);
+        const float ccx = cen[0][slot], ccy = cen[1][slot];
+        hit = __fsub_rn(xbf, ccx) >= -sf && __fsub_rn(xaf, ccx) <= sf &&
+              __fsub_rn(ybf, ccy) >= -sf && __fsub_rn(yaf, ccy) <= sf;
+      }
+      near |= static_cast<unsigned long long>(__ballot_sync(kFull, hit)) << (round * 32);
+    }
     if (valid) {
-      run_l = labels[idx];
-      run_d = dists[idx];
-      pl = lab[idx * 3];
-      pa = lab[idx * 3 + 1];
-      pb = lab[idx * 3 + 2];
+      const int base = (cy - cya) * 8 + (cx - cxa);  // candidate k = 0's cell
+#pragma unroll
+      for (int r = 0; r < 5; ++r) {
+        cand |= static_cast<unsigned>(near >> (base + r * 8) & 0x1full) << (5 * r);
+      }
     }
-    const float old_d = run_d;
-    const float xf = static_cast<float>(x), yf = static_cast<float>(y);
-    const float lf = static_cast<float>(pl), af = static_cast<float>(pa),
-                bf = static_cast<float>(pb);
-    const float pc = M::kDeltaE ? chroma(af, bf) : 0.0f;
-    const int cy = y / s, cx = x / s;
-    // one candidate's turn, in ascending center id
-    auto visit = [&](int dy, int dx) {
-      const int ny = cy + dy, nx = cx + dx;
-      int slot = -1;
-      if (valid && ny >= 0 && ny < per_col && nx >= 0 && nx < per_row) {
-        const int i = (ny - t.wy0) * t.ww + (nx - t.wx0);
-        const float ddx = __fsub_rn(xf, cen[0][i]);
-        const float ddy = __fsub_rn(yf, cen[1][i]);
-        if (fabsf(ddx) <= sf && fabsf(ddy) <= sf) {  // the reference's window (:243-246)
-          const int id = ny * per_row + nx;
-          const float spatial = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
-          const float d = __fadd_rn(
-              __fmul_rn(space_norm, spatial),
-              __fmul_rn(color_norm, color_distance<M>(cen[2][i], cen[3][i], cen[4][i],
-                                                      cen[kPlanes - 1][i], lf, af, bf, pc)));
-          if (d < run_d) {  // strict: the lowest center id wins ties
-            run_d = d;
-            run_l = id;
-          }
-          if (run_l == id) slot = i;  // a member at this center's turn
-        }
-      }
-      // the members of each slot in this warp, summed by warp reductions
-      // (32 pixels of x < 2^27 fit 32 bits), then one shared atomic each
-      unsigned pending = __ballot_sync(kFull, slot >= 0);
-      while (pending) {
-        const int leader = __ffs(pending) - 1;
-        const int target = __shfl_sync(kFull, slot, leader);
-        const bool mine = slot == target;
-        const unsigned sx = __reduce_add_sync(kFull, mine ? static_cast<unsigned>(x) : 0u);
-        const unsigned sy = __reduce_add_sync(kFull, mine ? static_cast<unsigned>(y) : 0u);
-        const unsigned sl = __reduce_add_sync(kFull, mine ? pl : 0u);
-        const unsigned sa = __reduce_add_sync(kFull, mine ? pa : 0u);
-        const unsigned sb = __reduce_add_sync(kFull, mine ? pb : 0u);
-        const unsigned members = __ballot_sync(kFull, mine);
-        if (lane == leader) {
-          atomicAdd(&acc[0][target], static_cast<unsigned long long>(sx));
-          atomicAdd(&acc[1][target], static_cast<unsigned long long>(sy));
-          atomicAdd(&acc[2][target], static_cast<unsigned long long>(sl));
-          atomicAdd(&acc[3][target], static_cast<unsigned long long>(sa));
-          atomicAdd(&acc[4][target], static_cast<unsigned long long>(sb));
-          atomicAdd(&acc[5][target], static_cast<unsigned long long>(__popc(members)));
-        }
-        pending &= ~members;
-      }
+  }
+
+  // ΔE: the warp's scanned (pixel, candidate) pairs, k-major, as k * 32 +
+  // lane; each pair's colour distance evaluated 32 at a time into
+  // delta[warp][k * 32 + lane]
+  constexpr int kLists = M::kDeltaE ? kWarps : 1;
+  __shared__ uint16_t pairs[kLists][kCandidates * 32];
+  __shared__ float delta[kLists][kCandidates * 32];
+  if constexpr (M::kDeltaE) {
+    uint16_t* list = pairs[warp];
+    int count = 0;
+    unsigned scanned = 0;
+    // candidate k = 5 (dy + 2) + (dx + 2), in ascending center id: does it
+    // scan the pixel (the reference's window, :243-246)?
+    auto scans = [&](int k) -> bool {
+      const int slot = own + (k / 5 - 2) * ww + (k % 5 - 2);
+      return fabsf(__fsub_rn(xf, cen[0][slot])) <= sf && fabsf(__fsub_rn(yf, cen[1][slot])) <= sf;
     };
-    if constexpr (M::kDeltaE) {
-      // one copy of the long ΔE body, not 25
+    for (unsigned todo = __reduce_or_sync(kFull, cand); todo != 0u; todo &= todo - 1u) {
+      const int k = __ffs(todo) - 1;
+      const bool hit = (cand >> k & 1u) != 0u && scans(k);
+      const unsigned ballot = __ballot_sync(kFull, hit);
+      if (hit) {
+        list[count + __popc(ballot & ((1u << lane) - 1u))] = static_cast<uint16_t>(k * 32 + lane);
+        scanned |= 1u << k;
+      }
+      count += __popc(ballot);
+    }
+    cand = scanned;  // from here on: the candidates that do scan the pixel
+    __syncwarp();
+    // one copy of the long ΔE body, not one a round
 #pragma unroll 1
-      for (int k = 0; k < 25; ++k) visit(k / 5 - 2, k % 5 - 2);
-    } else {
-      for (int dy = -2; dy <= 2; ++dy) {
-        for (int dx = -2; dx <= 2; ++dx) visit(dy, dx);
+    for (int e0 = 0; e0 < count; e0 += 32) {
+      const int e = e0 + lane;
+      const int pair = e < count ? list[e] : lane;
+      const int src = pair % 32, k = pair / 32;
+      // the pair's pixel: its colour and own slot, from its lane
+      const float sl = __shfl_sync(kFull, lf, src), sa = __shfl_sync(kFull, af, src);
+      const float sb = __shfl_sync(kFull, bf, src), sc = __shfl_sync(kFull, pc, src);
+      const int slot = __shfl_sync(kFull, own, src) + (k / 5 - 2) * ww + (k % 5 - 2);
+      if (e < count) {
+        delta[warp][pair] = color_distance<M>(cen[2][slot], cen[3][slot], cen[4][slot],
+                                              cen[5][slot], sl, sa, sb, sc);
       }
     }
-    if (valid && run_d < old_d) {  // run_l changes only where run_d fell
-      labels[idx] = run_l;
-      dists[idx] = run_d;
-      changed = true;
+    __syncwarp();
+  }
+
+  // the scan: the candidates some lane may pass, in ascending k, two a turn
+  // (their distances are independent of each other and of the running
+  // pair; the strict-< updates then run in order).  Each lane notes the
+  // candidates whose turn found it a member; the warp adds them after.
+  // A lane's own slot is in the window (a lane past the image reads a slot
+  // near the window's middle, and uses nothing it reads).
+  const int home = valid ? own : 2 * ww + 2;
+  auto turn = [&](int k, bool& hit, int& id) -> float {
+    const int dy = k / 5 - 2, dx = k % 5 - 2;
+    const int slot = home + dy * ww + dx;
+    const float ddx = __fsub_rn(xf, cen[0][slot]);
+    const float ddy = __fsub_rn(yf, cen[1][slot]);
+    hit = (cand >> k & 1u) != 0u && fabsf(ddx) <= sf && fabsf(ddy) <= sf;
+    id = (cy + dy) * per_row + (cx + dx);
+    const float spatial = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+    float color;
+    if constexpr (M::kDeltaE) {
+      color = delta[warp][k * 32 + lane];  // written where hit
+    } else {
+      color = color_distance<M>(cen[2][slot], cen[3][slot], cen[4][slot], 0.0f, lf, af, bf,
+                                0.0f);
     }
+    return __fadd_rn(__fmul_rn(space_norm, spatial), __fmul_rn(color_norm, color));
+  };
+  unsigned joined = 0;  // bit k: this pixel is a member at candidate k's turn
+  for (unsigned todo = __reduce_or_sync(kFull, cand); todo != 0u;) {
+    const int ka = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const bool two = todo != 0u;
+    const int kb = two ? __ffs(todo) - 1 : ka;
+    if (two) todo &= todo - 1u;
+    bool hit_a, hit_b;
+    int id_a, id_b;
+    const float d_a = turn(ka, hit_a, id_a);
+    const float d_b = turn(kb, hit_b, id_b);
+    hit_b = hit_b && two;
+    if (hit_a && d_a < run_d) {  // strict: the lowest center id wins ties
+      run_d = d_a;
+      run_l = id_a;
+    }
+    if (hit_a && run_l == id_a) joined |= 1u << ka;
+    if (hit_b && d_b < run_d) {
+      run_d = d_b;
+      run_l = id_b;
+    }
+    if (hit_b && run_l == id_b) joined |= 1u << kb;
+  }
+  // the members of each slot in this warp (usually one slot: the piece
+  // lies in one cell) summed by warp reductions of packed fields: 32
+  // pixels' x - x0 < 2^11 and y - y0 < 2^11, count < 2^6, l and a < 2^13;
+  // lanes 0-5 add one field each
+  const unsigned packed_xy = static_cast<unsigned>(xr) | static_cast<unsigned>(yr) << 11 |
+                             1u << 22;
+  const unsigned packed_la = pl | pa << 13;
+  for (unsigned todo = __reduce_or_sync(kFull, joined); todo != 0u; todo &= todo - 1u) {
+    const int k = __ffs(todo) - 1;
+    const bool member = (joined >> k & 1u) != 0u;
+    const int slot = home + (k / 5 - 2) * ww + (k % 5 - 2);
+    unsigned pending = __ballot_sync(kFull, member);
+    while (pending) {
+      const int leader = __ffs(pending) - 1;
+      const int target = __shfl_sync(kFull, slot, leader);
+      const bool mine = member && slot == target;
+      const unsigned sxy = __reduce_add_sync(kFull, mine ? packed_xy : 0u);
+      const unsigned sla = __reduce_add_sync(kFull, mine ? packed_la : 0u);
+      const unsigned sb = __reduce_add_sync(kFull, mine ? pb : 0u);
+      if (lane < 6) {
+        const unsigned field = lane == 0   ? sxy & 0x7ffu
+                               : lane == 1 ? sxy >> 11 & 0x7ffu
+                               : lane == 2 ? sla & 0x1fffu
+                               : lane == 3 ? sla >> 13
+                               : lane == 4 ? sb
+                                           : sxy >> 22;
+        shared_add(&acc[lane][target], field);
+      }
+      pending &= ~__ballot_sync(kFull, mine);
+    }
+  }
+  const bool changed = valid && run_d < old_d;
+  if (changed) {  // run_l changes only where run_d fell
+    labels[idx] = run_l;
+    dists[idx] = run_d;
   }
   // a barrier too: every shared sum is complete after it
   if (__syncthreads_or(changed) && threadIdx.x == 0) flags[1] = 1;
-  for (int i = threadIdx.x; i < slots; i += kThreads) {
-    if (acc[5][i] == 0ull) continue;  // a center with members lies on the grid
-    const int64_t c = static_cast<int64_t>(t.wy0 + i / t.ww) * per_row + (t.wx0 + i % t.ww);
+  const unsigned members = window_slot ? acc[5][wi] : 0u;
+  if (members != 0u) {  // a center with members lies on the grid
+    const int64_t c = static_cast<int64_t>(wy0 + warp) * per_row + (wx0 + lane);
+    const unsigned long long add[6] = {
+        acc[0][wi] + static_cast<unsigned long long>(members) * static_cast<unsigned>(x0),
+        acc[1][wi] + static_cast<unsigned long long>(members) * static_cast<unsigned>(y0),
+        acc[2][wi], acc[3][wi], acc[4][wi], members};
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
-      if (acc[k][i] != 0ull) atomicAdd(&sums[c * 6 + k], acc[k][i]);
+      if (add[k] != 0ull) atomicAdd(&sums[c * 6 + k], add[k]);
     }
   }
 }
@@ -524,6 +686,11 @@ slic_delta_e_kernel(const float* __restrict__ l1, const float* __restrict__ a1,
   }
 }
 
+// The association's blocks an image: one a 32 x 8 tile.
+int association_blocks(int height, int width) {
+  return ((width + kTileW - 1) / kTileW) * ((height + kTileH - 1) / kTileH);
+}
+
 int tiles(int height, int width, int s, int* tiles_x) {
   const int side = tile_side(s);
   *tiles_x = (width + side - 1) / side;
@@ -535,13 +702,13 @@ int launch_association(const void* lab, const void* centers, void* labels, void*
                        void* sums, void* flags, int flag_stride, int batch, int height,
                        int width, int s, int per_col, int per_row, float space_norm,
                        float color_norm, cudaStream_t stream) {
-  int tiles_x = 0;
-  const dim3 grid(tiles(height, width, s, &tiles_x), batch);
+  const int tiles_x = (width + kTileW - 1) / kTileW;
+  const dim3 grid(association_blocks(height, width), batch);
   slic_association_kernel<M><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(lab), static_cast<const float*>(centers),
       static_cast<int32_t*>(labels), static_cast<float*>(dists),
       static_cast<unsigned long long*>(sums), static_cast<int32_t*>(flags), flag_stride, height,
-      width, s, per_col, per_row, tile_side(s), tiles_x, space_norm, color_norm);
+      width, s, per_col, per_row, tiles_x, space_norm, color_norm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,6 +818,35 @@ int vip_slic_update(const void* lab, void* centers, void* keys, void* sums, void
       static_cast<int32_t*>(stats), static_cast<const int32_t*>(flags),
       static_cast<int32_t*>(next_flags), flag_stride, n, height, width, s, per_row, iteration);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The association's launch shape: blocks an image, and blocks of the
+// metric's instantiation an SM can hold at once (-1 for an unknown metric
+// or a failed query).
+int vip_slic_association_blocks(int height, int width) {
+  return association_blocks(height, width);
+}
+
+int vip_slic_association_occupancy(int metric) {
+  int blocks = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (metric) {
+    case 0:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, slic_association_kernel<Euclidean>, kThreads, 0);
+      break;
+    case 1:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, slic_association_kernel<Ciede2000>, kThreads, 0);
+      break;
+    case 2:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, slic_association_kernel<Ciede2000Ref>, kThreads, 0);
+      break;
+    default:
+      break;
+  }
+  return err == cudaSuccess ? blocks : -1;
 }
 
 // out[i] = the squared ΔE of (l1, a1, b1)[i] and (l2, a2, b2)[i], n f32

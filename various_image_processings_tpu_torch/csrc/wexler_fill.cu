@@ -32,10 +32,10 @@
 //     feeds (each depends on that pixel alone, so this is exact and
 //     replaces the strip re-pack), and adds the iteration's sum of
 //     e * weight to the pass energy.
-//   wexler_diffusion_kernel   the diffusion start: one block a channel
-//     keeps its box plane double-buffered in shared memory for the bh + bw
-//     Jacobi sweeps of the 3 x 3 edge-padded mean, then the dither and the
-//     clamp.
+//   wexler_diffusion_kernel   the diffusion start: a thread-block cluster
+//     a channel (up to 16 CTAs, one a row strip of the box) keeps the box
+//     double-buffered in its CTAs' shared memory for the bh + bw Jacobi
+//     sweeps of the 3 x 3 edge-padded mean, then the dither and the clamp.
 //
 // The state of a pass is an int32 vector (models/inpainting.py and
 // ops/cuda/wexler_fill.py name its slots): active, fail, live (the energy
@@ -60,12 +60,24 @@
 // microseconds of bandwidth.  The ring pick and the commit are one block by
 // design (a block-wide scan and a fixed-order tree; the commit's fail test
 // must precede every write), so they take a few microseconds each however
-// small the ring.
+// small the ring.  The diffusion start is a chain of bh + bw dependent
+// sweeps of ~10 operations a hole pixel: what bounds it is the latency of a
+// sweep.  So each channel's box is spread over a cluster's SMs (48 SMs at a
+// 128 x 128 box, where one block a channel used 3), each strip's edge rows
+// go into the neighbours' halo rows through distributed shared memory
+// (st.async, completing on the receiver's mbarrier: a point-to-point
+// exchange, where a cluster barrier's release is a GPU-wide fence), and
+// everything that does not change (the hole mask, the known pixels in
+// both copies, the offsets) is set before the first sweep.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,7 +101,13 @@ constexpr int kPickThreads = 1024;
 constexpr int kFilterThreads = 256;
 constexpr int kTargetsPerBlock = kFilterThreads / 32;  // a warp a target
 constexpr int kMaxCap = 1024;               // the commit's one block
-constexpr int kDiffuseThreads = 1024;
+constexpr int kDiffuseThreads = 1024;       // a strip's CTA
+constexpr int kMaxCluster = 16;             // strips a channel (non-portable on Hopper)
+constexpr int kMaxOwned = 64;               // pixels a diffusion thread: a 64-bit hole mask
+constexpr int kMaxDiffusionPixels = 128 * 128;  // a box (ops/cuda/wexler_fill.py)
+// two copies of the largest strip: a one-row box (or two rows of half as many)
+constexpr int kMaxDiffusionSmem = 2 * kMaxDiffusionPixels * static_cast<int>(sizeof(float));
+constexpr int kMaxDevices = 64;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kNoKey = ~0ull;
@@ -328,28 +346,129 @@ wexler_commit_kernel(float* __restrict__ img, float* __restrict__ rem,
   }
 }
 
+// The diffusion start's strips: a channel's box split into `cluster` row
+// strips, one a CTA of a thread-block cluster (at most 16, and no more than
+// the box has rows).  A strip is held in shared memory twice (the sweep's
+// source and destination), each copy with a halo row above and below where
+// a neighbouring strip lies there.  Threads take the strip's pixels as a
+// (ty, tx) grid of stride (kDiffuseThreads / tx, tx), tx the least power of
+// two >= min(bw, kDiffuseThreads): at most kMaxOwned pixels a thread.
+struct Strips {
+  int cluster;    // CTAs a channel
+  int rows_max;   // rows of the tallest strip
+  int halos;      // halo rows a strip copy reserves
+  int tx, ty;     // the thread grid's columns and rows
+  int cols, rows; // a thread's pixels: columns and rows of them
+  int smem;       // dynamic shared memory a CTA, in bytes
+};
+
+__host__ __device__ inline Strips strips_of(int bh, int bw) {
+  Strips g;
+  g.cluster = bh < kMaxCluster ? bh : kMaxCluster;
+  g.rows_max = (bh + g.cluster - 1) / g.cluster;
+  g.halos = g.cluster - 1 < 2 ? g.cluster - 1 : 2;
+  g.tx = 1;
+  while (g.tx < bw && g.tx < kDiffuseThreads) g.tx *= 2;
+  g.ty = kDiffuseThreads / g.tx;
+  g.cols = (bw + g.tx - 1) / g.tx;
+  g.rows = (g.rows_max + g.ty - 1) / g.ty;
+  g.smem = 2 * (g.rows_max + g.halos) * bw * static_cast<int>(sizeof(float));
+  return g;
+}
+
+// Distributed shared memory, point to point: a 32-bit shared::cluster
+// address of another CTA's variable, an mbarrier of this CTA, and a store
+// into another CTA that completes its bytes on that CTA's mbarrier.
+__device__ __forceinline__ unsigned shared_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned cluster_address(unsigned local, unsigned rank) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void mbarrier_init(unsigned bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(arrivals) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void store_remote(unsigned address, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                   address),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
 __global__ void __launch_bounds__(kDiffuseThreads)
 wexler_diffusion_kernel(const uint8_t* __restrict__ src, const float* __restrict__ rem0,
                         uint8_t* __restrict__ out, int bh, int bw, int by0, int bx0, int width,
                         int dither, float ninth) {
-  extern __shared__ float plane[];  // two (bh, bw) planes
-  __shared__ float warp_sum[32], warp_known[32];
-  const int c = blockIdx.x;
+  extern __shared__ float plane[];  // two strip copies, halo rows included
+  __shared__ float warp_sum[kDiffuseThreads / 32], warp_known[kDiffuseThreads / 32];
+  __shared__ float partial[2];      // this strip's (sum, known), read by the cluster
+  __shared__ float box_mean;
+  // received[c]: the neighbours' edge rows of a sweep, written into this
+  // strip's halo rows of copy c (one phase every other sweep)
+  __shared__ alignas(8) unsigned long long received[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Strips g = strips_of(bh, bw);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c = blockIdx.y;
   const int tid = threadIdx.x;
-  const int n = bh * bw;
-  float* cur = plane;
-  float* nxt = plane + n;
-  // the mean of the box's known pixels: integer sums below 2^24, exact in
-  // any order
-  float sum = 0.0f, known = 0.0f;
-  for (int i = tid; i < n; i += kDiffuseThreads) {
-    const size_t at = static_cast<size_t>(by0 + i / bw) * width + bx0 + i % bw;
-    const float k = __fsub_rn(1.0f, rem0[at]);
-    const float v = static_cast<float>(src[at * 3 + c]);
-    cur[i] = v;
-    sum = __fadd_rn(sum, __fmul_rn(v, k));
-    known = __fadd_rn(known, k);
+  const int r0 = rank * bh / g.cluster;
+  const int rows = (rank + 1) * bh / g.cluster - r0;  // >= 1: cluster <= bh
+  const int top = rank > 0;                           // a halo row above
+  const bool has_up = rank > 0, has_down = rank < g.cluster - 1;
+  const int copy = (g.rows_max + g.halos) * bw;       // floats a strip copy
+  const int tx = tid % g.tx, ty = tid / g.tx;
+  if (tid == 0) {
+    mbarrier_init(shared_u32(&received[0]), 1);
+    mbarrier_init(shared_u32(&received[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+
+  // the strip's pixels into both copies; its known pixels' sums; this
+  // thread's hole pixels as a mask, bit k * cols + j for pixel (ty + k ty_,
+  // tx + j tx_)
+  unsigned long long hole = 0ull;
+  float sum = 0.0f, known = 0.0f;
+  for (int k = 0; k < g.rows; ++k) {
+    const int lr = ty + k * g.ty;
+    if (lr >= rows) break;
+    for (int j = 0; j < g.cols; ++j) {
+      const int x = tx + j * g.tx;
+      if (x >= bw) break;
+      const size_t at = static_cast<size_t>(by0 + r0 + lr) * width + bx0 + x;
+      const float r = rem0[at];
+      const float v = static_cast<float>(src[at * 3 + c]);
+      const float kn = __fsub_rn(1.0f, r);
+      sum = __fadd_rn(sum, __fmul_rn(v, kn));
+      known = __fadd_rn(known, kn);
+      plane[(lr + top) * bw + x] = v;
+      plane[copy + (lr + top) * bw + x] = v;
+      if (r > 0.0f) hole |= 1ull << (k * g.cols + j);
+    }
+  }
+  // the box's mean of its known pixels over the cluster: integer sums below
+  // 2^24, exact in any order
 #pragma unroll
   for (int off = 16; off >= 1; off /= 2) {
     sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, off));
@@ -360,52 +479,167 @@ wexler_diffusion_kernel(const uint8_t* __restrict__ src, const float* __restrict
     warp_known[tid >> 5] = known;
   }
   __syncthreads();
-  sum = known = 0.0f;
-  for (int w = 0; w < kDiffuseThreads / 32; ++w) {
-    sum = __fadd_rn(sum, warp_sum[w]);
-    known = __fadd_rn(known, warp_known[w]);
+  if (tid == 0) {
+    sum = known = 0.0f;
+    for (int w = 0; w < kDiffuseThreads / 32; ++w) {
+      sum = __fadd_rn(sum, warp_sum[w]);
+      known = __fadd_rn(known, warp_known[w]);
+    }
+    partial[0] = sum;
+    partial[1] = known;
   }
-  const float mean = __fdiv_rn(sum, fmaxf(known, 1.0f));
-  for (int i = tid; i < n; i += kDiffuseThreads) {
-    const size_t at = static_cast<size_t>(by0 + i / bw) * width + bx0 + i % bw;
-    if (rem0[at] > 0.0f) cur[i] = mean;
+  cluster.sync();  // every CTA runs, its partial and its mbarriers are set
+  if (tid < 32) {
+    sum = known = 0.0f;
+    if (tid < g.cluster) {
+      const float* other = cluster.map_shared_rank(partial, tid);
+      sum = other[0];
+      known = other[1];
+    }
+#pragma unroll
+    for (int off = 16; off >= 1; off /= 2) {
+      sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, off));
+      known = __fadd_rn(known, __shfl_xor_sync(kFull, known, off));
+    }
+    if (tid == 0) box_mean = __fdiv_rn(sum, fmaxf(known, 1.0f));
   }
   __syncthreads();
-  for (int sweep = 0; sweep < bh + bw; ++sweep) {
-    for (int i = tid; i < n; i += kDiffuseThreads) {
-      const int y = i / bw, x = i % bw;
-      const size_t at = static_cast<size_t>(by0 + y) * width + bx0 + x;
-      if (!(rem0[at] > 0.0f)) {
-        nxt[i] = cur[i];
-        continue;
-      }
-      float s = 0.0f;
-#pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int yy = min(max(y + dy, 0), bh - 1);
-#pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) s = __fadd_rn(s, cur[yy * bw + min(max(x + dx, 0), bw - 1)]);
-      }
-      nxt[i] = __fmul_rn(s, ninth);
-    }
-    __syncthreads();
-    float* swap = cur;
-    cur = nxt;
-    nxt = swap;
+  const float mean = box_mean;
+
+  // the neighbours' halo rows that this strip's edge rows feed (the upper
+  // strip's row below its own, the lower strip's row 0; copy 0, copy 1 is
+  // `copy` floats on) and their mbarriers, as shared::cluster addresses
+  const int up_halo = has_up ? ((rank - 1 > 0) + r0 - (rank - 1) * bh / g.cluster) * bw : 0;
+  unsigned up = 0, down = 0, up_bar = 0, down_bar = 0;
+  if (has_up) {
+    up = cluster_address(shared_u32(plane + up_halo), rank - 1);
+    up_bar = cluster_address(shared_u32(&received[0]), rank - 1);
   }
-  for (int i = tid; i < n; i += kDiffuseThreads) {
-    const int y = i / bw, x = i % bw;
-    const size_t at = static_cast<size_t>(by0 + y) * width + bx0 + x;
-    if (!(rem0[at] > 0.0f)) continue;  // known pixels keep the source's value
-    float v = cur[i];
-    if (dither) {
-      // the JAX package's int32 coordinate hash with wrap-around
-      const unsigned h = static_cast<unsigned>(by0 + y) * 92837111u ^
-                         static_cast<unsigned>(bx0 + x) * 689287499u;
-      v = __fadd_rn(v, static_cast<float>(static_cast<int>((h >> 8) % 25u) - 12));
+  if (has_down) {
+    down = cluster_address(shared_u32(plane), rank + 1);
+    down_bar = cluster_address(shared_u32(&received[0]), rank + 1);
+  }
+  // the start: hole pixels take the mean in copy 0; the edge rows go to the
+  // neighbours' halos in both copies (known pixels keep them from then on)
+  float* up_far = has_up ? cluster.map_shared_rank(plane, rank - 1) + up_halo : nullptr;
+  float* down_far = has_down ? cluster.map_shared_rank(plane, rank + 1) : nullptr;
+  for (int k = 0; k < g.rows; ++k) {
+    const int lr = ty + k * g.ty;
+    if (lr >= rows) break;
+    const int rm = (lr + top) * bw;
+    for (int j = 0; j < g.cols; ++j) {
+      const int x = tx + j * g.tx;
+      if (x >= bw) break;
+      if (hole >> (k * g.cols + j) & 1ull) plane[rm + x] = mean;
+      const float v = plane[rm + x];
+      if (lr == 0 && has_up) up_far[x] = up_far[copy + x] = v;
+      if (lr == rows - 1 && has_down) down_far[x] = down_far[copy + x] = v;
     }
-    v = fminf(fmaxf(v, 0.0f), 255.0f);
-    out[at * 3 + c] = static_cast<uint8_t>(__float2int_rz(v));
+  }
+  cluster.sync();
+
+  // bh + bw Jacobi sweeps of the 3 x 3 mean, clamped at the box's edges:
+  // only hole pixels are written.  A sweep waits for the neighbours' edge
+  // rows of the last one, computes its strip, and (after its CTA barrier:
+  // no thread reads the source copy any more, whose halos the neighbours
+  // write next) sends its own edge rows into the neighbours' halo rows of
+  // the copy just written, each store completing its bytes on the
+  // receiver's mbarrier.  No neighbour runs two sweeps ahead: each needs
+  // the other's last edge rows.  The last sweep sends nothing.
+  const int sweeps = bh + bw;
+  const unsigned edge_bytes = (has_up + has_down) * bw * static_cast<unsigned>(sizeof(float));
+  // before a sweep: the neighbours' edge rows of the last one
+  auto receive = [&](int sweep) {
+    if (sweep > 0 && edge_bytes > 0) {
+      mbarrier_wait(shared_u32(&received[sweep & 1]), ((sweep - 1) >> 1) & 1);
+    }
+  };
+  // after it: this strip's edge rows of copy `to` into the neighbours' halos
+  auto send = [&](int sweep) {
+    __syncthreads();
+    if (sweep + 1 == sweeps || edge_bytes == 0) return;
+    const int to = (sweep & 1) ^ 1;
+    if (tid == 0) mbarrier_expect(shared_u32(&received[to]), edge_bytes);
+    const float* nxt = plane + to * copy;
+    const unsigned half = to * copy * static_cast<unsigned>(sizeof(float));
+    const unsigned bar = to * static_cast<unsigned>(sizeof(unsigned long long));
+    for (int x = tid; x < bw; x += kDiffuseThreads) {
+      const unsigned offset = half + x * static_cast<unsigned>(sizeof(float));
+      if (has_up) store_remote(up + offset, nxt[top * bw + x], up_bar + bar);
+      if (has_down) store_remote(down + offset, nxt[(top + rows - 1) * bw + x], down_bar + bar);
+    }
+  };
+  // one hole pixel's new value: the nine terms in (dy, dx) order
+  auto mean9 = [&](const float* cur, int ru, int rm, int rd, int x) {
+    const int xl = max(x - 1, 0), xr = min(x + 1, bw - 1);
+    float v = 0.0f;
+    v = __fadd_rn(v, cur[ru + xl]);
+    v = __fadd_rn(v, cur[ru + x]);
+    v = __fadd_rn(v, cur[ru + xr]);
+    v = __fadd_rn(v, cur[rm + xl]);
+    v = __fadd_rn(v, cur[rm + x]);
+    v = __fadd_rn(v, cur[rm + xr]);
+    v = __fadd_rn(v, cur[rd + xl]);
+    v = __fadd_rn(v, cur[rd + x]);
+    v = __fadd_rn(v, cur[rd + xr]);
+    return __fmul_rn(v, ninth);
+  };
+  if (g.rows == 1 && g.cols == 1) {
+    // at most one pixel a thread (a 128 x 128 box in 16 strips): its offsets
+    // once, then a load-free test a sweep
+    const bool mine = (hole & 1ull) != 0ull;  // implies ty < rows and tx < bw
+    const int rm = (ty + top) * bw;
+    const int ru = ty == 0 && !has_up ? rm : rm - bw;
+    const int rd = ty == rows - 1 && !has_down ? rm : rm + bw;
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      receive(sweep);
+      const int from = sweep & 1;
+      if (mine) plane[(from ^ 1) * copy + rm + tx] = mean9(plane + from * copy, ru, rm, rd, tx);
+      send(sweep);
+    }
+  } else {
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      receive(sweep);
+      const int from = sweep & 1;
+      const float* cur = plane + from * copy;
+      float* nxt = plane + (from ^ 1) * copy;
+      for (int k = 0; k < g.rows; ++k) {
+        const int lr = ty + k * g.ty;
+        if (lr >= rows) break;
+        const int rm = (lr + top) * bw;
+        const int ru = lr == 0 && !has_up ? rm : rm - bw;
+        const int rd = lr == rows - 1 && !has_down ? rm : rm + bw;
+        for (int j = 0; j < g.cols; ++j) {
+          const int x = tx + j * g.tx;
+          if (x >= bw) break;
+          if (hole >> (k * g.cols + j) & 1ull) nxt[rm + x] = mean9(cur, ru, rm, rd, x);
+        }
+      }
+      send(sweep);
+    }
+  }
+  cluster.sync();  // no CTA leaves while a neighbour may still write into it
+
+  // the dither and the clamp into the hole pixels of the output
+  const float* cur = plane + (sweeps & 1) * copy;
+  for (int k = 0; k < g.rows; ++k) {
+    const int lr = ty + k * g.ty;
+    if (lr >= rows) break;
+    for (int j = 0; j < g.cols; ++j) {
+      const int x = tx + j * g.tx;
+      if (x >= bw) break;
+      if (!(hole >> (k * g.cols + j) & 1ull)) continue;  // known pixels keep the source's
+      const int gy = by0 + r0 + lr, gx = bx0 + x;
+      float v = cur[(lr + top) * bw + x];
+      if (dither) {
+        // the JAX package's int32 coordinate hash with wrap-around
+        const unsigned h = static_cast<unsigned>(gy) * 92837111u ^
+                           static_cast<unsigned>(gx) * 689287499u;
+        v = __fadd_rn(v, static_cast<float>(static_cast<int>((h >> 8) % 25u) - 12));
+      }
+      v = fminf(fmaxf(v, 0.0f), 255.0f);
+      out[(static_cast<size_t>(gy) * width + gx) * 3 + c] = static_cast<uint8_t>(__float2int_rz(v));
+    }
   }
 }
 
@@ -415,6 +649,34 @@ int round_pow2(int n) {
   return p;
 }
 
+// The diffusion kernel's attributes, set once a device: its dynamic shared
+// memory past 48 KB and clusters of 16.
+cudaError_t diffusion_attributes() {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(wexler_diffusion_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDiffusionSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(wexler_diffusion_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  done[device] = err == cudaSuccess;
+  return err;
+}
+
+// A box the diffusion kernel takes: 1 <= bh, bw and bh * bw <= 128 * 128.
+bool diffusion_box(int bh, int bw) {
+  if (bh < 1 || bw < 1 || bh > kMaxDiffusionPixels / bw) return false;
+  const Strips g = strips_of(bh, bw);
+  return g.rows * g.cols <= kMaxOwned && g.smem <= kMaxDiffusionSmem;
+}
+
 }  // namespace
 
 extern "C" {
@@ -422,8 +684,16 @@ extern "C" {
 // Targets a commit takes at most (one block).
 int vip_wexler_fill_max_cap() { return kMaxCap; }
 
-// Dynamic shared memory of a diffusion start over a box of n pixels.
-int vip_wexler_diffusion_smem_bytes(int n) { return 2 * n * static_cast<int>(sizeof(float)); }
+// A diffusion start's launch shape over a (bh, bw) box: CTAs a channel (a
+// cluster; 3 clusters a launch) and dynamic shared memory a CTA; -1 for a
+// box it does not take.
+int vip_wexler_diffusion_cluster(int bh, int bw) {
+  return diffusion_box(bh, bw) ? strips_of(bh, bw).cluster : -1;
+}
+
+int vip_wexler_diffusion_smem_bytes(int bh, int bw) {
+  return diffusion_box(bh, bw) ? strips_of(bh, bw).smem : -1;
+}
 
 // rem, rem0: (H, W) f32 (1 = hole); island: (H, W) f32 or null (mode 2
 // only); tyx: (2, cap) int32 targets (ty row, tx row); keys: (tp,) int64;
@@ -472,16 +742,32 @@ int vip_wexler_commit(void* img, void* rem, void* p, const void* keys, const voi
 }
 
 // src: (H, W, 3) u8; rem0: (H, W) f32; out: (H, W, 3) u8, a copy of src
-// whose box hole pixels are written.  ninth: f32(1 / 9).
+// whose box hole pixels are written.  ninth: f32(1 / 9).  A box of more than
+// 128 * 128 pixels launches nothing and returns cudaErrorInvalidValue; a
+// cluster shape the runtime refuses returns its error.
 int vip_wexler_diffusion(const void* src, const void* rem0, void* out, int bh, int bw, int by0,
                          int bx0, int width, int dither, float ninth, void* stream) {
-  const int smem = vip_wexler_diffusion_smem_bytes(bh * bw);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      wexler_diffusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!diffusion_box(bh, bw)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = diffusion_attributes();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  wexler_diffusion_kernel<<<3, kDiffuseThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<const float*>(rem0),
-      static_cast<uint8_t*>(out), bh, bw, by0, bx0, width, dither, ninth);
+  const Strips g = strips_of(bh, bw);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = g.cluster;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(g.cluster, 3, 1);  // a cluster a channel
+  config.blockDim = dim3(kDiffuseThreads, 1, 1);
+  config.dynamicSmemBytes = g.smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, wexler_diffusion_kernel, static_cast<const uint8_t*>(src),
+      static_cast<const float*>(rem0), static_cast<uint8_t*>(out), bh, bw, by0, bx0, width,
+      dither, ninth);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,8 +40,9 @@ metric_launches: Counter = Counter()  # (kernel, metric) -> launches
 # the metric ids of the C entry points, one kernel instantiation each
 METRICS = {"euclidean": 0, "ciede2000": 1, "ciede2000_ref": 2}
 
-# the kernels sum 32 pixels' x in 32 bits and pack an image's raster index
-# in 32; a launch takes at most MAX_BATCH images (the grid's y extent)
+# the snap keys pack an image's raster index in 32 bits; the width bound is
+# the kernels' contract; a launch takes at most MAX_BATCH images (the grid's
+# y extent)
 MAX_WIDTH = 1 << 27
 MAX_PIXELS = (1 << 31) - 1
 MAX_BATCH = 65535
@@ -68,6 +69,8 @@ ARGTYPES = {
         _I32, _I32, _I32,                      # flag_stride, batch, n
         _I32, _I32, _I32, _I32, _I32, _PTR,    # height, width, S, per_row, iteration, stream
     ],
+    "vip_slic_association_blocks": [_I32, _I32],  # height, width
+    "vip_slic_association_occupancy": [_I32],     # metric
     "vip_slic_delta_e": [
         _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # l1, a1, b1, l2, a2, b2, out
         ctypes.c_longlong, _I32, _PTR,         # n, metric, stream
@@ -193,6 +196,14 @@ def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: t
             per_row, iteration, stream_of(lab))
     check_launch(err, "SLIC update")
     update_launches += 1
+
+
+def association_shape(height: int, width: int, metric: str = "euclidean") -> tuple[int, int]:
+    """(blocks an image, blocks an SM can hold) of the association kernel of
+    ``metric`` on an image of this shape: its launch shape, for reports."""
+    lib = _lib()
+    return (lib.vip_slic_association_blocks(height, width),
+            lib.vip_slic_association_occupancy(_metric_id(metric)))
 
 
 def delta_e(l1: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor, l2: torch.Tensor,

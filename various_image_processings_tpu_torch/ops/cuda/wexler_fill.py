@@ -35,7 +35,7 @@ ENERGY_MODE, RING_MODE, ISLAND_MODE = range(3)
 WINDOW = 13
 CHANNELS = 128                     # the search's padded channels
 MAX_CAP = 1024                     # targets a commit takes (one block)
-MAX_DIFFUSION_PIXELS = 128 * 128   # the diffusion start's box, in shared memory
+MAX_DIFFUSION_PIXELS = 128 * 128   # the diffusion start's box, in a cluster's shared memory
 
 ring_pick_launches = 0
 filters_launches = 0
@@ -66,8 +66,11 @@ def _lib() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,          # bh, bw, by0, bx0, width, dither
         ctypes.c_float, ptr,                   # ninth, stream
     ]
+    for name in ("vip_wexler_diffusion_cluster", "vip_wexler_diffusion_smem_bytes"):
+        getattr(lib, name).argtypes = [i32, i32]  # bh, bw
     for name in ("vip_wexler_ring_pick", "vip_wexler_filters", "vip_wexler_commit",
-                 "vip_wexler_diffusion"):
+                 "vip_wexler_diffusion", "vip_wexler_diffusion_cluster",
+                 "vip_wexler_diffusion_smem_bytes"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -204,6 +207,14 @@ def commit_launcher(img: torch.Tensor, rem: torch.Tensor, p: torch.Tensor, keys:
             tyx.data_ptr(), weight.data_ptr(), state.data_ptr(), width, width - WINDOW + 1, cap,
             stream_of(img))
     return _bind("vip_wexler_commit", args, dev, "Wexler commit", "commit_launches")
+
+
+def diffusion_shape(bh: int, bw: int) -> tuple[int, int]:
+    """(CTAs a channel, shared memory bytes a CTA) of the diffusion start's
+    launch on a (bh, bw) box: each channel's box is a cluster of row
+    strips.  For reports."""
+    lib = _lib()
+    return lib.vip_wexler_diffusion_cluster(bh, bw), lib.vip_wexler_diffusion_smem_bytes(bh, bw)
 
 
 def diffusion(src: torch.Tensor, rem0: torch.Tensor, box: tuple, dither: bool,
