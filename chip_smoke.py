@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from ``various_image_processings_tpu_torch/csrc``
 with nvcc (one process per source, in parallel) and prints what ptxas says of
-each kernel; the SLIC association (each metric's instantiation) and the
-diffusion start must spill nothing.  Then, for each path the port has:
+each kernel; the SLIC association (each metric's instantiation), the
+diffusion start and the fill's ring pick and filters must spill nothing.  Then, for each path the port has:
 
 - the bilateral filter (4K k=9): holds the kernel against its plain PyTorch
   version over a parity grid, drives the path through the op, the
@@ -107,8 +107,10 @@ iteration per image at a batch of 1, 4 and 8 against the batch's bound.
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
 times their guide and gradient kernels in turns with this tree's (parent,
-change, change, parent), and a BTF call whose gradient and guide are the
-parent's, in the same process on the same card.
+change, change, parent), a BTF call whose gradient and guide are the
+parent's, and the parent's Wexler ring pick and filters on each state
+phase 16b times (bit-equal to this tree's), in the same process on the same
+card.
 
 Every phase prints a line; any failure exits non-zero.  On success the line
 before the last is ``{"kernels": [...]}`` (the kernels' own runs; the
@@ -224,6 +226,10 @@ PARENT_MS = {
     ("association", "B=4"): "0.0277",
     ("association", "B=8"): "0.0225",
     ("wexler_diffusion", "128x128"): "1.5137",
+    # the fill's ring pick and filters before their word masks and staged
+    # windows (PR 15's run B at the 5a energy pass)
+    ("wexler_ring_pick", "5a energy pass, cap 1024"): "0.0053",
+    ("wexler_filters", "5a energy pass, cap 1024"): "0.0147",
 }
 
 # phase 26: one 4K bilateral filter under utils.profiling.trace, in its own process
@@ -352,14 +358,16 @@ def sass_loops(funcs: dict, name_part: str) -> list[tuple[str, int, Counter]]:
 
 
 def build_parent(csrc: str):
-    """The guide and gradient kernels of another tree's csrc/ (the
-    parent's), built with this tree's nvcc flags, as a ctypes library."""
+    """The guide, gradient, ring-pick and filters kernels of another tree's
+    csrc/ (the parent's), built with this tree's nvcc flags, as a ctypes
+    library."""
     import ctypes
 
     from various_image_processings_tpu_torch.ops.cuda import _build
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
-    srcs = [os.path.join(csrc, f) for f in ("bilateral_texture.cu", "gradient.cu")]
+    srcs = [os.path.join(csrc, f) for f in ("bilateral_texture.cu", "gradient.cu",
+                                              "wexler_fill.cu")]
     objs = [str(out / (os.path.basename(f) + ".o")) for f in srcs]
     nvcc = _build.nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, f] for f, o in zip(srcs, objs)])
@@ -369,7 +377,41 @@ def build_parent(csrc: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     cdll.vip_guide.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
     cdll.vip_gradient.argtypes = [p, p, i, i, i, i, p]
+    cdll.vip_wexler_ring_pick.argtypes = [p] * 6 + [i] * 8 + [p]
+    cdll.vip_wexler_filters.argtypes = [p] * 7 + [i] * 9 + [p]
     return cdll
+
+
+def parent_fill_launch(parent, piece: str, k):
+    """A launch of the parent's ring pick or filters kernel on the buffers
+    of the ``_FillPass`` k, as k's own launcher binds them."""
+    import torch
+
+    from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill
+
+    bh, bw, by0, bx0 = k.box
+    stream = torch.cuda.current_stream().cuda_stream
+    if piece == "ring_pick":
+        mode = (kfill.ENERGY_MODE if not k.initial else kfill.RING_MODE if k.island is None
+                else kfill.ISLAND_MODE)
+        args = (k.rem.data_ptr(), k.rem0.data_ptr(),
+                None if k.island is None else k.island.data_ptr(), k.tyx.data_ptr(),
+                k.keys.data_ptr(), k.state.data_ptr(), bh, bw, by0, bx0, k.width, k.cap,
+                k.keys.shape[0], mode, stream)
+        fn = parent.vip_wexler_ring_pick
+    else:
+        args = (k.img.data_ptr(), k.rem.data_ptr(), k.tyx.data_ptr(), k.state.data_ptr(),
+                k.f.data_ptr(), k.b2.data_ptr(), k.valid.data_ptr(), k.height, k.width, k.cap,
+                k.f.shape[1], int(k.initial),
+                *kfill.validity_region(k.height, k.width, k.box), stream)
+        fn = parent.vip_wexler_filters
+
+    def go() -> None:
+        err = fn(*args)
+        if err:
+            raise SystemExit(f"the parent's Wexler {piece} did not launch: cudaError_t {err}")
+
+    return go
 
 
 def smooth_image(h: int, w: int, seed: int) -> np.ndarray:
@@ -720,6 +762,7 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
     from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
     from various_image_processings_tpu_torch.models import slic
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
+    from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
 
     t_start = time.perf_counter()
     s_size, iters, m = SLIC_PARAMS
@@ -749,7 +792,7 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
     rtol, atol = DELTA_E_TOL
     lab = bgr2lab_u8_exact(img)
     edge = delta_e_pairs()
-    pair_worst = {}
+    pair_worst, pair_times = {}, {}
     for metric in DELTA_E_METRICS:
         fn = getattr(ciede2000, f"{metric}_square")
         raw, centers, _, _ = slic.slic_device(lab, h, w, s_size, iters, m, metric)
@@ -759,6 +802,14 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
             want, got = fn(*v), kslic.delta_e(*v, metric)
             diffs.append((max_abs(got, want), int((got != want).sum())))
         pair_worst[metric] = max(d for d, _ in diffs)
+        # the pair kernel's time on the run's pairs (a check's kernel: these
+        # launches are not the main path's), its plain version's and its bound
+        k_ms = queued_ms(lambda: kslic.delta_e(*run, metric), 20)
+        p_ms = cuda_time_ms(lambda: fn(*run), iters=3, warmup=1)
+        n_pairs = run.shape[1]
+        b_ms, b_by = bound(7 * 4 * n_pairs, DELTA_E_OPS * n_pairs)
+        pair_times[metric] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "pairs": n_pairs}
         seeded = edge[:, :1 << 16]
         de_card = torch.cat([fn(*run), fn(*seeded.to(dev))]).cpu()
         de_cpu = torch.cat([fn(*run.cpu()), fn(*seeded)])
@@ -768,7 +819,8 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
               f"({diffs[0][1]}), over the {h}x{w} run's {h * w} (center, pixel) pairs "
               f"{diffs[1][0]} ({diffs[1][1]}) (tolerance 0); card vs CPU on the run's pairs and "
               f"65536 seeded pairs max |diff| {max_abs(de_card, de_cpu):.3g} (rtol {rtol}, "
-              f"atol {atol}: {de_ok})")
+              f"atol {atol}: {de_ok}); kernel {k_ms:.4f} ms on the run's {n_pairs} pairs, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
         if pair_worst[metric] or not de_ok:
             raise SystemExit(f"{metric}: the pair kernel or the card's ΔE is off")
 
@@ -831,6 +883,7 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
     show(f"{h4}x{w4} smooth ciede2000", t)
     check_kmeans(f"{h4}x{w4} smooth ciede2000", t)
     results["pair_max_abs_err"] = pair_worst
+    results["pair_kernel"] = pair_times
     phase(f"phase 23 took {time.perf_counter() - t_start:.1f} s")
     return results
 
@@ -1670,13 +1723,18 @@ def queued_ms(fn, n: int = 50) -> float:
 
 
 def fill_grid_cases() -> list[tuple]:
-    """(label, image u8, hole bool, initial, cap, whole-image box): the fill
-    kernels' grid.  Images of values 0..127 (the search is exact, so every
-    piece is compared) unless the label says 0..255 (the search is not
-    compared there: its sums round in each order)."""
+    """(label, image u8, hole bool, initial, cap, box): the fill kernels'
+    grid.  box is None for the hole's bucketed box, else (bh, bw, by0, bx0):
+    the whole image, or a tight box 33 or 65 pixels wide (one or two
+    ring-pick words and a pixel), one row tall, or at the image's left edge
+    (the validity region starts at column 0).  Images of values 0..127 (the
+    search is exact, so every piece is compared) unless the label says
+    0..255 (the search is not compared there: its sums round in each
+    order)."""
     from various_image_processings_tpu_torch.core.rng import random_image
 
     wh, ww = WEXLER_SHAPE
+    whole = (wh, ww, 0, 0)
     tex = np.tile(random_image(37, 53) // 2, (-(-wh // 37), -(-ww // 53), 1))[:wh, :ww].copy()
     full = np.tile(random_image(37, 53), (-(-wh // 37), -(-ww // 53), 1))[:wh, :ww].copy()
     masks = {k: v > 0 for k, v in wexler_masks(wh, ww).items()}
@@ -1688,47 +1746,69 @@ def fill_grid_cases() -> list[tuple]:
     border[0:9, 50:70] = True
     lone = np.zeros((20, 20), bool)
     lone[9, 9] = True                                  # every window covers it: the search fails
+    # 5c with an annulus around a known island: the restricted ring, whole image
+    island = masks["5c"].copy()
+    yy, xx = np.mgrid[:wh, :ww]
+    d = (yy - 90) ** 2 + (xx - 150) ** 2
+    island[(d <= 14 ** 2) & (d > 4 ** 2)] = True
+    tight = {}
+    for label, (ys, xs) in {"33 wide": (slice(20, 31), slice(17, 50)),
+                            "65 wide": (slice(22, 27), slice(2, 67)),
+                            "one row": (slice(33, 34), slice(9, 61)),
+                            "left edge": (slice(14, 40), slice(0, 23))}.items():
+        hole = np.zeros((60, 70), bool)
+        hole[ys, xs] = True
+        tight[label] = (hole, (ys.stop - ys.start, xs.stop - xs.start, ys.start, xs.start))
 
     def prefill(img, hole):
         out = img.copy()
         out[hole] = 64
         return out
 
-    return [
-        ("5a onion peel, cap 256", tex, masks["5a"], True, 256, False),
-        ("5a energy pass, cap 1024", prefill(tex, masks["5a"]), masks["5a"], False, 1024, False),
-        ("5a energy pass, cap 16", prefill(tex, masks["5a"]), masks["5a"], False, 16, False),
+    cases = [
+        ("5a onion peel, cap 256", tex, masks["5a"], True, 256, None),
+        ("5a energy pass, cap 1024", prefill(tex, masks["5a"]), masks["5a"], False, 1024, None),
+        ("5a energy pass, cap 16", prefill(tex, masks["5a"]), masks["5a"], False, 16, None),
         ("5a energy pass, cap 1024, values 0..255", prefill(full, masks["5a"]), masks["5a"],
-         False, 1024, False),
-        ("5c onion peel, whole-image box, cap 256", tex, masks["5c"], True, 256, True),
+         False, 1024, None),
+        ("5c onion peel, whole-image box, cap 256", tex, masks["5c"], True, 256, whole),
         ("5c energy pass, whole-image box, cap 1024", prefill(tex, masks["5c"]), masks["5c"],
-         False, 1024, True),
+         False, 1024, whole),
+        ("5c + annulus island, whole-image box, onion peel, cap 1024", tex, island, True, 1024,
+         whole),
         ("200x300 64x64 box, energy pass, cap 1024", prefill(tex[:200, :300], small), small,
-         False, 1024, False),
-        ("200x300 64x64 box, onion peel, cap 64", tex[:200, :300], small, True, 64, False),
-        ("hole at the image border, onion peel, cap 64", tex[:60, :70], border, True, 64, False),
+         False, 1024, None),
+        ("200x300 64x64 box, onion peel, cap 64", tex[:200, :300], small, True, 64, None),
+        ("hole at the image border, onion peel, cap 64", tex[:60, :70], border, True, 64, None),
         ("hole at the image border, energy pass, cap 16", prefill(tex[:60, :70], border), border,
-         False, 16, False),
-        ("island mask (annulus), onion peel, cap 256", tex[:60, :70], annulus, True, 256, False),
+         False, 16, None),
+        ("island mask (annulus), onion peel, cap 256", tex[:60, :70], annulus, True, 256, None),
         ("island mask (annulus), whole-image box, cap 32", tex[:60, :70], annulus, True, 32,
-         True),
-        ("failing search 20x20, onion peel", tex[:20, :20], lone, True, 256, False),
-        ("failing search 20x20, energy pass", tex[:20, :20], lone, False, 16, False),
+         (60, 70, 0, 0)),
+        ("failing search 20x20, onion peel", tex[:20, :20], lone, True, 256, None),
+        ("failing search 20x20, energy pass", tex[:20, :20], lone, False, 16, None),
     ]
+    for label, (hole, box) in tight.items():
+        cases.append((f"{label} box, onion peel, cap 16", tex[:60, :70], hole, True, 16, box))
+        cases.append((f"{label} box, energy pass, cap 64", prefill(tex[:60, :70], hole), hole,
+                      False, 64, box))
+    return cases
 
 
-def fill_pass_for(wexler, img_np, hole, initial, cap, whole, route, dev):
+def fill_pass_for(wexler, img_np, hole, initial, cap, box, route, dev):
     """A ``_FillPass`` on the card for one grid case."""
     import torch
 
     h, w = hole.shape
-    (bh, bw), (by0, bx0) = ((h, w), (0, 0)) if whole else wexler.WexlerInpainting._hole_bbox(hole)
+    if box is None:
+        (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
+        box = (bh, bw, by0, bx0)
     island = wexler._island_known(hole) if initial else None
     rem = torch.from_numpy(hole.astype(np.float32)).to(dev)
     weight = torch.from_numpy(wexler.calculate_weight(hole).astype(np.float32)).to(dev)
     island = None if island is None else torch.from_numpy(island.astype(np.float32)).to(dev)
     return wexler._FillPass(torch.from_numpy(img_np).to(dev).float(), rem, weight, h, w, initial,
-                            cap, (bh, bw, by0, bx0), island, route)
+                            cap, box, island, route)
 
 
 FILL_PIECES = ("ring_pick", "filters", "search", "commit")
@@ -1767,7 +1847,77 @@ def diffusion_case(h: int, w: int, box: tuple, seed: int = 0) -> tuple[np.ndarra
     return src, hole.astype(np.float32)
 
 
-def fill_kernel_phases(dev) -> dict:
+def fill_a_b(parent, piece: str, k) -> str:
+    """The parent's ``piece`` kernel and this tree's on the state of the
+    ``_FillPass`` k, timed in turns (parent, change, change, parent), then
+    each once from that state with every buffer compared bit for bit.
+    Returns the parent's times ("a / b ms") and leaves k's buffers as one
+    launch of this tree's kernel leaves them."""
+    import torch
+
+    snap = {name: getattr(k, name).clone() for name in FILL_BUFFERS}
+    fns = {"parent": parent_fill_launch(parent, piece, k), "change": getattr(k, piece)}
+    ms = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        ms[who].append(queued_ms(fns[who], 50))
+    after = {}
+    for who in ("parent", "change"):
+        for name, t in snap.items():
+            getattr(k, name).copy_(t)
+        fns[who]()
+        after[who] = {name: getattr(k, name).clone() for name in FILL_BUFFERS}
+    torch.cuda.synchronize()
+    bad = [name for name in FILL_BUFFERS
+           if not torch.equal(after["parent"][name].view(torch.uint8)
+                              if after["parent"][name].dtype != torch.uint8
+                              else after["parent"][name],
+                              after["change"][name].view(torch.uint8)
+                              if after["change"][name].dtype != torch.uint8
+                              else after["change"][name])]
+    if bad:
+        raise SystemExit(f"the parent's Wexler {piece} and this tree's differ in {bad}")
+    return " / ".join(f"{t:.4f}" for t in ms["parent"]) + " ms in turns"
+
+
+def fill_work(k) -> dict:
+    """{piece: (bytes, operations)} of an iteration of the pass ``k`` after
+    its ring pick: the ring pick reads the box's rows up to its last target's
+    (onion peels: one more, and with islands the seed masks where a pixel is
+    known) and writes the targets and keys; the filters read the image and
+    mask under the targets' and the validity region's windows and write the
+    targets' filters, b2 and the region's map; the commit reads and writes
+    what its targets touch."""
+    import torch
+    from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill
+
+    height, width = k.height, k.width
+    bh, bw, by0, bx0 = k.box
+    cap, tp = k.cap, k.f.shape[1]
+    count = int(k.state[kfill.COUNT])
+    rows = bh
+    if count == cap:  # the scan stops at the band that holds the cap-th target
+        rows = min(bh, int(k.tyx[0, cap - 1]) - by0 + 1 + k.initial)
+    rem_box = k.rem[by0 : by0 + rows, bx0 : bx0 + bw]
+    seeds = 0
+    if k.island is not None:
+        known = rem_box == 0
+        seeds = int(known.sum()) + int((known & (k.rem0[by0 : by0 + rows, bx0 : bx0 + bw] <= 0))
+                                       .sum())
+    vy0, vx0, vh, vw = kfill.validity_region(height, width, k.box)
+    tmap = torch.zeros((height, width), device=k.rem.device)
+    tmap[k.tyx[0, :count].long(), k.tyx[1, :count].long()] = 1.0
+    under = torch.nn.functional.max_pool2d(tmap[None, None], 13, 1, 6)[0, 0] > 0
+    under[vy0 : vy0 + vh + 12, vx0 : vx0 + vw + 12] = True
+    return {
+        "ring_pick": (rows * bw * 4 + seeds * 4 + 2 * cap * 4 + tp * 8 + 32, 9 * rows * bw),
+        "filters": (int(under.sum()) * 16 + count * (13 * 117 * 2 + 4) + vh * vw,
+                    count * (13 * 117 + 2 * 507) + vh * vw * 169),
+        "commit": (count * (8 + 4 + 8 + 4 + 12 + 12 + 4 + 13 * 9 * 2) + 32,
+                   count * (9 + 13 * 9 + 2) + 2 * count),
+    }
+
+
+def fill_kernel_phases(dev, parent=None) -> dict:
     """Phases 14b and 16b: the fill-loop kernels (csrc/wexler_fill.cu; the
     JAX package runs the loop as XLA while_loops, no Pallas kernel).  14b:
     each kernel against its plain piece on the card, bit for bit: a kernel
@@ -1777,9 +1927,15 @@ def fill_kernel_phases(dev) -> dict:
     diffusion start against the plain ``_alt_init_device`` on a 128x128 box
     and a 50x87 level, with and without the dither.  16b: each kernel's
     device time at the 5a top level's energy pass (402x700, a 128x128 box,
-    cap 1024), queued behind a sleep kernel, its plain piece's and its
-    bound; the diffusion start's on a 128x128 box.  Returns {kernel: {max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, at}}."""
+    cap 1024), the ring pick's and the filters' also at the 5a onion peel
+    (cap 256) and on the whole-image 5c box with an island (cap 1024), queued
+    behind a sleep kernel, its plain piece's and its bound; the diffusion
+    start's on a 128x128 box; the ring pick and filters at each of the 5a
+    energy pass's first 4 iterations (its scan ends lower in the box each
+    time), and with ``parent`` (``build_parent``) the parent's ring pick and
+    filters in turns with this tree's (parent, change, change, parent) on
+    every state timed, their buffers bit-equal.  Returns {kernel:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, at[, other_shapes]}}."""
     import torch
 
     from various_image_processings_tpu_torch.models import inpainting as wexler
@@ -1807,10 +1963,12 @@ def fill_kernel_phases(dev) -> dict:
     t_start = time.perf_counter()
     cases = iterations = 0
     worst = dict.fromkeys(FILL_KERNELS, 0.0)
-    for label, img_np, hole, initial, cap, whole in fill_grid_cases():
+    for label, img_np, hole, initial, cap, box in fill_grid_cases():
         exact = "0..255" not in label
-        k = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "cuda", dev)
-        p = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "torch", dev)
+        k = fill_pass_for(wexler, img_np, hole, initial, cap, box, "cuda", dev)
+        p = fill_pass_for(wexler, img_np, hole, initial, cap, box, "torch", dev)
+        if "island" in label and k.island is None:
+            raise SystemExit(f"fill grid FAILED: {label} has no known island")
         for it in range(FILL_GRID_ITERATIONS):
             for piece in FILL_PIECES:
                 for name in FILL_BUFFERS:
@@ -1869,51 +2027,73 @@ def fill_kernel_phases(dev) -> dict:
             diffusion_cases += 1
     torch.cuda.synchronize()
     phase(f"14b. Wexler fill kernels vs their plain pieces on the card: {cases} passes "
-          f"({iterations} iterations; boxes 64x64 to the whole 402x700 image, caps 16 to 1024, "
-          f"onion peel and energy passes, a hole at the image border, an island mask, a "
-          f"failing search, a full-range image), every buffer bit-equal after every piece "
+          f"({iterations} iterations; boxes 64x64 to the whole 402x700 image and tight boxes "
+          f"33 and 65 wide, one row tall and at the image's left edge, caps 16 to 1024, onion "
+          f"peel and energy passes, a hole at the image border, island masks (the whole 5c "
+          f"image with an annulus), a failing search, a full-range image), every buffer "
+          f"bit-equal after every piece "
           f"(ring pick, filters, commit; the search where the image is exact); diffusion start "
           f"{diffusion_cases} cases (boxes, with their CTAs a channel: {clusters}; dither off "
           f"and on) bit-equal (tolerance 0); max |diff| {worst} "
           f"({time.perf_counter() - t_start:.1f} s)")
 
-    # 16b. times at the 5a top level's energy pass, and bounds from this run's
-    #      work; max_abs_err is phase 14b's largest difference
-    wh, ww = WEXLER_SHAPE
+    # 16b. times at the 5a top level's energy pass (the kernels line's), at
+    #      its onion peel and on the whole-image 5c box with an island, and
+    #      bounds from each pass's own work; max_abs_err is phase 14b's
+    #      largest difference
     out = {}
-    _, img_np, hole, initial, cap, whole = next(c for c in fill_grid_cases()
-                                                if c[0] == "5a energy pass, cap 1024")
-    k = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "cuda", dev)
-    p = fill_pass_for(wexler, img_np, hole, initial, cap, whole, "torch", dev)
-    k.ring_pick()
-    k.filters()
-    k.search()
-    for name in FILL_BUFFERS:
-        getattr(p, name).copy_(getattr(k, name))
-    bh, bw, by0, bx0 = k.box
-    count, tp = int(k.state[kfill.COUNT]), k.f.shape[1]
-    vy0, vx0, vh, vw = kfill.validity_region(wh, ww, k.box)
-    # the image and mask under the targets' windows and the validity windows, read once
-    tmap = torch.zeros((wh, ww), device=dev)
-    tmap[k.tyx[0, :count].long(), k.tyx[1, :count].long()] = 1.0
-    under = torch.nn.functional.max_pool2d(tmap[None, None], 13, 1, 6)[0, 0] > 0
-    under[vy0 : vy0 + vh + 12, vx0 : vx0 + vw + 12] = True
-    work = {
-        "ring_pick": (bh * bw * 4 + 2 * cap * 4 + tp * 8 + 32, 9 * bh * bw),
-        "filters": (int(under.sum()) * 16 + count * (13 * 117 * 2 + 4) + vh * vw,
-                    count * (13 * 117 + 2 * 507) + vh * vw * 169),
-        "commit": (count * (8 + 4 + 8 + 4 + 12 + 12 + 4 + 13 * 9 * 2) + 32,
-                   count * (9 + 13 * 9 + 2) + 2 * count),
-    }
-    at = f"{wh}x{ww} 5a, box {bh}x{bw}, cap {cap}, {count} targets"
-    for piece in ("ring_pick", "filters", "commit"):
-        k_ms = queued_ms(getattr(k, piece), 50)
-        p_ms = cuda_time_ms(getattr(p, piece), iters=5, warmup=1)
-        b_ms, b_by = bound(*work[piece])
-        out[f"wexler_{piece}"] = {"max_abs_err": worst[f"wexler_{piece}"], "ms": k_ms,
-                                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "at": at}
-        phase(f"16b. wexler_{piece} at {at} (energy pass): kernel {k_ms:.4f} ms, plain piece "
-              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
+    timed = (("5a energy pass, cap 1024", ("ring_pick", "filters", "commit")),
+             ("5a onion peel, cap 256", ("ring_pick", "filters")),
+             ("5c + annulus island, whole-image box, onion peel, cap 1024",
+              ("ring_pick", "filters")))
+    grid = {c[0]: c[1:] for c in fill_grid_cases()}
+    for label, pieces in timed:
+        img_np, hole, initial, cap, box = grid[label]
+        k = fill_pass_for(wexler, img_np, hole, initial, cap, box, "cuda", dev)
+        p = fill_pass_for(wexler, img_np, hole, initial, cap, box, "torch", dev)
+        k.ring_pick()
+        k.filters()
+        k.search()
+        for name in FILL_BUFFERS:
+            getattr(p, name).copy_(getattr(k, name))
+        work = fill_work(k)
+        bh, bw, _, _ = k.box
+        at = (f"{k.height}x{k.width} {label.split(',')[0]}, box {bh}x{bw}, cap {cap}, "
+              f"{int(k.state[kfill.COUNT])} targets")
+        for piece in pieces:
+            name = f"wexler_{piece}"
+            k_ms = queued_ms(getattr(k, piece), 50)
+            p_ms = cuda_time_ms(getattr(p, piece), iters=5, warmup=1)
+            b_ms, b_by = bound(*work[piece])
+            cell = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "at": at}
+            if name in out:
+                out[name]["other_shapes"].append(cell)
+            else:
+                out[name] = {"max_abs_err": worst[name], **cell, "other_shapes": []}
+            was = PARENT_MS.get((name, label), "not measured")
+            if parent is not None and piece in ("ring_pick", "filters"):
+                was = fill_a_b(parent, piece, k)
+            phase(f"16b. {name} at {at}: kernel {k_ms:.4f} ms (parent {was}), plain piece "
+                  f"{p_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({k_ms / b_ms:.0f}x)")
+    # the 5a energy pass's first iterations: each one's targets lie further
+    # down the box, where a scan that stops at cap goes further
+    img_np, hole, initial, cap, box = grid["5a energy pass, cap 1024"]
+    k = fill_pass_for(wexler, img_np, hole, initial, cap, box, "cuda", dev)
+    for it in range(4):
+        times = []
+        for piece in ("ring_pick", "filters"):  # each on the state the pass gives it
+            snap = {name: getattr(k, name).clone() for name in FILL_BUFFERS}
+            k_ms = queued_ms(getattr(k, piece), 50)
+            was = "" if parent is None else f" (parent {fill_a_b(parent, piece, k)})"
+            times.append(f"{piece} {k_ms:.4f} ms{was}")
+            for name, t in snap.items():
+                getattr(k, name).copy_(t)
+            getattr(k, piece)()
+        last = int(k.tyx[0, k.cap - 1]) - k.box[2]
+        k.search()
+        k.commit()
+        phase(f"16b. 5a energy pass, iteration {it + 1} (targets down to box row {last}): "
+              + ", ".join(times))
     # the diffusion start on a 128x128 box: (bh + bw) sweeps of 9 adds and a
     # product a hole pixel and channel
     img = torch.from_numpy(random_image(128, 128)).to(dev)
@@ -2028,14 +2208,16 @@ def main() -> int:
     ptxas = ptxas_summary(_build.ptxas_report())
     for name, (regs, st, ld) in ptxas.items():
         phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    # the association (each metric's instantiation) and the diffusion start
-    # must spill nothing
+    # the association (each metric's instantiation), the diffusion start, the
+    # ring pick and the filters must spill nothing
     unspilled = {name: (st, ld) for name, (_, st, ld) in ptxas.items()
-                 if "slic_association_kernel" in name or "wexler_diffusion_kernel" in name}
-    phase(f"association and diffusion-start kernels: {len(unspilled)} instantiations, spill "
-          f"(stores, loads) {sorted(set(unspilled.values()))} B")
-    if len(unspilled) != 4 or any(st or ld for st, ld in unspilled.values()):
-        raise SystemExit(f"the association or diffusion-start kernels spill: {unspilled}")
+                 if any(k in name for k in ("slic_association_kernel", "wexler_diffusion_kernel",
+                                            "wexler_ring_pick_kernel", "wexler_filters_kernel"))}
+    phase(f"association, diffusion-start, ring-pick and filters kernels: {len(unspilled)} "
+          f"instantiations, spill (stores, loads) {sorted(set(unspilled.values()))} B")
+    if len(unspilled) != 6 or any(st or ld for st, ld in unspilled.values()):
+        raise SystemExit(f"the association, diffusion-start, ring-pick or filters kernels "
+                         f"spill: {unspilled}")
     funcs = sass_functions(str(_build.library_path()))
     for part, what in (("bilateral_kernelILb0ELi4E", "bilateral self, 4 pixels a thread"),
                        ("adaptive_bilateral_kernel", "adaptive bilateral"),
@@ -2057,7 +2239,7 @@ def main() -> int:
     if "--parent-csrc" in sys.argv:
         t0 = time.perf_counter()
         parent = build_parent(sys.argv[sys.argv.index("--parent-csrc") + 1])
-        phase(f"built the parent's guide and gradient kernels in "
+        phase(f"built the parent's guide, gradient, ring-pick and filters kernels in "
               f"{time.perf_counter() - t0:.2f} s")
     def parent_gradient(src):
         out = torch.empty(src.shape[:2], dtype=torch.float32, device=src.device)
@@ -2623,7 +2805,7 @@ def main() -> int:
           f"the {s_clear} targets (of {s_picks}) whose best energy leads by more than 2 tol; "
           f"{s_none} cases with no valid candidate gave (+inf, 0)")
 
-    fill_k = fill_kernel_phases(dev)
+    fill_k = fill_kernel_phases(dev, parent)
 
     # 15. the Wexler path, counted: configs 5a and 5c through op, module and
     #     CLI on a 402x700 periodic texture of values 0..127 (the true hole
@@ -2756,18 +2938,40 @@ def main() -> int:
     #     3) and, from one profiled call, the device-busy share and the search
     #     and fill kernels' shares of that wall time; then the loop body: two
     #     energy passes whose iteration counts differ launch the same number
-    #     of other device kernels, so an iteration holds no torch op.  The
-    #     energy passes' profiles record their second step: a cold trace can
-    #     miss a step's first kernels, which this count would read as fewer
-    #     launches
-    warm_step = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    #     of other device kernels, so an iteration holds no torch op.  Every
+    #     profile is a full_trace
     loop_kernels = ("wexler_ring_pick_kernel", "wexler_filters_kernel", "wexler_search_kernel",
                     "wexler_commit_kernel")
+
+    retakes = [0]
+
+    def full_trace(run, activities):
+        """A profile of run() that recorded every launch. A trace, warm or
+        cold, can miss a prefix of its events, so a spin kernel opens the
+        trace, and the trace is taken again, 5 times at most, until it holds
+        that kernel and as many loop kernels as the wrappers counted;
+        retakes[0] counts the traces taken again."""
+        for attempt in range(5):
+            retakes[0] += attempt > 0
+            reset()
+            with torch.profiler.profile(activities=activities) as prof:
+                torch.cuda._sleep(1 << 20)
+                torch.cuda.synchronize()
+                run()
+            launched = sum(read_fill()[:3]) + read()[5]
+            seen = Counter()
+            for evt in prof.key_averages():
+                if evt.device_type == torch.autograd.DeviceType.CUDA:
+                    seen["spin" if "spin_kernel" in evt.key
+                         else any(name in evt.key for name in loop_kernels)] += evt.count
+            if seen["spin"] == 1 and seen[True] >= launched:
+                return prof
+        raise SystemExit("the profiler dropped launches from 5 traces of a Wexler run")
 
     def device_us(prof) -> tuple[float, float, float]:
         total = search = fill = 0.0
         for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if evt.device_type != torch.autograd.DeviceType.CUDA or "spin_kernel" in evt.key:
                 continue
             us = getattr(evt, "self_device_time_total", None)
             us = evt.self_cuda_time_total if us is None else us
@@ -2790,11 +2994,9 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         wall = statistics.median(walls)
-        reset()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            vt.inpainting_wexler(wex, mask)
-            torch.cuda.synchronize()
+        prof = full_trace(lambda: (vt.inpainting_wexler(wex, mask), torch.cuda.synchronize()),
+                          [torch.profiler.ProfilerActivity.CPU,
+                           torch.profiler.ProfilerActivity.CUDA])
         n_search = read()[5]
         busy_us, search_us, fill_us = device_us(prof)
         wex_walls[cfg] = wall
@@ -2824,14 +3026,10 @@ def main() -> int:
             torch.cuda.synchronize()
 
         energy_pass()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                    schedule=warm_step) as prof:
-            for _ in range(2):
-                energy_pass()
-                prof.step()
+        prof = full_trace(energy_pass, [torch.profiler.ProfilerActivity.CUDA])
         counts = Counter()
         for evt in prof.key_averages():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in evt.key:
                 counts[any(name in evt.key for name in loop_kernels)] += evt.count
         body[n_iter] = (counts[True], counts[False])
     (n_a, (ours_a, other_a)), (n_b, (ours_b, other_b)) = body.items()
@@ -2841,7 +3039,8 @@ def main() -> int:
         phase(f"Wexler loop body (an energy pass at the 5a top level, {wh}x{ww}): "
               f"{n_a} iterations launch {ours_a} loop kernels and {other_a} other device "
               f"kernels and copies, {n_b} iterations {ours_b} and {other_b}: "
-              f"{(other_b - other_a) / (n_b - n_a):g} torch ops an iteration")
+              f"{(other_b - other_a) / (n_b - n_a):g} torch ops an iteration; {retakes[0]} "
+              f"incomplete traces of phase 17 taken again")
         if ours_a != 4 * n_a or ours_b != 4 * n_b or other_a != other_b:
             raise SystemExit("the Wexler loop body launches more than its 4 kernels")
     wex_paths["loop_body"] = {str(n): list(v) for n, v in body.items()}
@@ -3035,6 +3234,8 @@ def main() -> int:
                                                   "bound_by")},
             "library_ms": None,
             "at": fill_k[name]["at"],
+            **({"other_shapes": fill_k[name]["other_shapes"]}
+               if fill_k[name].get("other_shapes") else {}),
         })
     s_size, iters, m = SLIC_PARAMS
     # the euclidean instantiations, the update kernel (every metric's), then

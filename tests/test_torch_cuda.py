@@ -708,32 +708,57 @@ def test_wexler_full_range_fill_within_the_psnr_window(cuda, image):
 
 
 def fill_case(name):
-    """(image u8, hole bool): the fill kernels' small cases."""
-    img = np.tile(random_image(37, 53) // 2, (4, 4, 1))
+    """(image u8, hole bool, box (bh, bw, by0, bx0) or None for the bucketed
+    box): the fill kernels' cases.  The tight boxes are 33 and 65 pixels
+    wide (one ring-pick word and one pixel, two words and one), one row, at
+    the image's left edge (the validity region starts at column 0), and the
+    whole 402x700 image for config 5c's mask with an annulus around a known
+    island."""
+    img = np.tile(random_image(37, 53) // 2, (11, 14, 1))
     yy, xx = np.mgrid[:60, :70]
     holes = {
         "square": (slice(20, 30), slice(25, 37)),
         "border": (slice(0, 9), slice(50, 70)),
+        "width 33": (slice(20, 31), slice(17, 50)),
+        "width 65": (slice(22, 27), slice(2, 67)),
+        "one row": (slice(33, 34), slice(9, 61)),
+        "left edge": (slice(14, 40), slice(0, 23)),
     }
     if name == "annulus":
         d = (yy - 30) ** 2 + (xx - 35) ** 2
-        return img[:60, :70].copy(), (d <= 144) & (d > 9)
+        return img[:60, :70].copy(), (d <= 144) & (d > 9), None
     if name == "lone":
         hole = np.zeros((20, 20), bool)
         hole[9, 9] = True
-        return img[:20, :20].copy(), hole
+        return img[:20, :20].copy(), hole, None
+    if name == "5c island":
+        h, w = 402, 700
+        cy, cx = h // 2, w // 2
+        yy, xx = np.mgrid[:h, :w]
+        hole = np.zeros((h, w), bool)
+        hole[cy - 40 : cy + 8, cx - 50 : cx - 30] = True
+        hole[cy - 8 : cy + 8, cx - 50 : cx + 10] = True
+        hole[(yy - (cy + 60)) ** 2 + (xx - (cx + 80)) ** 2 <= 18 ** 2] = True
+        hole[cy + 100 : cy + 104, cx - 60 : cx + 60] = True
+        d = (yy - 90) ** 2 + (xx - 150) ** 2
+        hole[(d <= 14 ** 2) & (d > 4 ** 2)] = True
+        return img[:h, :w].copy(), hole, (h, w, 0, 0)
     hole = np.zeros((60, 70), bool)
     hole[holes[name]] = True
-    return img[:60, :70].copy(), hole
+    ys, xs = holes[name]
+    box = None if name in ("square", "border") else (ys.stop - ys.start, xs.stop - xs.start,
+                                                     ys.start, xs.start)
+    return img[:60, :70].copy(), hole, box
 
 
 def fill_passes(name, initial, cap, device):
     """A kernel pass and a plain pass on the card from the same inputs."""
-    img, hole = fill_case(name)
+    img, hole, box = fill_case(name)
     if not initial:
         img[hole] = 64
     h, w = hole.shape
-    (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole)
+    (bh, bw), (by0, bx0) = wexler.WexlerInpainting._hole_bbox(hole) if box is None else (
+        box[:2], box[2:])
     island = wexler._island_known(hole) if initial else None
     rem = torch.from_numpy(hole.astype(np.float32)).to(device)
     weight = torch.from_numpy(wexler.calculate_weight(hole).astype(np.float32)).to(device)
@@ -748,12 +773,20 @@ FILL_BUFFERS = ("img", "rem", "p", "f", "b2", "valid", "tyx", "state")
 
 @pytest.mark.parametrize("name,initial,cap", [("square", True, 256), ("square", False, 16),
                                               ("border", True, 32), ("annulus", True, 64),
-                                              ("annulus", False, 1024), ("lone", True, 16)])
+                                              ("annulus", False, 1024), ("lone", True, 16),
+                                              ("width 33", True, 32), ("width 33", False, 64),
+                                              ("width 65", True, 16), ("width 65", False, 256),
+                                              ("one row", True, 8), ("one row", False, 16),
+                                              ("left edge", True, 64), ("left edge", False, 128),
+                                              ("5c island", True, 1024)])
 def test_wexler_fill_kernels_bit_equal_to_plain_pieces(cuda, name, initial, cap):
     """Each piece from the same state: every buffer bit-equal after it (the
-    search's keys where a target uses them)."""
+    search's keys where a target uses them); the whole-image 5c pass for 8
+    iterations, the others to their end."""
     k, p = fill_passes(name, initial, cap, cuda)
-    for _ in range(64):
+    whole = name == "5c island"
+    assert (k.island is not None) == (initial and name in ("annulus", "5c island"))
+    for _ in range(8 if whole else 64):
         for piece in ("ring_pick", "filters", "search", "commit"):
             for buf in FILL_BUFFERS + ("keys",):
                 getattr(p, buf).copy_(getattr(k, buf))
@@ -768,7 +801,7 @@ def test_wexler_fill_kernels_bit_equal_to_plain_pieces(cuda, name, initial, cap)
             assert torch.equal(k.keys[:cap], p.keys[:cap]), piece
         if not int(k.state[cuda_fill.ACTIVE]):
             break
-    assert not int(k.state[cuda_fill.ACTIVE])
+    assert int(k.state[cuda_fill.ACTIVE]) == whole
     assert int(k.state[cuda_fill.FAIL]) == (name == "lone")
 
 

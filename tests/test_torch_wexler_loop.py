@@ -18,11 +18,19 @@ on the CPU, where every piece runs its plain version.
   relative, the failing 20x20 case and caps smaller than a ring included.
 - ``host_syncs`` of a 72x72 inpaint against the schedule's formula.
 - NumPy twins of what the kernels (csrc/wexler_fill.cu) do differently from
-  the plain pieces: the ring pick's chunked block scan, the commit's
-  in-place p117 scatter (held to ``_build_p117`` of the committed image),
-  and b2's per-warp tree (held to ``_tree_sum``).
+  the plain pieces: the ring pick's word masks (ballot words, funnel-shift
+  neighbours, the box edge as known, bands of rows with a halo row, one
+  block scan a band, a slot a thread by binary search over the threads'
+  first slots), the filters' separable validity recount (staged bits,
+  13-wide runs by shifts, the 13-tall AND, 4-byte stores inside a tile
+  row), their filter rows (scale * m or -2 (b m), 4 columns a lane), the
+  commit's in-place p117 scatter (held to ``_build_p117`` of the committed
+  image), and b2's per-warp tree (held to ``_tree_sum``).
 - Routing: a CPU tensor with ``impl="cuda"`` raises, as do the kernel
   wrappers; ``encode_keys`` inverts ``decode_keys``."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,7 +50,18 @@ from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill  #
 from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws  # noqa: E402
 
 K = M.WINDOW_SIZE
-CHUNK = 1024  # the ring pick kernel's block: one raster chunk a scan
+FILL_CU = (Path(__file__).resolve().parents[1] / "various_image_processings_tpu_torch" / "csrc"
+           / "wexler_fill.cu").read_text()
+
+
+def cu_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", FILL_CU).group(1))
+
+
+PICK_THREADS = cu_constant("kPickThreads")  # the ring pick's one block
+PICK_WORDS = cu_constant("kPickWords")      # a band's mask words
+TILE_ROWS = cu_constant("kTileRows")        # a validity tile's candidate rows
+TILE_WORDS = cu_constant("kTileWords")      # ... and 32-candidate words a row
 
 
 def mask_cases():
@@ -343,28 +362,112 @@ def twin_on_ring(rem, rem0, island, box, initial, restricted):
     return (r > 0) & neigh
 
 
-def twin_ring_pick(rem, rem0, island, box, cap, initial):
-    """The ring pick kernel's scan: raster chunks of CHUNK box pixels, an
-    exclusive prefix count in each, slots below cap written, stopping once
-    cap targets are taken; the seed-restricted ring first where there are
-    islands.  → (ty (cap,), tx (cap,), count ≤ cap)."""
+def ballot_words(bits):
+    """(rows, 32 n) bool → (rows, n) uint32: bit i of word w is column
+    32 w + i, as a warp's ballot over 32 coalesced loads packs it."""
+    rows, cols = bits.shape
+    b = bits.reshape(rows, cols // 32, 32).astype(np.uint64)
+    return (b << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def popcount(words):
+    words = np.atleast_1d(np.asarray(words, np.uint32))
+    return np.unpackbits(words.view(np.uint8)).reshape(-1, 32).sum(1)
+
+
+def across(known, centre):
+    """across() of the kernel on every word of (rows, n) uint32 rows: bit i
+    set where the left or right neighbour of pixel 32 w + i is known (funnel
+    shifts across words; past the box's left and right edges known), or with
+    ``centre`` the pixel itself."""
+    ones = np.full((known.shape[0], 1), 0xFFFFFFFF, np.uint32)
+    left = np.concatenate([ones, known[:, :-1]], 1)
+    right = np.concatenate([known[:, 1:], ones], 1)
+    sides = (known << 1) | (left >> 31) | (known >> 1) | (right << 31)
+    return sides | known if centre else sides
+
+
+def nth_bit(v, r):
+    """The position of the r-th set bit of v, by the kernel's halving steps."""
+    b = 0
+    for step in (16, 8, 4, 2, 1):
+        low = bin(v & ((1 << step) - 1)).count("1")
+        if r >= low:
+            r, v, b = r - low, v >> step, b + step
+    return b
+
+
+def band_words(rem, rem0, island, box, initial, restricted, r0, rows):
+    """A band's ring words (rows, n) uint32: the remaining mask's ballot
+    words and, in onion peels, the known mask's with a halo row on each
+    side, every pixel outside the box known."""
     bh, bw, by0, bx0 = box
+    words = -(-bw // 32)
+    remaining = np.zeros((rows, 32 * words), bool)
+    remaining[:, :bw] = rem[by0 + r0 : by0 + r0 + rows, bx0 : bx0 + bw] > 0
+    ring = ballot_words(remaining)
+    if not initial:
+        return ring
+    ys = np.arange(r0 - 1, r0 + rows + 1)
+    inside = (ys >= 0) & (ys < bh)
+    rows_in = by0 + ys[inside]
+    rn = rem[rows_in, bx0 : bx0 + bw]
+    if restricted:
+        kn = (rn == 0) & ((rem0[rows_in, bx0 : bx0 + bw] > 0)
+                          | (island[rows_in, bx0 : bx0 + bw] == 0))
+    else:
+        kn = (np.float32(1.0) - rn) > 0
+    known = np.ones((rows + 2, 32 * words), bool)
+    known[inside, :bw] = kn
+    k = ballot_words(known)
+    return ring & (across(k[:-2], True) | across(k[1:-1], False) | across(k[2:], True))
+
+
+def twin_ring_pick(rem, rem0, island, box, cap, initial, pick_words=PICK_WORDS):
+    """The ring pick kernel's scan: bands of rows whose mask words fit
+    ``pick_words``; a band's ring words split into contiguous runs, one a
+    thread of PICK_THREADS; each thread's first slot from a warp scan and a
+    scan of the warp totals; then each slot below cap from the last thread
+    whose first slot is at most it (binary search), its word, the bit; the
+    next band from the band's total, stopping once cap targets are taken;
+    the seed-restricted ring first where there are islands.  → (ty (cap,),
+    tx (cap,), count ≤ cap)."""
+    bh, bw, by0, bx0 = box
+    words = -(-bw // 32)
+    band = pick_words // words - (2 if initial else 0)
     ty = np.full(cap, by0, np.int32)
     tx = np.full(cap, bx0, np.int32)
-    n = bh * bw
+    base = 0
     for restricted in ([True, False] if initial and island is not None else [False]):
-        flags = twin_on_ring(rem, rem0, island, box, initial, restricted).reshape(-1)
         base = 0
-        for c0 in range(0, n, CHUNK):
+        for r0 in range(0, bh, band):
             if base >= cap:
                 break
-            chunk = flags[c0 : c0 + CHUNK]
-            slots = base + np.cumsum(chunk) - chunk   # exclusive scan
-            take = chunk & (slots < cap)
-            p = np.arange(c0, c0 + len(chunk))[take]
-            ty[slots[take]] = by0 + p // bw
-            tx[slots[take]] = bx0 + p % bw
-            base += int(chunk.sum())
+            flat = band_words(rem, rem0, island, box, initial, restricted, r0,
+                              min(band, bh - r0)).reshape(-1)
+            per = -(-flat.size // PICK_THREADS)
+            counts = np.zeros(PICK_THREADS * per, np.int64)
+            counts[: flat.size] = popcount(flat)
+            own = counts.reshape(PICK_THREADS, per).sum(1).reshape(-1, 32)
+            incl = np.cumsum(own, axis=1)                       # the warps' scans
+            warp_base = np.cumsum(incl[:, -1]) - incl[:, -1]    # warp 0's scan
+            thread_base = (warp_base[:, None] + incl - own).reshape(-1)
+            band_total = int(incl[:, -1].sum())
+            for j in range(min(band_total, cap - base)):
+                t = 0
+                step = PICK_THREADS // 2
+                while step >= 1:
+                    if thread_base[t + step] <= j:
+                        t += step
+                    step //= 2
+                r, i = j - int(thread_base[t]), t * per
+                while r >= int(flat[i]).bit_count():
+                    r -= int(flat[i]).bit_count()
+                    i += 1
+                k = i // words
+                ty[base + j] = by0 + r0 + k
+                tx[base + j] = bx0 + 32 * (i - k * words) + nth_bit(int(flat[i]), r)
+            base += band_total
         if base > 0:
             break
     count = min(base, cap)
@@ -388,23 +491,99 @@ def random_state(seed, h, w, box, density):
 @pytest.mark.parametrize("shape,box", [((60, 70), (60, 70, 0, 0)), ((90, 80), (64, 64, 13, 9)),
                                        ((40, 45), (17, 23, 20, 20))])
 def test_ring_pick_chunked_scan_twin_equals_plain_piece(cap, shape, box):
-    """Boxes of more than one chunk (4800 and 4096 pixels) and of less;
-    energy passes, onion peels with and without islands, an empty ring."""
+    """The word-mask twin (one band at these sizes); energy passes, onion
+    peels with and without islands, an empty ring."""
     h, w = shape
     for seed, (initial, islands, density) in enumerate(
             [(False, False, 0.6), (True, False, 0.6), (True, True, 0.9), (True, True, 0.0)]):
         rem, rem0, island = random_state(seed, h, w, box, density)
-        island = island if islands else None
-        ty, tx, count = twin_ring_pick(rem, rem0, island, box, cap, initial)
-        fp = M._FillPass(torch.zeros((h, w, 3)), torch.from_numpy(rem0), torch.zeros((h, w)), h,
-                         w, initial, cap, box,
-                         None if island is None else torch.from_numpy(island), "torch")
-        fp.rem.copy_(torch.from_numpy(rem))
-        fp.ring_pick()
-        np.testing.assert_array_equal(fp.tyx.numpy(), np.stack([ty, tx]))
-        assert int(fp.state[kfill.COUNT]) == count
-        assert int(fp.state[kfill.ACTIVE]) == (count > 0)
-        assert (fp.keys == -1).all()
+        check_ring_pick(rem, rem0, island if islands else None, box, cap, initial)
+
+
+def check_ring_pick(rem, rem0, island, box, cap, initial, pick_words=PICK_WORDS):
+    """The twin's targets and count against ``_FillPass.ring_pick``; → count."""
+    h, w = rem.shape
+    ty, tx, count = twin_ring_pick(rem, rem0, island, box, cap, initial, pick_words)
+    fp = M._FillPass(torch.zeros((h, w, 3)), torch.from_numpy(rem0), torch.zeros((h, w)), h, w,
+                     initial, cap, box, None if island is None else torch.from_numpy(island),
+                     "torch")
+    fp.rem.copy_(torch.from_numpy(rem))
+    fp.ring_pick()
+    np.testing.assert_array_equal(fp.tyx.numpy(), np.stack([ty, tx]))
+    assert int(fp.state[kfill.COUNT]) == count
+    assert int(fp.state[kfill.ACTIVE]) == (count > 0)
+    assert (fp.keys == -1).all()
+    return count
+
+
+def test_ring_pick_bands_as_the_twin_takes_them():
+    """The kernel's band rows are the twin's: its masks' words fit
+    kPickWords, an onion peel's known mask with a halo row on each side."""
+    assert PICK_THREADS == 1024 and PICK_WORDS % PICK_THREADS == 0
+    assert ("return kPickWords / ((bw + 31) / 32) - (mode == kEnergyMode ? 0 : 2);"
+            in FILL_CU)
+
+
+@pytest.mark.parametrize("bw", [1, 31, 32, 33, 63, 64, 65])
+@pytest.mark.parametrize("initial,islands", [(False, False), (True, False), (True, True)])
+def test_ring_pick_word_twin_on_box_widths(bw, initial, islands):
+    """Box widths a word and a pixel either side of 32 and 64, at the image
+    border and inside it; caps reached mid-word (5, 37) and not (1024)."""
+    for seed, (h, w, box) in enumerate([(30, bw + 16, (19, bw, 0, 0)),
+                                        (40, bw + 20, (23, bw, 9, 11))]):
+        rem, rem0, island = random_state(seed, h, w, box, 0.7)
+        for cap in (5, 37, 1024):
+            check_ring_pick(rem, rem0, island if islands else None, box, cap, initial)
+
+
+@pytest.mark.parametrize("box", [(1, 57, 12, 3), (44, 1, 2, 20)])
+@pytest.mark.parametrize("initial", [False, True])
+def test_ring_pick_word_twin_on_one_row_and_one_column_boxes(box, initial):
+    rem, rem0, island = random_state(4, 50, 64, box, 0.8)
+    for cap in (3, 16, 256):
+        for isl in (None, island) if initial else (None,):
+            check_ring_pick(rem, rem0, isl, box, cap, initial)
+
+
+@pytest.mark.parametrize("pick_words", [12, 24])
+@pytest.mark.parametrize("initial,islands", [(False, False), (True, False), (True, True)])
+def test_ring_pick_word_twin_in_bands(pick_words, initial, islands):
+    """Bands of a few rows (a small word budget: 12 or 24 words), the base
+    carried across bands and the scan stopping once cap targets are taken,
+    mid-band and mid-word; 70-pixel rows take 3 words."""
+    box = (37, 70, 5, 4)
+    rem, rem0, island = random_state(9, 50, 80, box, 0.5)
+    assert pick_words // 3 - 2 * initial < 37  # more than one band
+    counts = [check_ring_pick(rem, rem0, island if islands else None, box, cap, initial,
+                              pick_words) for cap in (1, 29, 300, 1024)]
+    assert counts[-1] < 1024 and counts[1] == 29
+
+
+def test_ring_pick_word_twin_falls_back_to_the_plain_ring():
+    """An island around a hole pixel: once the annulus is filled, the
+    restricted ring is empty and the plain ring takes the inner hole."""
+    yy, xx = np.mgrid[:40, :40]
+    d = (yy - 20) ** 2 + (xx - 20) ** 2
+    hole = ((d <= 100) & (d > 9)) | (d == 0)
+    island = M._island_known(hole).astype(np.float32)
+    rem0 = hole.astype(np.float32)
+    rem = (d == 0).astype(np.float32)  # the annulus filled in this pass
+    box = (21, 21, 10, 10)
+    restricted = band_words(rem, rem0, island, box, True, True, 0, 21)
+    assert not restricted.any()  # the seeds exclude the island
+    for pick_words in (PICK_WORDS, 3):
+        assert check_ring_pick(rem, rem0, island, box, 16, True, pick_words) == 1
+
+
+@pytest.mark.parametrize("restricted", [False, True])
+def test_ring_words_equal_on_ring(restricted):
+    """The funnel-shift ring, unpacked, against the per-pixel on_ring()."""
+    box = (45, 67, 3, 2)
+    rem, rem0, island = random_state(11, 50, 75, box, 0.6)
+    words = band_words(rem, rem0, island, box, True, restricted, 0, 45)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little").reshape(45, -1)[:, :67]
+    np.testing.assert_array_equal(bits.astype(bool),
+                                  twin_on_ring(rem, rem0, island, box, True, restricted))
 
 
 def test_ring_pick_clears_active_after_a_failure_or_a_stop():
@@ -421,6 +600,111 @@ def test_ring_pick_clears_active_after_a_failure_or_a_stop():
         assert int(fp.state[kfill.ACTIVE]) == 0 and (fp.tyx == 7).all() and (fp.keys == 5).all()
         assert fp.state[kfill.COUNT] == before[kfill.COUNT]
         assert fp.state[kfill.ITERATIONS] == before[kfill.ITERATIONS]
+
+
+def run13(v):
+    """Bit x of the uint64 words v: bits x .. x + 12 all set."""
+    a2 = v & (v >> np.uint64(1))
+    a4 = a2 & (a2 >> np.uint64(2))
+    a8 = a4 & (a4 >> np.uint64(4))
+    return a8 & (a4 >> np.uint64(8)) & (v >> np.uint64(12))
+
+
+def twin_validity(rem, region, out):
+    """The filters kernel's validity recount into ``out`` ((H - 12) * (W -
+    12) u8, flat) over the candidates of ``region`` (vy0, vx0, vh, vw): tiles
+    of TILE_ROWS x 32 TILE_WORDS candidates; a tile's window of the mask
+    staged as "rem == 0" words (set past the image), each row's 13-wide runs
+    from a pair of words as one uint64, the AND of 13 run rows; then each
+    tile row's bytes through the 4-byte words of ``out`` it meets, only
+    those inside the tile row written."""
+    h, w = rem.shape
+    n_cx = w - 2 * M.WHALF
+    vy0, vx0, vh, vw = region
+    cols = 32 * TILE_WORDS
+    ys_off = np.arange(TILE_ROWS + K - 1)
+    xs_off = np.arange(32 * (TILE_WORDS + 1))
+    for cy0 in range(vy0, vy0 + vh, TILE_ROWS):
+        for cx0 in range(vx0, vx0 + vw, cols):
+            ys, xs = cy0 + ys_off, cx0 + xs_off
+            zero = np.ones((ys.size, xs.size), bool)
+            inside = (ys < h)[:, None] & (xs < w)[None, :]
+            zero[inside] = (rem[np.minimum(ys, h - 1)][:, np.minimum(xs, w - 1)] == 0)[inside]
+            known = ballot_words(zero).astype(np.uint64)
+            runs = run13(known[:, :-1] | (known[:, 1:] << np.uint64(32))) & np.uint64(0xFFFFFFFF)
+            ok = np.bitwise_and.reduce(np.stack([runs[k : k + TILE_ROWS] for k in range(K)]), 0)
+            n = min(cols, vx0 + vw - cx0)
+            for r in range(TILE_ROWS):
+                if cy0 + r >= vy0 + vh:
+                    continue
+                bits = sum(int(ok[r, i]) << (32 * i) for i in range(TILE_WORDS))
+                start = (cy0 + r) * n_cx + cx0
+                for q in range(cols // 4 + 1):
+                    at = (start & ~3) + 4 * q
+                    for i in range(4):
+                        c = at + i - start
+                        if 0 <= c < n:
+                            out[at + i] = bits >> c & 1
+    return out
+
+
+@pytest.mark.parametrize("shape,box", [((60, 70), (20, 33, 0, 37)), ((60, 70), (14, 23, 26, 0)),
+                                       ((60, 70), (60, 70, 0, 0)), ((45, 140), (40, 100, 5, 40)),
+                                       ((77, 90), (9, 12, 68, 78))])
+def test_validity_tiles_twin_equals_validity(shape, box):
+    """Regions at the image's top, left, bottom and right edges, the whole
+    image, and regions of several tiles: the region's map equals
+    ``_validity`` and nothing outside it is written."""
+    h, w = shape
+    rem, _, _ = random_state(3, h, w, box, 0.4)
+    rem[: h // 2 + 4, : w // 2] = 0.0  # some valid windows in every region
+    rem[-9:, :20] = 0.0
+    region = kfill.validity_region(h, w, box)
+    vy0, vx0, vh, vw = region
+    out = np.full((h - K + 1) * (w - K + 1), 7, np.uint8)
+    got = twin_validity(rem, region, out).reshape(h - K + 1, w - K + 1)
+    want = np.full_like(got, 7)
+    want[vy0 : vy0 + vh, vx0 : vx0 + vw] = M._validity(torch.from_numpy(rem)).numpy()[
+        vy0 : vy0 + vh, vx0 : vx0 + vw]
+    np.testing.assert_array_equal(got, want)
+    assert (got[vy0 : vy0 + vh, vx0 : vx0 + vw] == 1).any()
+    assert (got[vy0 : vy0 + vh, vx0 : vx0 + vw] == 0).any()
+
+
+def twin_filter_rows(m, b):
+    """The filters kernel's rows of one target from its staged window, m
+    (169,) and b (3, 169) f32: lane l's columns 4 l .. 4 l + 3 of each row,
+    column 9 kx + j = scale_j * m, or -2 (b m) for the planes j >= 6, and 0
+    past column 116.  → (13, 128) f32."""
+    rows = np.zeros((K, 128), np.float32)
+    for col in range(128):
+        kx, j = divmod(col, 9)
+        if col >= 9 * K:
+            continue
+        scale = np.float32(256.0 if j < 3 else 1.0 if j < 6 else -2.0)
+        for ky in range(K):
+            mm = m[ky * K + kx]
+            rows[ky, col] = scale * (b[j - 6, ky * K + kx] * mm if j >= 6 else mm)
+    return rows
+
+
+def test_filter_rows_twin_equals_target_filters():
+    img, rem, _, _, _ = case("border", True)
+    h, w = rem.shape
+    ty = torch.tensor([0, 3, 30, 59, 59, 12])
+    tx = torch.tensor([0, 69, 35, 0, 69, 55])
+    filt, _ = M._target_filters(torch.from_numpy(img).float(), torch.from_numpy(rem), ty, tx, h,
+                                w, True)
+    pad = np.pad(img.astype(np.float32), [(6, 6), (6, 6), (0, 0)])
+    rp = np.pad(rem, 6, constant_values=1.0)  # outside the image m = 0
+    for i in range(ty.shape[0]):
+        y, x = int(ty[i]), int(tx[i])
+        m = (rp[y : y + K, x : x + K] == 0).astype(np.float32).reshape(-1)
+        b = pad[y : y + K, x : x + K].transpose(2, 0, 1).reshape(3, -1)
+        rows = twin_filter_rows(m, b)
+        np.testing.assert_array_equal(rows[:, : 9 * K].view(np.uint32),
+                                      filt[:, i].numpy().view(np.uint32))
+        assert not rows[:, 9 * K :].view(np.uint32).any()
 
 
 def twin_commit_planes(p, img, ty, tx, sy, sx):

@@ -25,6 +25,7 @@ from .core import DeviceImage as DeviceImage
 from . import models as models
 from . import ops as ops
 from . import parallel as parallel
+from . import utils as utils
 from .models import AdaptiveBilateralFilter as AdaptiveBilateralFilter
 from .models import BilateralFilter as BilateralFilter
 from .models import BilateralTextureFilter as BilateralTextureFilter

@@ -22,6 +22,12 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def replicate_pad_np(img: np.ndarray, radius: int) -> np.ndarray:
+    """Edge-pad the two leading spatial dims of an HW[C] numpy array."""
+    pad = [(radius, radius), (radius, radius)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, pad, mode="edge")
+
+
 def reflect101_indices(n: int, lo: int, hi: int) -> np.ndarray:
     """Source-index map for cv::BORDER_REFLECT_101 padding: ``lo`` elements
     before and ``hi`` after an n-element axis, with OpenCV's multi-reflection

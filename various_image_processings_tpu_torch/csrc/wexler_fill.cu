@@ -41,7 +41,7 @@
 // ops/cuda/wexler_fill.py name its slots): active, fail, live (the energy
 // loop has not stopped), count, energy (f32 bits), iterations run.  The host
 // enqueues iterations without reading anything; every kernel but the ring
-// pick returns at once when active is 0, and the ring pick clears active
+// pick writes nothing when active is 0, and the ring pick clears active
 // once the pass failed or its energy loop stopped.  No kernel reads a flag
 // that its own grid writes: the ring pick and the commit are one block each.
 //
@@ -54,13 +54,22 @@
 // __fadd_rn, so nothing contracts into an FMA.  No float atomics.
 //
 // What bounds them on the card: the latency of a launch and of one block.
-// The ring pick reads at most the box (<= 4 B a pixel plus 8 neighbours
-// from L1), the filters write 13 x 128 x 2 B a target, the commit ~0.5 KB a
-// target; at 402 x 700 (5a) that is well under a megabyte an iteration,
-// microseconds of bandwidth.  The ring pick and the commit are one block by
-// design (a block-wide scan and a fixed-order tree; the commit's fail test
-// must precede every write), so they take a few microseconds each however
-// small the ring.  The diffusion start is a chain of bh + bw dependent
+// The ring pick reads the box once (4 B a pixel), the filters write 13 x 128
+// x 2 B a target, the commit ~0.5 KB a target; at 402 x 700 (5a) that is
+// well under a megabyte an iteration, microseconds of bandwidth.  The ring
+// pick and the commit are one block by design (a block-wide scan and a
+// fixed-order tree; the commit's fail test must precede every write), so
+// they take a few microseconds each however small the ring.  So the ring
+// pick holds the box as bit masks, 32 pixels a word from a warp's ballot
+// over coalesced loads, finds the ring with funnel shifts across words and
+// rows, and scans the words' popcounts once a band of rows (one band up to
+// ~1000 rows at a 128-pixel width), where one pixel a thread took a scan
+// and three barriers every 1024 pixels.  The filters read each target's
+// window once into shared memory (its warp's) and write each filter row as
+// 8-byte stores, with no division in the store loop; the validity recount
+// stages a tile's window of the mask as "rem == 0" bits and takes the
+// 13-wide runs by shifts, then the 13-tall AND of the run words, where a
+// thread read its candidate's 169 mask values.  The diffusion start is a chain of bh + bw dependent
 // sweeps of ~10 operations a hole pixel: what bounds it is the latency of a
 // sweep.  So each channel's box is spread over a cluster's SMs (48 SMs at a
 // 128 x 128 box, where one block a channel used 3), each strip's edge rows
@@ -95,11 +104,30 @@ constexpr int kPlanes = 9;                  // hi, lo, a of three channels
 constexpr int kPacked = kWindow * kPlanes;  // 117 channels of p117
 constexpr int kChannels = 128;              // padded, as the search reads them
 constexpr int kPatch = 3 * kWindow * kWindow;  // 507 products of b2
-constexpr int kTree = 512;                  // b2's tree, zero-padded
+constexpr int kTree = 512;                  // b2's tree, zero-padded: 16 slots a lane
 
 constexpr int kPickThreads = 1024;
-constexpr int kFilterThreads = 256;
+constexpr int kPickWords = 4096;            // words of each of a band's two masks (16 KB)
+constexpr int kPickWordsPerThread = (kPickWords + kPickThreads - 1) / kPickThreads;
+// rows of a word column a warp loads at once (a quarter with the seed masks:
+// three loads a row, and no spill at 64 registers a thread)
+constexpr int kPickBatch = 16;
+// 9 targets a block: at cap 1024 and a 128 x 128 box, 114 target blocks and
+// 15 validity tiles, one block an SM of the 132
+constexpr int kFilterThreads = 288;
 constexpr int kTargetsPerBlock = kFilterThreads / 32;  // a warp a target
+constexpr int kArea = kWindow * kWindow;    // 169 taps of a window
+constexpr int kWindowFloats = 3 * kArea;    // 507: its pixels' channels
+constexpr int kRowFloats = 3 * kWindow;     // 39: a window row of the image, contiguous
+// a validity tile: kTileRows x 32 kTileWords candidates, from the staged bits
+// of their (kTileRows + 12) x (32 kTileWords + 12) window of the mask, held in
+// kTileWords + 1 words a row
+constexpr int kTileRows = 32;
+constexpr int kTileWords = 2;
+constexpr int kTileCols = 32 * kTileWords;
+constexpr int kStagedRows = kTileRows + kWindow - 1;
+constexpr int kStagedWords = kTileWords + 1;
+constexpr int kTileChunks = kTileCols / 4 + 1;  // 4-byte words a tile row of `valid` meets
 constexpr int kMaxCap = 1024;               // the commit's one block
 constexpr int kDiffuseThreads = 1024;       // a strip's CTA
 constexpr int kMaxCluster = 16;             // strips a channel (non-portable on Hopper)
@@ -114,31 +142,80 @@ constexpr unsigned long long kNoKey = ~0ull;
 
 enum Mode { kEnergyMode = 0, kRingMode = 1, kIslandMode = 2 };
 
-// Is box pixel (y, x) on this iteration's ring?
-__device__ __forceinline__ bool on_ring(const float* __restrict__ rem,
-                                        const float* __restrict__ rem0,
-                                        const float* __restrict__ island, int mode,
-                                        bool restricted, int y, int x, int bh, int bw, int by0,
-                                        int bx0, int width) {
-  const float r = rem[static_cast<size_t>(by0 + y) * width + bx0 + x];
-  if (!(r > 0.0f)) return false;
-  if (mode == kEnergyMode) return true;
+// Rows of a band of the ring pick: its masks' words fit kPickWords, the
+// known mask with a halo row above and below (onion peels only).
+__host__ __device__ inline int pick_band_rows(int bw, int mode) {
+  return kPickWords / ((bw + 31) / 32) - (mode == kEnergyMode ? 0 : 2);
+}
+
+// Word w of a known-mask row dilated across: bit i is set where the left or
+// right neighbour of pixel 32 w + i is known, or (with `centre`) the pixel
+// itself.  Funnel shifts carry the neighbours across word boundaries; the
+// box's left and right edges count as known (the bits past bw are set at
+// the load).
+__device__ __forceinline__ unsigned across(const unsigned* __restrict__ row, int w, int words,
+                                           bool centre) {
+  const unsigned c = row[w];
+  const unsigned left = w > 0 ? row[w - 1] : kFull;
+  const unsigned right = w + 1 < words ? row[w + 1] : kFull;
+  const unsigned sides = __funnelshift_l(left, c, 1) | __funnelshift_r(c, right, 1);
+  return centre ? sides | c : sides;
+}
+
+// Rows y0, y0 + per_col, ... (kBatch of them) of word column w of a ring-pick
+// band's masks, a ballot a word: lane u < kBatch gets the u-th row's
+// remaining and known words.  Every load from an address clamped into the
+// box, all issued before any is used, so that they are in flight together.
+template <int kBatch, bool kRestricted>
+__device__ __forceinline__ void ballot_rows(const float* __restrict__ rem,
+                                            const float* __restrict__ rem0,
+                                            const float* __restrict__ island, size_t column,
+                                            bool in_x, int y0, int per_col, int bh, int width,
+                                            bool peel, unsigned& r_word, unsigned& k_word) {
+  const int lane = threadIdx.x & 31;
+  float rn[kBatch], seed0[kBatch], seed1[kBatch];
+  bool in[kBatch];
 #pragma unroll
-  for (int dy = -1; dy <= 1; ++dy)
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      if (dy == 0 && dx == 0) continue;
-      const int ny = y + dy, nx = x + dx;
-      if (ny < 0 || ny >= bh || nx < 0 || nx >= bw) return true;  // the box edge is known
-      const size_t j = static_cast<size_t>(by0 + ny) * width + bx0 + nx;
-      const float rn = rem[j];
-      // known = 1 - rem; the seed: a known pixel filled in this pass or
-      // not on an island
-      const bool known = restricted ? (rn == 0.0f && (rem0[j] > 0.0f || island[j] == 0.0f))
-                                    : __fsub_rn(1.0f, rn) > 0.0f;
-      if (known) return true;
+  for (int u = 0; u < kBatch; ++u) {
+    const int y = y0 + u * per_col;
+    in[u] = in_x && y >= 0 && y < bh;
+    const size_t at = column + static_cast<size_t>(min(max(y, 0), bh - 1)) * width;
+    rn[u] = rem[at];
+    if (kRestricted) {
+      seed0[u] = rem0[at];
+      seed1[u] = island[at];
     }
-  return false;
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    // known = 1 - rem; the seed: a known pixel filled in this pass or not on
+    // an island; outside the box every pixel is known (no short circuit:
+    // every load is used)
+    const bool kn =
+        !in[u] | (kRestricted ? (rn[u] == 0.0f) & ((seed0[u] > 0.0f) | (seed1[u] == 0.0f))
+                              : __fsub_rn(1.0f, rn[u]) > 0.0f);
+    const unsigned r_bits = __ballot_sync(kFull, in[u] & (rn[u] > 0.0f));
+    const unsigned k_bits = peel ? __ballot_sync(kFull, kn) : 0u;
+    if (lane == u) {
+      r_word = r_bits;
+      k_word = k_bits;
+    }
+  }
+}
+
+// The position of the r-th (from 0) set bit of v, which has more than r.
+__device__ __forceinline__ int nth_bit(unsigned v, int r) {
+  int b = 0;
+#pragma unroll
+  for (int step = 16; step >= 1; step >>= 1) {
+    const int low = __popc(v & ((1u << step) - 1u));
+    if (r >= low) {
+      r -= low;
+      v >>= step;
+      b += step;
+    }
+  }
+  return b;
 }
 
 __global__ void __launch_bounds__(kPickThreads)
@@ -146,58 +223,154 @@ wexler_ring_pick_kernel(const float* __restrict__ rem, const float* __restrict__
                         const float* __restrict__ island, int* __restrict__ tyx,
                         unsigned long long* __restrict__ keys, int* __restrict__ state, int bh,
                         int bw, int by0, int bx0, int width, int cap, int tp, int mode) {
-  __shared__ int warp_offsets[32];
-  __shared__ int chunk_total;
+  // a band of box rows as 32-pixel words, bit i of word w pixel 32 w + i:
+  // remaining (rem > 0) and, with a halo row on each side, known
+  __shared__ unsigned remaining[kPickWords];
+  __shared__ unsigned known[kPickWords];
+  // each thread's first ring pixel in the band (a band-relative slot)
+  __shared__ int thread_base[kPickThreads];
+  __shared__ int warp_base[32];
+  __shared__ int band_total;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (state[kLive] == 0 || state[kFail] != 0) {
-    if (tid == 0) state[kActive] = 0;
-    return;
-  }
-  int* ty = tyx;
-  int* tx = tyx + cap;
-  const int n = bh * bw;
+  // read here, tested once the first band's loads are in flight (reading
+  // the mask of a pass that has stopped writes nothing)
+  const bool go = state[kLive] != 0 && state[kFail] == 0;
+  const bool peel = mode != kEnergyMode;
+  const int words = (bw + 31) >> 5;
+  const int band = pick_band_rows(bw, mode);
+  // the warps of a word column: a column each, or 32 / words of them taking
+  // every (32 / words)-th row; this warp's columns start at column `col0`
+  // and row `phase`
+  const int per_col = words < 32 ? 32 / words : 1;
+  const int col0 = warp / per_col, phase = warp - col0 * per_col;
+  const int col_step = 32 / per_col;
   int base = 0;
   // the seed-restricted ring first where there are islands; the plain ring
   // when there are none or that ring is empty
   for (int restricted = mode == kIslandMode; restricted >= 0; --restricted) {
     base = 0;
-    // raster chunks of the box, a block-wide exclusive scan each, until
-    // cap targets are taken (base is the same in every thread)
-    for (int c0 = 0; c0 < n && base < cap; c0 += kPickThreads) {
-      const int p = c0 + tid;
-      const bool ring = p < n && on_ring(rem, rem0, island, mode, restricted != 0, p / bw,
-                                         p % bw, bh, bw, by0, bx0, width);
-      const unsigned ballot = __ballot_sync(kFull, ring);
-      if (lane == 0) warp_offsets[warp] = __popc(ballot);
+    // bands of rows, a block-wide exclusive scan of the ring's words each,
+    // until cap targets are taken (base is the same in every thread)
+    for (int r0 = 0; r0 < bh && base < cap; r0 += band) {
+      const int rows = min(band, bh - r0);
+      // the masks, a ballot a word: known row k is box row r0 - 1 + k, and
+      // outside the box every pixel is known
+      const int mask_rows = peel ? rows + 2 : rows;
+      const int batch = restricted ? kPickBatch / 4 : kPickBatch;
+      for (int w = col0; w < words; w += col_step) {
+        const int x = (w << 5) + lane;
+        const size_t column = static_cast<size_t>(by0) * width + bx0 + min(x, bw - 1);
+        for (int k0 = phase; k0 < mask_rows; k0 += batch * per_col) {
+          unsigned r_word = 0u, k_word = 0u;
+          if (restricted) {
+            ballot_rows<kPickBatch / 4, true>(rem, rem0, island, column, x < bw, r0 + k0 - peel,
+                                              per_col, bh, width, peel, r_word, k_word);
+          } else {
+            ballot_rows<kPickBatch, false>(rem, rem0, island, column, x < bw, r0 + k0 - peel,
+                                           per_col, bh, width, peel, r_word, k_word);
+          }
+          const int k = k0 + lane * per_col;
+          if (lane < batch && k < mask_rows) {
+            if (!peel) {
+              remaining[k * words + w] = r_word;
+            } else {
+              known[k * words + w] = k_word;
+              if (k >= 1 && k <= rows) remaining[(k - 1) * words + w] = r_word;
+            }
+          }
+        }
+      }
+      if (!go) {  // the pass failed or its energy loop stopped: active to 0
+        if (tid == 0) state[kActive] = 0;
+        return;
+      }
+      __syncthreads();
+      // this thread's words of the band, contiguous in raster order:
+      // remaining pixels (energy passes), or those with a known 8-neighbour
+      // (onion peels)
+      const int n = rows * words;
+      const int per = (n + kPickThreads - 1) / kPickThreads;
+      const int first = tid * per;
+      const int k_first = first / words, w_first = first - k_first * words;
+      unsigned ring[kPickWordsPerThread];
+      int own = 0;
+#pragma unroll
+      for (int q = 0, k = k_first, w = w_first; q < kPickWordsPerThread; ++q) {
+        const int i = first + q;
+        ring[q] = 0u;
+        if (q < per && i < n) {
+          ring[q] = remaining[i];
+          if (peel) {
+            const unsigned* up = known + k * words;
+            ring[q] &= across(up, w, words, true) | across(up + words, w, words, false) |
+                       across(up + 2 * words, w, words, true);
+          }
+          own += __popc(ring[q]);
+        }
+        if (++w == words) {
+          w = 0;
+          ++k;
+        }
+      }
+      int incl = own;
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int up = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += up;
+      }
+      if (lane == 31) warp_base[warp] = incl;
       __syncthreads();
       if (warp == 0) {
-        const int own = warp_offsets[lane];
-        int incl = own;
+        const int total = warp_base[lane];
+        int sum = total;
 #pragma unroll
         for (int d = 1; d < 32; d *= 2) {
-          const int up = __shfl_up_sync(kFull, incl, d);
-          if (lane >= d) incl += up;
+          const int up = __shfl_up_sync(kFull, sum, d);
+          if (lane >= d) sum += up;
         }
-        warp_offsets[lane] = incl - own;
-        if (lane == 31) chunk_total = incl;
+        warp_base[lane] = sum - total;
+        if (lane == 31) band_total = sum;
       }
       __syncthreads();
-      const int slot = base + warp_offsets[warp] + __popc(ballot & ((1u << lane) - 1));
-      if (ring && slot < cap) {
-        ty[slot] = by0 + p / bw;
-        tx[slot] = bx0 + p % bw;
+      // the ring words in place of the remaining ones (each thread's own),
+      // and each thread's first slot
+#pragma unroll
+      for (int q = 0; q < kPickWordsPerThread; ++q) {
+        if (q < per && first + q < n) remaining[first + q] = ring[q];
       }
-      base += chunk_total;
-      __syncthreads();  // warp_offsets and chunk_total are rewritten next chunk
+      thread_base[tid] = warp_base[warp] + incl - own;
+      __syncthreads();
+      // the targets, a slot a thread: the thread whose words hold the slot
+      // (the last whose first slot is at most it), its word, the bit
+      const int taken = min(band_total, cap - base);
+      for (int j = tid; j < taken; j += kPickThreads) {
+        int t = 0;
+#pragma unroll
+        for (int step = kPickThreads / 2; step >= 1; step >>= 1) {
+          if (thread_base[t + step] <= j) t += step;
+        }
+        int r = j - thread_base[t], i = t * per;
+        unsigned word = remaining[i];
+        while (r >= __popc(word)) {
+          r -= __popc(word);
+          word = remaining[++i];
+        }
+        const int k = i / words;
+        tyx[base + j] = by0 + r0 + k;
+        tyx[cap + base + j] = bx0 + ((i - k * words) << 5) + nth_bit(word, r);
+      }
+      base += band_total;
+      __syncthreads();  // the masks, warp_base and band_total are rewritten next band
     }
     if (base > 0) break;
   }
+  // the slots past the count: the box origin
   const int count = base < cap ? base : cap;
   for (int t = count + tid; t < cap; t += kPickThreads) {
-    ty[t] = by0;
-    tx[t] = bx0;
+    tyx[t] = by0;
+    tyx[cap + t] = bx0;
   }
   for (int t = tid; t < tp; t += kPickThreads) keys[t] = kNoKey;
   if (tid == 0) {
@@ -207,51 +380,200 @@ wexler_ring_pick_kernel(const float* __restrict__ rem, const float* __restrict__
   }
 }
 
+// Bit x: bits x .. x + 12 of v are all set (x < 52).
+__device__ __forceinline__ unsigned long long run13(unsigned long long v) {
+  const unsigned long long a2 = v & (v >> 1);    // x .. x + 1
+  const unsigned long long a4 = a2 & (a2 >> 2);  // x .. x + 3
+  const unsigned long long a8 = a4 & (a4 >> 4);  // x .. x + 7
+  return a8 & (a4 >> 8) & (v >> 12);            // x .. x + 11, and x + 12
+}
+
+// Validity of the candidates (cy, cx) of tile `tile` of the region [vy0, vy0
+// + vh) x [vx0, vx0 + vw): a window with no remaining pixel.
+__device__ void validity_tile(const float* __restrict__ rem, uint8_t* __restrict__ valid,
+                              bool active, int tile, int height, int width, int vy0, int vx0, int vh,
+                              int vw) {
+  // the staged "rem == 0" bits, each row's 13-wide runs, and the tile's
+  // valid candidates, kTileCols to a row
+  __shared__ unsigned known[kStagedRows][kStagedWords];
+  __shared__ unsigned run[kStagedRows][kTileWords];
+  __shared__ unsigned ok[kTileRows][kTileWords];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int tiles_x = (vw + kTileCols - 1) / kTileCols;
+  const int cy0 = vy0 + (tile / tiles_x) * kTileRows;
+  const int cx0 = vx0 + (tile % tiles_x) * kTileCols;
+  // the window's "rem == 0" bits, a ballot over a warp's 32 coalesced loads,
+  // all of a warp's loads in flight at once (past the image: set; no
+  // candidate written reads them)
+  constexpr int kWarps = kFilterThreads / 32;
+  constexpr int kTasks = (kStagedRows * kStagedWords + kWarps - 1) / kWarps;
+  // (each load from an address clamped into the image, issued before any
+  // is used, so that they are in flight together)
+  float v[kTasks];
+  bool in[kTasks];
+#pragma unroll
+  for (int u = 0; u < kTasks; ++u) {
+    const int j = (tid >> 5) + u * kWarps;
+    const int r = j / kStagedWords, w = j - r * kStagedWords;
+    const int y = cy0 + r, x = cx0 + (w << 5) + lane;
+    in[u] = j < kStagedRows * kStagedWords && y < height && x < width;
+    v[u] = rem[static_cast<size_t>(min(y, height - 1)) * width + min(x, width - 1)];
+  }
+#pragma unroll
+  for (int u = 0; u < kTasks; ++u) {
+    const int j = (tid >> 5) + u * kWarps;
+    const unsigned bits = __ballot_sync(kFull, !in[u] || v[u] == 0.0f);
+    if (lane == 0 && j < kStagedRows * kStagedWords) {
+      const int r = j / kStagedWords;
+      known[r][j - r * kStagedWords] = bits;
+    }
+  }
+  if (!active) return;  // the whole block
+  __syncthreads();
+  for (int j = tid; j < kStagedRows * kTileWords; j += kFilterThreads) {
+    const int r = j / kTileWords, w = j - r * kTileWords;
+    const unsigned long long v =
+        known[r][w] | static_cast<unsigned long long>(known[r][w + 1]) << 32;
+    run[r][w] = static_cast<unsigned>(run13(v));
+  }
+  __syncthreads();
+  for (int j = tid; j < kTileRows * kTileWords; j += kFilterThreads) {
+    const int r = j / kTileWords, w = j - r * kTileWords;
+    unsigned a = run[r][w];
+#pragma unroll
+    for (int k = 1; k < kWindow; ++k) a &= run[r + k][w];
+    ok[r][w] = a;
+  }
+  __syncthreads();
+  // one byte a candidate, row stride width - 12: a 4-byte store where the
+  // word lies inside the tile row, bytes at its ends
+  const int n_cx = width - 2 * kHalf;
+  const int cols = min(kTileCols, vx0 + vw - cx0);
+  for (int j = tid; j < kTileRows * kTileChunks; j += kFilterThreads) {
+    const int r = j / kTileChunks, q = j - r * kTileChunks;
+    const int cy = cy0 + r;
+    if (cy >= vy0 + vh) continue;
+    const size_t start = static_cast<size_t>(cy) * n_cx + cx0;  // byte of candidate cx0
+    const size_t at = (start & ~static_cast<size_t>(3)) + 4 * static_cast<size_t>(q);
+    const int c = static_cast<int>(at - start);  // the word's first candidate, from -3
+    if (c >= cols) continue;
+    const unsigned long long both = ok[r][0] | static_cast<unsigned long long>(ok[r][1]) << 32;
+    const unsigned long long bits = c >= 0 ? both >> c : both << -c;  // bit i: candidate c + i
+    if (c >= 0 && c + 4 <= cols) {
+      *reinterpret_cast<unsigned*>(valid + at) = (bits & 1u) | (bits >> 1 & 1u) << 8 |
+                                                 (bits >> 2 & 1u) << 16 | (bits >> 3 & 1u) << 24;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c + i >= 0 && c + i < cols) valid[at + i] = static_cast<uint8_t>(bits >> i & 1u);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kFilterThreads)
 wexler_filters_kernel(const float* __restrict__ img, const float* __restrict__ rem,
                       const int* __restrict__ tyx, const int* __restrict__ state,
                       __nv_bfloat16* __restrict__ f, float* __restrict__ b2,
                       uint8_t* __restrict__ valid, int height, int width, int cap, int tp,
                       int initial, int target_blocks, int vy0, int vx0, int vh, int vw) {
-  if (state[kActive] == 0) return;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
+  // a target's window, staged by its warp: m (0 outside the image and, in
+  // onion peels, on the target's own unknown pixels) and the three channels
+  // of the image (0 outside), channel-major: b[169 c + 13 ky + kx]
+  __shared__ float win_m[kTargetsPerBlock][kArea];
+  __shared__ float win_b[kTargetsPerBlock][kWindowFloats];
+  // read here, tested once the first loads are in flight: an inactive
+  // iteration reads the buffers and writes nothing
+  const bool active = state[kActive] != 0;
   if (static_cast<int>(blockIdx.x) >= target_blocks) {
-    // validity: candidate (cy, cx) is valid when its window holds no
-    // remaining pixel
-    const int q = (blockIdx.x - target_blocks) * kFilterThreads + tid;
-    if (q >= vh * vw) return;
-    const int cy = vy0 + q / vw, cx = vx0 + q % vw;
-    bool ok = true;
-    for (int ky = 0; ky < kWindow && ok; ++ky) {
-      const float* row = rem + static_cast<size_t>(cy + ky) * width + cx;
-#pragma unroll
-      for (int kx = 0; kx < kWindow; ++kx) ok = ok && row[kx] == 0.0f;
-    }
-    valid[static_cast<size_t>(cy) * (width - 2 * kHalf) + cx] = ok;
+    validity_tile(rem, valid, active, blockIdx.x - target_blocks, height, width, vy0, vx0, vh, vw);
     return;
   }
-  const int t = blockIdx.x * kTargetsPerBlock + tid / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * kTargetsPerBlock + warp;
   if (t >= cap) return;  // a whole warp
   const int ty = tyx[t], tx = tyx[cap + t];
-  // filter entry (ky, kx * 9 + j) of plane j: 256 m, m or -2 m b of channel j % 3
-  for (int e = lane; e < kWindow * kPacked; e += 32) {
-    const int ky = e / kPacked, col = e % kPacked;
-    const int kx = col / kPlanes, j = col % kPlanes;
-    const int y = ty + ky - kHalf, x = tx + kx - kHalf;
-    const bool in = y >= 0 && y < height && x >= 0 && x < width;
-    const size_t at = static_cast<size_t>(y) * width + x;
-    const float m = in && !(initial && rem[at] != 0.0f) ? 1.0f : 0.0f;
-    float v;
-    if (j < 3) {
-      v = __fmul_rn(m, 256.0f);
-    } else if (j < 6) {
-      v = m;
-    } else {
-      const float b = in ? img[at * 3 + (j - 6)] : 0.0f;
-      v = __fmul_rn(-2.0f, __fmul_rn(b, m));
+  float* m_s = win_m[warp];
+  float* b_s = win_b[warp];
+  // the window, read once: the image 39 contiguous floats a row, and the
+  // mask in onion peels; every load from an address clamped into the image,
+  // all issued before any is used, so that they are in flight together
+  constexpr int kImgLoads = (kWindowFloats + 31) / 32, kRemLoads = (kArea + 31) / 32;
+  float bv[kImgLoads], rv[kRemLoads] = {};
+#pragma unroll
+  for (int i = 0; i < kImgLoads; ++i) {
+    const int e = min(lane + 32 * i, kWindowFloats - 1);
+    const int ky = e / kRowFloats, q = e - ky * kRowFloats;
+    const int kx = q / 3;
+    const int y = min(max(ty + ky - kHalf, 0), height - 1);
+    const int x = min(max(tx + kx - kHalf, 0), width - 1);
+    bv[i] = img[(static_cast<size_t>(y) * width + x) * 3 + q - 3 * kx];
+  }
+  if (initial) {
+#pragma unroll
+    for (int i = 0; i < kRemLoads; ++i) {
+      const int e = min(lane + 32 * i, kArea - 1);
+      const int ky = e / kWindow;
+      const int y = min(max(ty + ky - kHalf, 0), height - 1);
+      const int x = min(max(tx + e - ky * kWindow - kHalf, 0), width - 1);
+      rv[i] = rem[static_cast<size_t>(y) * width + x];
     }
-    f[(static_cast<size_t>(ky) * tp + t) * kChannels + col] = __float2bfloat16_rn(v);
+  }
+#pragma unroll
+  for (int i = 0; i < kRemLoads; ++i) {
+    const int e = lane + 32 * i;
+    if (e < kArea) {
+      const int ky = e / kWindow, kx = e - ky * kWindow;
+      const int y = ty + ky - kHalf, x = tx + kx - kHalf;
+      const bool in = y >= 0 && y < height && x >= 0 && x < width;
+      m_s[e] = in && !(initial && rv[i] != 0.0f) ? 1.0f : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kImgLoads; ++i) {
+    const int e = lane + 32 * i;
+    if (e < kWindowFloats) {
+      const int ky = e / kRowFloats, q = e - ky * kRowFloats;
+      const int kx = q / 3, c = q - 3 * kx;
+      const int y = ty + ky - kHalf, x = tx + kx - kHalf;
+      const bool in = y >= 0 && y < height && x >= 0 && x < width;
+      b_s[c * kArea + ky * kWindow + kx] = in ? bv[i] : 0.0f;
+    }
+  }
+  if (!active) return;  // the whole warp
+  __syncwarp();
+  // filter row (ky, t): lane l writes columns 4 l .. 4 l + 3 as 8 bytes;
+  // column 9 kx + j of plane j is 256 m, m or -2 m b of channel j % 3 at
+  // (ky, kx): scale * m, or -2 (b m); columns 117 .. 127 are 0 * m = 0
+  int m_at[4], b_at[4];
+  float scale[4];
+  bool use_b[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int col = 4 * lane + k;
+    const int kx = col / kPlanes, j = col - kPlanes * kx;
+    const bool zero = col >= kPacked;
+    use_b[k] = !zero && j >= 6;
+    scale[k] = zero ? 0.0f : j < 3 ? 256.0f : j < 6 ? 1.0f : -2.0f;
+    m_at[k] = zero ? 0 : kx;
+    b_at[k] = use_b[k] ? (j - 6) * kArea + kx : 0;
+  }
+  __nv_bfloat16* row = f + static_cast<size_t>(t) * kChannels + 4 * lane;
+#pragma unroll
+  for (int ky = 0; ky < kWindow; ++ky) {
+    const int o = ky * kWindow;
+    unsigned short h[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float m = m_s[o + m_at[k]];
+      const float bm = __fmul_rn(b_s[o + b_at[k]], m);
+      h[k] = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(scale[k], use_b[k] ? bm : m)));
+    }
+    uint2 out;
+    out.x = h[0] | static_cast<unsigned>(h[1]) << 16;
+    out.y = h[2] | static_cast<unsigned>(h[3]) << 16;
+    *reinterpret_cast<uint2*>(row + static_cast<size_t>(ky) * tp * kChannels) = out;
   }
   // b2: lane l holds slots l + 32 i of the (c, ky, kx) products, then the
   // halving tree x[i] + x[i + h] for h = 256 .. 1
@@ -261,20 +583,19 @@ wexler_filters_kernel(const float* __restrict__ img, const float* __restrict__ r
     const int s = lane + 32 * i;
     v[i] = 0.0f;
     if (s < kPatch) {
-      const int c = s / (kWindow * kWindow), r = s % (kWindow * kWindow);
-      const int y = ty + r / kWindow - kHalf, x = tx + r % kWindow - kHalf;
-      const bool in = y >= 0 && y < height && x >= 0 && x < width;
-      const size_t at = static_cast<size_t>(y) * width + x;
-      const float m = in && !(initial && rem[at] != 0.0f) ? 1.0f : 0.0f;
-      const float b = in ? img[at * 3 + c] : 0.0f;
-      v[i] = __fmul_rn(__fmul_rn(b, m), b);
+      const int r = s - (s >= 2 * kArea ? 2 * kArea : s >= kArea ? kArea : 0);
+      const float b = b_s[s];
+      v[i] = __fmul_rn(__fmul_rn(b, m_s[r]), b);
     }
   }
+  // (each level written out, so that v stays in registers)
 #pragma unroll
-  for (int h = kTree / 64; h >= 1; h /= 2)
+  for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], v[i + 8]);
 #pragma unroll
-    for (int i = 0; i < h; ++i) v[i] = __fadd_rn(v[i], v[i + h]);
-  float s = v[0];
+  for (int i = 0; i < 4; ++i) v[i] = __fadd_rn(v[i], v[i + 4]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) v[i] = __fadd_rn(v[i], v[i + 2]);
+  float s = __fadd_rn(v[0], v[1]);
 #pragma unroll
   for (int off = 16; off >= 1; off /= 2) s = __fadd_rn(s, __shfl_down_sync(kFull, s, off));
   if (lane == 0) b2[t] = s;
@@ -698,10 +1019,13 @@ int vip_wexler_diffusion_smem_bytes(int bh, int bw) {
 // rem, rem0: (H, W) f32 (1 = hole); island: (H, W) f32 or null (mode 2
 // only); tyx: (2, cap) int32 targets (ty row, tx row); keys: (tp,) int64;
 // state: the pass's int32 vector.  mode: 0 energy pass, 1 onion peel, 2
-// onion peel seeded from outside the known islands.
+// onion peel seeded from outside the known islands.  A box too wide for a
+// band of one row (bw > 32 * (kPickWords / 3)) launches nothing and returns
+// cudaErrorInvalidValue.
 int vip_wexler_ring_pick(const void* rem, const void* rem0, const void* island, void* tyx,
                          void* keys, void* state, int bh, int bw, int by0, int bx0, int width,
                          int cap, int tp, int mode, void* stream) {
+  if (bw < 1 || pick_band_rows(bw, mode) < 1) return static_cast<int>(cudaErrorInvalidValue);
   wexler_ring_pick_kernel<<<1, kPickThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rem), static_cast<const float*>(rem0),
       static_cast<const float*>(island), static_cast<int*>(tyx),
@@ -716,9 +1040,10 @@ int vip_wexler_ring_pick(const void* rem, const void* rem0, const void* island, 
 int vip_wexler_filters(const void* img, const void* rem, const void* tyx, const void* state,
                        void* f, void* b2, void* valid, int height, int width, int cap, int tp,
                        int initial, int vy0, int vx0, int vh, int vw, void* stream) {
+  if (vh < 1 || vw < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int target_blocks = (cap + kTargetsPerBlock - 1) / kTargetsPerBlock;
-  const int valid_blocks = (vh * vw + kFilterThreads - 1) / kFilterThreads;
-  wexler_filters_kernel<<<target_blocks + valid_blocks, kFilterThreads, 0,
+  const int tiles = ((vh + kTileRows - 1) / kTileRows) * ((vw + kTileCols - 1) / kTileCols);
+  wexler_filters_kernel<<<target_blocks + tiles, kFilterThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), static_cast<const float*>(rem),
       static_cast<const int*>(tyx), static_cast<const int*>(state),
