@@ -196,7 +196,8 @@ class BilateralTextureFilter(_TableFilter):
         return module
 
     def forward(self, src) -> torch.Tensor:
-        return _btf(self._check(src), self.ksize, self.nitr, self.impl, "cuda",
+        src = self._check(src)
+        return _btf(src, self.ksize, self.nitr, resolve_impl(self.impl, src), "cuda",
                     self.taps, self.lut)
 
     # reference method name

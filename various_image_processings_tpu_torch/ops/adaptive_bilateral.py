@@ -30,6 +30,7 @@ import torch
 
 from ..core.luts import COLOR_TABLE_SIZE_ADAPTIVE, color_table, space_kernel, tap_table
 from ..core.pad import replicate_pad
+from ..utils.profiling import SPANS
 from . import _validate
 from ._dispatch import resolve_impl
 from .bilateral_texture import _device_scalar
@@ -85,11 +86,25 @@ def adaptive_bilateral_filter(src, ksize: int = 9, sigma_space: float = 10.0,
     """(H, W, 3) u8 → (H, W, 3) u8.
 
     A tensor is filtered on its own device; any other array is first copied
-    to ``device`` (the GPU unless the caller passes ``device="cpu"``)."""
-    src = _validate.as_tensor(src, device)
-    _validate.check_u8_color("src", src)
-    _validate.check_ksize(ksize)
-    ksize, sigma_space, sigma_color = int(ksize), float(sigma_space), float(sigma_color)
-    if resolve_impl(impl, src) == "cuda":
-        return cuda_abf.adaptive_bilateral(src.contiguous(), ksize, sigma_space, sigma_color)
-    return _abf_math(src, ksize, sigma_space, sigma_color)
+    to ``device`` (the GPU unless the caller passes ``device="cpu"``).  The
+    call is the span ``ops.adaptive_bilateral_filter``."""
+    s = SPANS.open("ops.adaptive_bilateral_filter") if SPANS.on else -1
+    try:
+        v = SPANS.open("ops.validate") if SPANS.on else -1
+        src = _validate.as_tensor(src, device)
+        _validate.check_u8_color("src", src)
+        _validate.check_ksize(ksize)
+        ksize, sigma_space, sigma_color = int(ksize), float(sigma_space), float(sigma_color)
+        impl = resolve_impl(impl, src)
+        if v >= 0:
+            SPANS.close(v)
+        if impl == "cuda":
+            t = SPANS.open("ops.tables") if SPANS.on else -1
+            taps, lut = cuda_abf.device_tables(ksize, sigma_space, sigma_color, src.device)
+            if t >= 0:
+                SPANS.close(t)
+            return cuda_abf.adaptive_bilateral_taps(src.contiguous(), taps, lut, ksize // 2)
+        return _abf_math(src, ksize, sigma_space, sigma_color)
+    finally:
+        if s >= 0:
+            SPANS.close(s)

@@ -24,6 +24,7 @@ import torch
 
 from ..core.luts import color_table, space_kernel, tap_table
 from ..core.pad import reflect101_pad, replicate_pad
+from ..utils.profiling import SPANS
 from . import _validate
 from ._dispatch import resolve_impl
 from .cuda import bilateral as cuda_bilateral
@@ -101,15 +102,19 @@ def _bilateral_math(src: torch.Tensor, guide: torch.Tensor, ksize: int,
 
 
 def _filter(src: torch.Tensor, guide, ksize: int, sigma_space: float,
-            sigma_color: float, impl: str, border: str = "replicate",
-            rounding: str = "trunc") -> torch.Tensor:
-    """guide=None: the self filter (range weights keyed off src)."""
-    if resolve_impl(impl, src) == "cuda":
-        return cuda_bilateral.bilateral(
-            src.contiguous(), None if guide is None else guide.contiguous(),
-            ksize, sigma_space, sigma_color, border, rounding)
+            sigma_color: float, impl: str) -> torch.Tensor:
+    """guide=None: the self filter (range weights keyed off src).  ``impl``
+    is resolved already."""
+    if impl == "cuda":
+        t = SPANS.open("ops.tables") if SPANS.on else -1
+        taps, lut = cuda_bilateral.device_tables(ksize, sigma_space, sigma_color, src.device)
+        if t >= 0:
+            SPANS.close(t)
+        return cuda_bilateral.joint_bilateral(
+            src.contiguous(), None if guide is None else guide.contiguous(), taps, lut,
+            ksize // 2)
     return _bilateral_math(src, src if guide is None else guide, ksize,
-                           sigma_space, sigma_color, border, rounding)
+                           sigma_space, sigma_color)
 
 
 def bilateral_filter(src, ksize: int = 9, sigma_space: float = 10.0,
@@ -118,28 +123,46 @@ def bilateral_filter(src, ksize: int = 9, sigma_space: float = 10.0,
     """(H, W, 3) u8 → (H, W, 3) u8 edge-preserving smoothing.
 
     A tensor is filtered on its own device; any other array is first copied
-    to ``device`` (the GPU unless the caller passes ``device="cpu"``)."""
-    src = _validate.as_tensor(src, device)
-    _validate.check_u8_color("src", src)
-    _validate.check_ksize(ksize)
-    return _filter(src, None, int(ksize), float(sigma_space),
-                   float(sigma_color), impl)
+    to ``device`` (the GPU unless the caller passes ``device="cpu"``).  The
+    call is the span ``ops.bilateral_filter``."""
+    s = SPANS.open("ops.bilateral_filter") if SPANS.on else -1
+    try:
+        v = SPANS.open("ops.validate") if SPANS.on else -1
+        src = _validate.as_tensor(src, device)
+        _validate.check_u8_color("src", src)
+        _validate.check_ksize(ksize)
+        impl = resolve_impl(impl, src)
+        if v >= 0:
+            SPANS.close(v)
+        return _filter(src, None, int(ksize), float(sigma_space), float(sigma_color), impl)
+    finally:
+        if s >= 0:
+            SPANS.close(s)
 
 
 def joint_bilateral_filter(src, guide, ksize: int = 9, sigma_space: float = 10.0,
                            sigma_color: float = 30.0, impl: str = "auto",
                            device="cuda") -> torch.Tensor:
-    """(H, W, 3) u8 src smoothed with range kernel keyed off `guide`."""
-    src = _validate.as_tensor(src, device)
-    guide = _validate.as_tensor(guide, device)
-    _validate.check_u8_color("src", src)
-    _validate.check_u8_color("guide", guide)
-    if src.shape != guide.shape:
-        raise ValueError(f"src {tuple(src.shape)} and guide {tuple(guide.shape)} "
-                         "must have the same shape")
-    if src.device != guide.device:
-        raise ValueError(f"src ({src.device}) and guide ({guide.device}) "
-                         "must be on the same device")
-    _validate.check_ksize(ksize)
-    return _filter(src, guide, int(ksize), float(sigma_space),
-                   float(sigma_color), impl)
+    """(H, W, 3) u8 src smoothed with range kernel keyed off `guide`.  The
+    call is the span ``ops.joint_bilateral_filter``."""
+    s = SPANS.open("ops.joint_bilateral_filter") if SPANS.on else -1
+    try:
+        v = SPANS.open("ops.validate") if SPANS.on else -1
+        src = _validate.as_tensor(src, device)
+        guide = _validate.as_tensor(guide, device)
+        _validate.check_u8_color("src", src)
+        _validate.check_u8_color("guide", guide)
+        if src.shape != guide.shape:
+            raise ValueError(f"src {tuple(src.shape)} and guide {tuple(guide.shape)} "
+                             "must have the same shape")
+        if src.device != guide.device:
+            raise ValueError(f"src ({src.device}) and guide ({guide.device}) "
+                             "must be on the same device")
+        _validate.check_ksize(ksize)
+        impl = resolve_impl(impl, src)
+        if v >= 0:
+            SPANS.close(v)
+        return _filter(src, guide, int(ksize), float(sigma_space), float(sigma_color), impl)
+    finally:
+        if s >= 0:
+            SPANS.close(s)

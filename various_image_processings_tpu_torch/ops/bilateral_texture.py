@@ -24,6 +24,7 @@ import torch
 
 from ..core.luts import color_table, space_kernel
 from ..core.pad import replicate_pad
+from ..utils.profiling import SPANS
 from . import _validate
 from ._dispatch import resolve_impl
 from .bilateral import _taps_math
@@ -159,8 +160,8 @@ def btf_iteration(img: torch.Tensor, ksize: int, taps: torch.Tensor, lut: torch.
 
 def _btf(src: torch.Tensor, ksize: int, nitr: int, impl: str, variant: str,
          taps: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """``impl`` is resolved already."""
     border, rounding = VARIANTS[variant]
-    impl = resolve_impl(impl, src)
     img = src.contiguous()
     for _ in range(nitr):
         img = btf_iteration(img, ksize, taps, lut, border, rounding, impl)
@@ -182,12 +183,25 @@ def bilateral_texture_filter(src, ksize: int = 9, nitr: int = 3, impl: str = "au
     cv::ximgproc::jointBilateralFilter as the final stage).
 
     A tensor is filtered on its own device; any other array is first copied
-    to ``device`` (the GPU unless the caller passes ``device="cpu"``)."""
-    src = _validate.as_tensor(src, device)
-    _validate.check_u8_color("src", src)
-    _validate.check_ksize(ksize)
-    check_nitr(nitr)
-    if variant not in VARIANTS:
-        raise ValueError(f'variant must be "cuda" or "cpp", got {variant!r}')
-    taps, lut = jbf_tables(int(ksize), src.device)
-    return _btf(src, int(ksize), int(nitr), impl, variant, taps, lut)
+    to ``device`` (the GPU unless the caller passes ``device="cpu"``).  The
+    call is the span ``ops.bilateral_texture_filter``."""
+    s = SPANS.open("ops.bilateral_texture_filter") if SPANS.on else -1
+    try:
+        v = SPANS.open("ops.validate") if SPANS.on else -1
+        src = _validate.as_tensor(src, device)
+        _validate.check_u8_color("src", src)
+        _validate.check_ksize(ksize)
+        check_nitr(nitr)
+        if variant not in VARIANTS:
+            raise ValueError(f'variant must be "cuda" or "cpp", got {variant!r}')
+        impl = resolve_impl(impl, src)
+        if v >= 0:
+            SPANS.close(v)
+        t = SPANS.open("ops.tables") if SPANS.on else -1
+        taps, lut = jbf_tables(int(ksize), src.device)
+        if t >= 0:
+            SPANS.close(t)
+        return _btf(src, int(ksize), int(nitr), impl, variant, taps, lut)
+    finally:
+        if s >= 0:
+            SPANS.close(s)

@@ -1,5 +1,5 @@
 """Build the package's CUDA sources, load them with ctypes, and the checks
-every kernel wrapper shares.
+and the launch every kernel wrapper shares.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into one shared library with a plain C
@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from ...utils.profiling import SPANS
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -111,11 +113,18 @@ def load_library() -> ctypes.CDLL:
     return cdll
 
 
-def check_launch(err: int, kernel: str) -> None:
-    """Raise if a launch returned a cudaError_t other than cudaSuccess."""
+def enqueue(span: str, launch, args: tuple, kernel: str) -> None:
+    """``launch(*args)``: one ctypes call into the library, which enqueues a
+    kernel on the stream among its arguments, recorded as the span ``span``
+    (``enqueue.<kernel>``).  Raises if the launch returned a cudaError_t
+    other than cudaSuccess."""
+    s = SPANS.open(span) if SPANS.on else -1
+    err = launch(*args)
     if err != 0:
         msg = load_library().vip_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} (cudaError_t {err})")
+    if s >= 0:
+        SPANS.close(s)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes: tuple, ndims: tuple) -> None:

@@ -6,7 +6,9 @@ launches on PyTorch's current stream.  Every radius is taken: where the
 halo tile does not fit in one block's shared memory, the kernel streams it
 through in bands.  Anything the kernel does not take raises; a launch the
 runtime refuses raises.  ``launches`` counts
-successful launches, so a run can show its main path went through the kernel.
+successful launches, so a run can show its main path went through the kernel;
+a call is the span ``cuda_wrappers.adaptive_bilateral`` around
+``enqueue.adaptive_bilateral``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import functools
 import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_ADAPTIVE, color_table, space_kernel, tap_table
-from ._build import (check_color_image, check_launch, check_smem, check_table, check_taps,
+from ...utils.profiling import SPANS
+from ._build import (check_color_image, check_smem, check_table, check_taps, enqueue,
                      load_library, stream_of)
 
 launches = 0
@@ -45,6 +48,7 @@ def adaptive_bilateral_taps(src: torch.Tensor, taps: torch.Tensor, lut: torch.Te
     """Launch the kernel with the filter's tables: the window is 2·radius+1.
     The taps must be in (ky, kx) order, as core.luts.tap_table gives them."""
     global launches
+    w = SPANS.open("cuda_wrappers.adaptive_bilateral") if SPANS.on else -1
     check_color_image("src", src)
     check_taps(taps, src.device)
     check_table("lut", lut, torch.float32, (COLOR_TABLE_SIZE_ADAPTIVE,), src.device)
@@ -52,12 +56,14 @@ def adaptive_bilateral_taps(src: torch.Tensor, taps: torch.Tensor, lut: torch.Te
     check_smem("adaptive_bilateral", 2 * radius + 1, smem)
     height, width, _ = src.shape
     out = torch.empty_like(src)
-    with torch.cuda.device(src.device):
-        err = _lib().vip_adaptive_bilateral_u8(
-            src.data_ptr(), out.data_ptr(), height, width, taps.data_ptr(), taps.shape[0],
+    args = (src.data_ptr(), out.data_ptr(), height, width, taps.data_ptr(), taps.shape[0],
             lut.data_ptr(), radius, stream_of(src))
-    check_launch(err, "adaptive_bilateral")
+    with torch.cuda.device(src.device):
+        enqueue("enqueue.adaptive_bilateral", _lib().vip_adaptive_bilateral_u8, args,
+                "adaptive_bilateral")
     launches += 1
+    if w >= 0:
+        SPANS.close(w)
     return out
 
 

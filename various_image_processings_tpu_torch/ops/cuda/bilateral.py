@@ -7,7 +7,8 @@ halo tile of 4 pixels a thread does not fit in one block's shared memory,
 the kernel takes 1 pixel a thread and, where that tile does not fit
 either, streams it through in bands.  Anything the kernel does not take
 raises; a launch the runtime refuses raises.  ``launches`` counts successful
-launches, so a run can show its main path went through the kernel.
+launches, so a run can show its main path went through the kernel; a call
+is the span ``cuda_wrappers.bilateral`` around ``enqueue.bilateral``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import functools
 import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_BILATERAL, color_table, space_kernel, tap_table
-from ._build import (check_color_image, check_launch, check_smem, check_table, check_taps,
+from ...utils.profiling import SPANS
+from ._build import (check_color_image, check_smem, check_table, check_taps, enqueue,
                      load_library, stream_of)
 
 launches = 0
@@ -54,6 +56,7 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
     off src, one tile in shared memory instead of two).  The taps must be in
     (ky, kx) order, as core.luts.tap_table gives them."""
     global launches
+    w = SPANS.open("cuda_wrappers.bilateral") if SPANS.on else -1
     check_color_image("src", src)
     if guide is not None:
         check_color_image("guide", guide)
@@ -69,13 +72,14 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
     check_smem("bilateral", 2 * radius + 1, smem)
     height, width, _ = src.shape
     out = torch.empty_like(src)
-    with torch.cuda.device(src.device):
-        err = _lib().vip_bilateral_u8(
-            src.data_ptr(), None if guide is None else guide.data_ptr(), out.data_ptr(),
+    args = (src.data_ptr(), None if guide is None else guide.data_ptr(), out.data_ptr(),
             height, width, taps.data_ptr(), taps.shape[0], lut.data_ptr(),
             radius, BORDERS[border], ROUNDINGS[rounding], stream_of(src))
-    check_launch(err, "bilateral")
+    with torch.cuda.device(src.device):
+        enqueue("enqueue.bilateral", _lib().vip_bilateral_u8, args, "bilateral")
     launches += 1
+    if w >= 0:
+        SPANS.close(w)
     return out
 
 

@@ -7,7 +7,9 @@ taken: where a halo tile does not fit in one block's shared memory, the
 kernel streams it through in bands.  Anything the kernels do not take
 raises; a launch the runtime refuses raises.
 ``blur_rtv_launches`` and ``guide_launches`` count successful launches, so a
-run can show its main path went through the kernels.
+run can show its main path went through the kernels; a call is the span
+``cuda_wrappers.<kernel>`` around ``enqueue.<kernel>``, kernel ``blur_rtv``
+or ``guide``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from ._build import check_launch, check_smem, check_tensor, load_library, stream_of
+from ...utils.profiling import SPANS
+from ._build import check_smem, check_tensor, enqueue, load_library, stream_of
 
 blur_rtv_launches = 0
 guide_launches = 0
@@ -71,6 +74,7 @@ def blur_and_rtv(img: torch.Tensor, magnitude: torch.Tensor, ksize: int):
     """(H, W, 3) u8 image + (H, W) f32 magnitude →
     ((H, W, 3) f32 blurred, (H, W) f32 rtv)."""
     global blur_rtv_launches
+    w = SPANS.open("cuda_wrappers.blur_rtv") if SPANS.on else -1
     check_tensor("img", img, (torch.uint8,), (3,))
     check_tensor("magnitude", magnitude, (torch.float32,), (2,))
     _check_pair(img, magnitude, ksize)
@@ -79,18 +83,20 @@ def blur_and_rtv(img: torch.Tensor, magnitude: torch.Tensor, ksize: int):
     height, width, _ = img.shape
     blurred = torch.empty((height, width, 3), dtype=torch.float32, device=img.device)
     rtv = torch.empty((height, width), dtype=torch.float32, device=img.device)
+    args = (img.data_ptr(), magnitude.data_ptr(), blurred.data_ptr(), rtv.data_ptr(), height,
+            width, ksize, float(EPSILON), stream_of(img))
     with torch.cuda.device(img.device):
-        err = _lib().vip_blur_rtv(img.data_ptr(), magnitude.data_ptr(), blurred.data_ptr(),
-                                  rtv.data_ptr(), height, width, ksize, float(EPSILON),
-                                  stream_of(img))
-    check_launch(err, "blur_rtv")
+        enqueue("enqueue.blur_rtv", _lib().vip_blur_rtv, args, "blur_rtv")
     blur_rtv_launches += 1
+    if w >= 0:
+        SPANS.close(w)
     return blurred, rtv
 
 
 def guide(blurred: torch.Tensor, rtv: torch.Tensor, ksize: int) -> torch.Tensor:
     """((H, W, 3) f32 blurred, (H, W) f32 rtv) → (H, W, 3) u8 guide."""
     global guide_launches
+    w = SPANS.open("cuda_wrappers.guide") if SPANS.on else -1
     check_tensor("blurred", blurred, (torch.float32,), (3,))
     check_tensor("rtv", rtv, (torch.float32,), (2,))
     _check_pair(blurred, rtv, ksize)
@@ -98,9 +104,11 @@ def guide(blurred: torch.Tensor, rtv: torch.Tensor, ksize: int) -> torch.Tensor:
     check_smem("guide", ksize, smem)
     height, width, _ = blurred.shape
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=blurred.device)
+    args = (blurred.data_ptr(), rtv.data_ptr(), out.data_ptr(), height, width, ksize,
+            float(sigma_alpha(ksize)), stream_of(blurred))
     with torch.cuda.device(blurred.device):
-        err = _lib().vip_guide(blurred.data_ptr(), rtv.data_ptr(), out.data_ptr(), height,
-                               width, ksize, float(sigma_alpha(ksize)), stream_of(blurred))
-    check_launch(err, "guide")
+        enqueue("enqueue.guide", _lib().vip_guide, args, "guide")
     guide_launches += 1
+    if w >= 0:
+        SPANS.close(w)
     return out

@@ -18,7 +18,9 @@ refuses raises.  ``association_launches``, ``snap_keys_launches`` and
 ``update_launches`` count successful launches (one a batch), so a run can
 show its main path went through the kernels; ``metric_launches`` counts the
 association and snap-key launches by (kernel, metric), and
-``delta_e_launches`` the pair kernel's.
+``delta_e_launches`` the pair kernel's.  A call is the span
+``cuda_wrappers.<kernel>`` around ``enqueue.<kernel>``, kernel
+``slic_association``, ``slic_snap_keys``, ``slic_update`` or ``slic_delta_e``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from collections import Counter
 
 import torch
 
-from ._build import check_launch, check_table, check_tensor, load_library, stream_of
+from ...utils.profiling import SPANS
+from ._build import check_table, check_tensor, enqueue, load_library, stream_of
 
 association_launches = 0
 snap_keys_launches = 0
@@ -135,6 +138,7 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     b and count, and sets an image's changed flag of the iteration if one of
     its distances fell."""
     global association_launches
+    w = SPANS.open("cuda_wrappers.slic_association") if SPANS.on else -1
     metric_id = _metric_id(metric)
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
@@ -142,14 +146,16 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
     check_table("dists", dists, torch.float32, (batch, height, width), lab.device)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
+    args = (lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), dists.data_ptr(),
+            sums.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size, per_col,
+            per_row, space_norm, color_norm, metric_id, stream_of(lab))
     with torch.cuda.device(lab.device):
-        err = _lib().vip_slic_association(
-            lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), dists.data_ptr(),
-            sums.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size,
-            per_col, per_row, space_norm, color_norm, metric_id, stream_of(lab))
-    check_launch(err, "SLIC association")
+        enqueue("enqueue.slic_association", _lib().vip_slic_association, args,
+                "SLIC association")
     association_launches += 1
     metric_launches["association", metric] += 1
+    if w >= 0:
+        SPANS.close(w)
 
 
 def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
@@ -159,6 +165,7 @@ def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     least floor(distance to its mean) * 2^32 + raster index (in its image)
     over its pixels."""
     global snap_keys_launches
+    w = SPANS.open("cuda_wrappers.slic_snap_keys") if SPANS.on else -1
     metric_id = _metric_id(metric)
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
@@ -166,14 +173,15 @@ def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
     check_table("keys", keys, torch.int64, (batch, n), lab.device)
+    args = (lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), sums.data_ptr(),
+            keys.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size, per_col,
+            per_row, metric_id, stream_of(lab))
     with torch.cuda.device(lab.device):
-        err = _lib().vip_slic_snap_keys(
-            lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), sums.data_ptr(),
-            keys.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size,
-            per_col, per_row, metric_id, stream_of(lab))
-    check_launch(err, "SLIC snap keys")
+        enqueue("enqueue.slic_snap_keys", _lib().vip_slic_snap_keys, args, "SLIC snap keys")
     snap_keys_launches += 1
     metric_launches["snap_keys", metric] += 1
+    if w >= 0:
+        SPANS.close(w)
 
 
 def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: torch.Tensor,
@@ -183,19 +191,21 @@ def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: t
     iteration's active flag to this one's changed flag, and clears ``sums``
     and ``keys``."""
     global update_launches
+    w = SPANS.open("cuda_wrappers.slic_update") if SPANS.on else -1
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
     _check_state(lab, centers, state, batch, n)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
     check_table("keys", keys, torch.int64, (batch, n), lab.device)
     flags, stride = _flags(state, iteration)
-    with torch.cuda.device(lab.device):
-        err = _lib().vip_slic_update(
-            lab.data_ptr(), centers.data_ptr(), keys.data_ptr(), sums.data_ptr(),
+    args = (lab.data_ptr(), centers.data_ptr(), keys.data_ptr(), sums.data_ptr(),
             state.data_ptr(), flags, flags + 8, stride, batch, n, height, width, sp_size,
             per_row, iteration, stream_of(lab))
-    check_launch(err, "SLIC update")
+    with torch.cuda.device(lab.device):
+        enqueue("enqueue.slic_update", _lib().vip_slic_update, args, "SLIC update")
     update_launches += 1
+    if w >= 0:
+        SPANS.close(w)
 
 
 def association_shape(height: int, width: int, metric: str = "euclidean") -> tuple[int, int]:
@@ -212,6 +222,7 @@ def delta_e(l1: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor, l2: torch.Tens
     pair (l1, a1, b1)[i], (l2, a2, b2)[i]: six f32 CUDA tensors of one shape,
     through the kernels' device function → f32 of that shape."""
     global delta_e_launches
+    w = SPANS.open("cuda_wrappers.slic_delta_e") if SPANS.on else -1
     metric_id = _metric_id(metric)
     if metric_id == METRICS["euclidean"]:
         raise ValueError("the pair kernel computes the CIEDE2000 metrics only")
@@ -220,11 +231,12 @@ def delta_e(l1: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor, l2: torch.Tens
         check_tensor(name, t, (torch.float32,), (t.ndim,))
         check_table(name, t, torch.float32, tuple(l1.shape), l1.device)
     out = torch.empty_like(l1)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(l1.device):
-        err = _lib().vip_slic_delta_e(*(t.data_ptr() for t in planes), out.data_ptr(),
-                                      out.numel(), metric_id, stream_of(l1))
-    check_launch(err, "SLIC delta E")
-    delta_e_launches += 1
+    if out.numel():
+        args = (*(t.data_ptr() for t in planes), out.data_ptr(), out.numel(), metric_id,
+                stream_of(l1))
+        with torch.cuda.device(l1.device):
+            enqueue("enqueue.slic_delta_e", _lib().vip_slic_delta_e, args, "SLIC delta E")
+        delta_e_launches += 1
+    if w >= 0:
+        SPANS.close(w)
     return out

@@ -14,7 +14,9 @@ the multi-start beam's diffusion start, one launch a branch.
 Anything the kernels do not take raises, and so does a launch the runtime
 refuses.  ``ring_pick_launches``, ``filters_launches``, ``commit_launches``
 and ``diffusion_launches`` count successful launches, so a run can show its
-main path went through the kernels.
+main path went through the kernels; a launch is the span
+``cuda_wrappers.wexler_<kernel>`` around ``enqueue.wexler_<kernel>``, kernel
+``ring_pick``, ``filters``, ``commit`` or ``diffusion``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import functools
 
 import torch
 
-from ._build import check_launch, check_tensor, load_library, stream_of
+from ...utils.profiling import SPANS
+from ._build import check_tensor, enqueue, load_library, stream_of
 
 # slots of a pass's int32 state vector
 ACTIVE, FAIL, LIVE, COUNT, ENERGY, ITERATIONS = range(6)
@@ -105,15 +108,20 @@ def _check_targets(tyx: torch.Tensor, state: torch.Tensor, device) -> int:
 
 def _bind(fn: str, args: tuple, device, kernel: str, counter: str):
     """A launch of ``fn`` with fixed arguments: one ctypes call on the
-    tensor's device, its error checked, ``counter`` counted."""
+    tensor's device, its error checked, ``counter`` (``<kernel>_launches``)
+    counted, recorded as the spans of ``wexler_<kernel>``."""
+    name = "wexler_" + counter.removesuffix("_launches")
+    wrapper, queued = "cuda_wrappers." + name, "enqueue." + name
     fn, device = getattr(_lib(), fn), torch.cuda.device(device)
     module = globals()
 
     def go() -> None:
+        w = SPANS.open(wrapper) if SPANS.on else -1
         with device:
-            err = fn(*args)
-        check_launch(err, kernel)
+            enqueue(queued, fn, args, kernel)
         module[counter] += 1
+        if w >= 0:
+            SPANS.close(w)
 
     return go
 
@@ -224,6 +232,7 @@ def diffusion(src: torch.Tensor, rem0: torch.Tensor, box: tuple, dither: bool,
     Jacobi sweeps of the 3x3 edge-padded mean from the known pixels' mean,
     the dither on top if asked, clamped to 0..255.  ninth: f32(1 / 9)."""
     global diffusion_launches
+    w = SPANS.open("cuda_wrappers.wexler_diffusion") if SPANS.on else -1
     check_tensor("src", src, (torch.uint8,), (3,))
     height, width, channels = src.shape
     if channels != 3:
@@ -235,9 +244,12 @@ def diffusion(src: torch.Tensor, rem0: torch.Tensor, box: tuple, dither: bool,
         raise ValueError(f"the diffusion start keeps its box in shared memory: at most "
                          f"{MAX_DIFFUSION_PIXELS} pixels, got {bh}x{bw}")
     out = src.clone()
+    args = (src.data_ptr(), rem0.data_ptr(), out.data_ptr(), bh, bw, by0, bx0, width,
+            int(dither), ninth, stream_of(src))
     with torch.cuda.device(src.device):
-        err = _lib().vip_wexler_diffusion(src.data_ptr(), rem0.data_ptr(), out.data_ptr(), bh, bw,
-                                          by0, bx0, width, int(dither), ninth, stream_of(src))
-    check_launch(err, "Wexler diffusion start")
+        enqueue("enqueue.wexler_diffusion", _lib().vip_wexler_diffusion, args,
+                "Wexler diffusion start")
     diffusion_launches += 1
+    if w >= 0:
+        SPANS.close(w)
     return out

@@ -12,7 +12,9 @@ elementwise ops, and ``encode_keys`` packs them back.  The fill loop
 (``models/inpainting.py``) keeps its planes and filters in the padded
 layouts for a whole pass and binds the kernel to them once
 (``launcher``), gated by its active flag.  Anything the kernel does not take raises, and so does a
-launch the runtime refuses.  ``launches`` counts successful launches.
+launch the runtime refuses.  ``launches`` counts successful launches; a
+launch is the span ``cuda_wrappers.wexler_search`` around
+``enqueue.wexler_search``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ...core.pad import round_up
-from ._build import check_launch, check_tensor, load_library, stream_of
+from ...utils.profiling import SPANS
+from ._build import check_tensor, enqueue, load_library, stream_of
 
 K_PAD = 128
 TARGET_TILE = 128  # targets a block (the kernel's kTileN): Tp is a multiple
@@ -152,9 +155,11 @@ def launcher(p: torch.Tensor, f: torch.Tensor, valid: torch.Tensor, keys: torch.
 
     def go() -> None:
         global launches
+        w = SPANS.open("cuda_wrappers.wexler_search") if SPANS.on else -1
         with device:
-            err = fn(*args)
-        check_launch(err, "wexler_search")
+            enqueue("enqueue.wexler_search", fn, args, "wexler_search")
         launches += 1
+        if w >= 0:
+            SPANS.close(w)
 
     return go

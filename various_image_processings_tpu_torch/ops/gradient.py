@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.pad import replicate_pad
+from ..utils.profiling import SPANS
 from . import _validate
 from ._dispatch import resolve_impl
 from .cuda import gradient as cuda_gradient
@@ -39,8 +40,9 @@ def _gradient_math(s: torch.Tensor) -> torch.Tensor:
 
 
 def _gradient(s: torch.Tensor, impl: str) -> torch.Tensor:
-    """s: (H, W, C) u8|f32 tensor → (H, W) f32, on s's device."""
-    if resolve_impl(impl, s) == "cuda":
+    """s: (H, W, C) u8|f32 tensor → (H, W) f32, on s's device; ``impl`` is
+    resolved already."""
+    if impl == "cuda":
         return cuda_gradient.gradient(s.contiguous())
     return _gradient_math(s.to(torch.float32))
 
@@ -49,10 +51,20 @@ def gradient(src, impl: str = "auto", device="cuda") -> torch.Tensor:
     """(H, W) or (H, W, C) u8|f32 → (H, W) f32 gradient magnitude.
 
     A tensor is processed on its own device; any other array is first
-    copied to ``device`` (the GPU unless the caller passes ``device="cpu"``)."""
-    src = _validate.as_tensor(src, device)
-    if src.dtype not in (torch.uint8, torch.float32):
-        raise TypeError(f"gradient supports u8/f32, got {src.dtype}")
-    if src.ndim not in (2, 3):
-        raise ValueError(f"src must be (H, W) or (H, W, C), got shape {tuple(src.shape)}")
-    return _gradient(src if src.ndim == 3 else src[:, :, None], impl)
+    copied to ``device`` (the GPU unless the caller passes ``device="cpu"``).
+    The call is the span ``ops.gradient``."""
+    s = SPANS.open("ops.gradient") if SPANS.on else -1
+    try:
+        v = SPANS.open("ops.validate") if SPANS.on else -1
+        src = _validate.as_tensor(src, device)
+        if src.dtype not in (torch.uint8, torch.float32):
+            raise TypeError(f"gradient supports u8/f32, got {src.dtype}")
+        if src.ndim not in (2, 3):
+            raise ValueError(f"src must be (H, W) or (H, W, C), got shape {tuple(src.shape)}")
+        impl = resolve_impl(impl, src)
+        if v >= 0:
+            SPANS.close(v)
+        return _gradient(src if src.ndim == 3 else src[:, :, None], impl)
+    finally:
+        if s >= 0:
+            SPANS.close(s)

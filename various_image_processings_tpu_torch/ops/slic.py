@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import SPANS
 from . import _validate
 
 
@@ -28,10 +29,19 @@ def superpixel_slic(image, superpixel_size: int = 30, num_iteration: int = 10,
     kernels (``csrc/slic_kmeans.cu``) for an image on the GPU with any of
     the three metrics, the plain PyTorch version on the CPU.  The
     connectivity pass runs on the host (native C++; for the ΔE metrics,
-    native components and a Python merge)."""
+    native components and a Python merge).  The call is the span
+    ``ops.superpixel_slic``; ``ops.validate`` takes in the model's set-up."""
     from ..models.slic import SuperpixelSLIC
-    img = _validate.as_tensor(image, device)
-    _validate.check_u8_color("image", img)
-    slic = SuperpixelSLIC(img.shape[0], img.shape[1], superpixel_size, num_iteration,
-                          color_scale, metric, device=img.device)
-    return slic.apply(img)
+    s = SPANS.open("ops.superpixel_slic") if SPANS.on else -1
+    try:
+        v = SPANS.open("ops.validate") if SPANS.on else -1
+        img = _validate.as_tensor(image, device)
+        _validate.check_u8_color("image", img)
+        slic = SuperpixelSLIC(img.shape[0], img.shape[1], superpixel_size, num_iteration,
+                              color_scale, metric, device=img.device)
+        if v >= 0:
+            SPANS.close(v)
+        return slic.apply(img)
+    finally:
+        if s >= 0:
+            SPANS.close(s)

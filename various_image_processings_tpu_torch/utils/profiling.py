@@ -1,10 +1,13 @@
-"""Timing utilities.
+"""Timing utilities and the port's spans.
 
 Counterpart of ``various_image_processings_tpu/utils/profiling.py`` and of
 the reference's ``MEASURE`` macro (sample/benchmark/main.cpp:20-33): N+1
 calls, the first thrown away, the mean of fenced wall-clock msec; MP/s; the
 chain-slope method; and ``torch.profiler`` traces.  ``cuda_time_ms`` times
-the device alone with CUDA events.
+the device alone with CUDA events.  ``SPANS`` records the port's spans at
+its layer boundaries: ``ops.<entry>`` (a public entry's whole call),
+``ops.validate`` and ``ops.tables`` inside it, ``cuda_wrappers.<kernel>``
+(a kernel wrapper) and ``enqueue.<kernel>`` (its ctypes launch) inside that.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import os
 import statistics
 import tempfile
 import time
+from time import perf_counter_ns
+from typing import NamedTuple
 
 import torch
 
@@ -115,3 +120,99 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+class Drained(NamedTuple):
+    """The spans a recorder held, in the order they opened: parallel lists
+    of names, starts and ends (``time.perf_counter_ns``; an end of 0: never
+    closed), parents (an index into these lists, -1 for none) and call ids;
+    and the spans dropped because the lists were full."""
+    names: list
+    starts: list
+    ends: list
+    parents: list
+    calls: list
+    dropped: int
+
+
+class SpanRecorder:
+    """Spans in memory, off until ``start``.
+
+    A span is a name, a start and an end on ``time.perf_counter_ns``, the
+    span that was open when it opened (its parent) and the call it belongs
+    to: a span that opens with none open starts a new call, and every span
+    opened inside it shares that call's id.  The spans sit in preallocated
+    parallel lists; one that finds them full is dropped and counted.  A
+    boundary reads ``on`` and, when it is off, does nothing more::
+
+        s = SPANS.open("ops.validate") if SPANS.on else -1
+        ...
+        if s >= 0:
+            SPANS.close(s)
+
+    Closing a span makes its parent the open one again, so a span left open
+    by an exception is closed over by its parent's close."""
+
+    __slots__ = ("on", "capacity", "n", "dropped", "top", "next_call",
+                 "names", "starts", "ends", "parents")
+
+    def __init__(self):
+        self.on = False
+        self.capacity = self.n = self.dropped = self.next_call = 0
+        self.top = -1
+        self.names, self.starts, self.ends, self.parents = [], [], [], []
+
+    def start(self, capacity: int = 1 << 20) -> None:
+        """Empty the recorder, make room for ``capacity`` spans and turn it on."""
+        if capacity != self.capacity:
+            self.capacity = capacity
+            self.names, self.parents = [None] * capacity, [0] * capacity
+            self.starts, self.ends = [0] * capacity, [0] * capacity
+        self._empty()
+        self.on = True
+
+    def stop(self) -> None:
+        self.on = False
+
+    def drain(self) -> Drained:
+        """The spans recorded since ``start`` or the last drain, and the
+        count dropped; the recorder keeps its room and its state, on or off.
+        Call ids count on from one drain to the next."""
+        n = self.n
+        parents = self.parents[:n]
+        calls = [0] * n
+        for i, parent in enumerate(parents):
+            if parent < 0:
+                calls[i] = self.next_call
+                self.next_call += 1
+            else:
+                calls[i] = calls[parent]
+        out = Drained(self.names[:n], self.starts[:n], self.ends[:n], parents, calls,
+                      self.dropped)
+        self._empty()
+        return out
+
+    def _empty(self) -> None:
+        self.ends[:self.n] = [0] * self.n  # a span never closed reads an end of 0
+        self.n = self.dropped = 0
+        self.top = -1
+
+    def open(self, name: str) -> int:
+        """Open a span; its index, for ``close``, or -1 if it was dropped."""
+        i = self.n
+        if i >= self.capacity:
+            self.dropped += 1
+            return -1
+        self.n = i + 1
+        self.names[i] = name
+        self.parents[i] = self.top
+        self.top = i
+        self.starts[i] = perf_counter_ns()
+        return i
+
+    def close(self, i: int) -> None:
+        self.ends[i] = perf_counter_ns()
+        self.top = self.parents[i]
+
+
+SPANS = SpanRecorder()  # the port's one recorder
