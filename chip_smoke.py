@@ -106,11 +106,12 @@ iteration per image at a batch of 1, 4 and 8 against the batch's bound.
 
 With ``--parent-csrc DIR`` (another tree's ``csrc/``, e.g. the parent
 commit's, unpacked with ``git archive``) it also builds those sources and
-times their guide and gradient kernels in turns with this tree's (parent,
-change, change, parent), a BTF call whose gradient and guide are the
-parent's, and the parent's Wexler ring pick and filters on each state
-phase 16b times (bit-equal to this tree's), in the same process on the same
-card.
+times their bilateral (phase 5b: BF 4K k=9, JBF k'=17 at 600x900 and 4K, on
+a noise and a photo-like frame), guide and gradient kernels in turns with
+this tree's (parent, change, change, parent), a BTF call whose gradient and
+guide are the parent's, and the parent's Wexler ring pick and filters on
+each state phase 16b times (bit-equal to this tree's), in the same process
+on the same card.
 
 Every phase prints a line; any failure exits non-zero.  On success the line
 before the last is ``{"kernels": [...]}`` (the kernels' own runs; the
@@ -358,16 +359,16 @@ def sass_loops(funcs: dict, name_part: str) -> list[tuple[str, int, Counter]]:
 
 
 def build_parent(csrc: str):
-    """The guide, gradient, ring-pick and filters kernels of another tree's
-    csrc/ (the parent's), built with this tree's nvcc flags, as a ctypes
-    library."""
+    """The bilateral, guide, gradient, ring-pick and filters kernels of
+    another tree's csrc/ (the parent's), built with this tree's nvcc flags,
+    as a ctypes library."""
     import ctypes
 
     from various_image_processings_tpu_torch.ops.cuda import _build
     out = _build.BUILD_DIR / "parent"
     out.mkdir(parents=True, exist_ok=True)
-    srcs = [os.path.join(csrc, f) for f in ("bilateral_texture.cu", "gradient.cu",
-                                              "wexler_fill.cu")]
+    srcs = [os.path.join(csrc, f) for f in ("bilateral.cu", "bilateral_texture.cu",
+                                              "gradient.cu", "wexler_fill.cu")]
     objs = [str(out / (os.path.basename(f) + ".o")) for f in srcs]
     nvcc = _build.nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, f] for f, o in zip(srcs, objs)])
@@ -375,6 +376,7 @@ def build_parent(csrc: str):
     _build._run_all([[nvcc, "-shared", "-o", lib, *objs]])
     cdll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
+    cdll.vip_bilateral_u8.argtypes = [p, p, p, i, i, p, i, p, i, i, i, p]
     cdll.vip_guide.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
     cdll.vip_gradient.argtypes = [p, p, i, i, i, i, p]
     cdll.vip_wexler_ring_pick.argtypes = [p] * 6 + [i] * 8 + [p]
@@ -412,6 +414,105 @@ def parent_fill_launch(parent, piece: str, k):
             raise SystemExit(f"the parent's Wexler {piece} did not launch: cudaError_t {err}")
 
     return go
+
+
+# the bilateral kernel's cells: (label, shape, (ksize, sigma_space, sigma_color), joint)
+BILATERAL_CELLS = (("BF 4K k=9", MAIN_SHAPE, MAIN_PARAMS, False),
+                   ("JBF 600x900 k'=17", BTF_SHAPE, BTF_PARAMS, True),
+                   ("JBF 4K k'=17", MAIN_SHAPE, BTF_PARAMS, True))
+
+
+def photo_like(h: int, w: int, dev, seed: int = 1):
+    """A (h, w, 3) u8 frame of the benchmark's photo-like traffic
+    (port_bench/inputs/u8_photo_like.py, its 4K mix's parameters)."""
+    import torch
+
+    from port_bench.inputs import u8_photo_like
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "port_bench", "traffic",
+                           "u8_photo_like_2160x3840.json")) as f:
+        traffic = {**json.load(f), "height": h, "width": w, "pool_frames": 1}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return u8_photo_like.make_pool(traffic, gen, dev)[0]
+
+
+def bilateral_kernel_phases(dev, parent=None) -> dict:
+    """The bilateral kernel at its cells (BILATERAL_CELLS): what ptxas says
+    of each instantiation (the blocked path's must not spill), the SASS loops
+    of the blocked path, each cell's launch plan, and on a noise frame and a
+    photo-like frame the kernel's device ms, bit-equal to the plain version,
+    with the bound beside it; with ``parent`` (build_parent's library) the
+    parent's kernel in turns (parent, change, change, parent), bit-equal to
+    this tree's.  Prints a ``{"bilateral": ...}`` line and returns it."""
+    import torch
+
+    from various_image_processings_tpu_torch.core.rng import random_image
+    from various_image_processings_tpu_torch.ops.bilateral import _bilateral_math
+    from various_image_processings_tpu_torch.ops.cuda import _build
+    from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
+    from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
+
+    lb = kbf._lib()
+    ptxas = {name: v for name, v in ptxas_summary(_build.ptxas_report()).items()
+             if "bilateral" in name and "adaptive" not in name}
+    for name, (regs, st, ld) in ptxas.items():
+        phase(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    blocked = {name: v for name, v in ptxas.items() if "bilateral_cols_kernel" in name}
+    if len(blocked) != 2 or any(st or ld for _, st, ld in blocked.values()):
+        raise SystemExit(f"the blocked path's instantiations are not 2 or spill: {blocked}")
+    funcs = sass_functions(str(_build.library_path()))
+    for part in ("bilateral_cols_kernelILb0E", "bilateral_cols_kernelILb1E"):
+        for name, n, ops in sass_loops(funcs, part):
+            top = ", ".join(f"{op} {c}" for op, c in ops.most_common(14))
+            phase(f"SASS loop of the blocked path ({name}): {n} instructions: {top}")
+    result = {"card": torch.cuda.get_device_name(0), "ptxas": ptxas, "cells": {}}
+    for label, (h, w), (k, ss, sc), joint in BILATERAL_CELLS:
+        r = k // 2
+        cols = lb.vip_bilateral_columns_per_thread(r, h)
+        taps, lut = kbf.device_tables(k, ss, sc, dev)
+        n_taps = int(taps.shape[0])
+        # bytes: the source (and guide) in, the output out; operations: per
+        # tap ws * lut, 3 products and 4 sums, per pixel 3 divisions and roundings
+        b_ms, b_by = bound((3 if joint else 2) * h * w * 3, h * w * (8 * n_taps + 6))
+        cell = {"columns_per_thread": cols, "smem": lb.vip_bilateral_smem_bytes(r, int(joint), h),
+                "bound_ms": b_ms, "bound_by": b_by}
+        for frame in ("noise", "photo-like"):
+            src = (torch.from_numpy(random_image(h, w)).to(dev) if frame == "noise"
+                   else photo_like(h, w, dev))
+            guide = torch.flip(src, dims=(0,)).contiguous() if joint else None
+            g = guide if joint else src
+            fns = {"change": lambda: kbf.joint_bilateral(src, guide, taps, lut, r)}
+            if parent is not None:
+                def parent_call(src=src, guide=guide):
+                    out = torch.empty_like(src)
+                    err = parent.vip_bilateral_u8(
+                        src.data_ptr(), None if guide is None else guide.data_ptr(),
+                        out.data_ptr(), h, w, taps.data_ptr(), n_taps, lut.data_ptr(), r, 0, 0,
+                        torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise SystemExit(f"the parent's bilateral kernel did not launch: "
+                                         f"cudaError_t {err}")
+                    return out
+                fns["parent"] = parent_call
+            outs = {who: fn() for who, fn in fns.items()}
+            plain = _bilateral_math(src, g, k, ss, sc)
+            diffs = {who: max_diff(out, plain) for who, out in outs.items()}
+            if any(diffs.values()):
+                raise SystemExit(f"{label} {frame}: kernel vs plain max |diff| {diffs}")
+            ms = {who: [] for who in fns}
+            for who in (("parent", "change", "change", "parent") if parent is not None
+                        else ("change",)):
+                ms[who].append(queued_ms(fns[who], 50))
+            plain_ms = cuda_time_ms(lambda: _bilateral_math(src, g, k, ss, sc), iters=3, warmup=1)
+            cell[frame] = {"ms": ms, "plain_ms": plain_ms}
+            phase(f"{label} {frame}: V={cols}, kernel {' / '.join(f'{t:.4f}' for t in ms['change'])}"
+                  f" ms" + (f", parent {' / '.join(f'{t:.4f}' for t in ms['parent'])} ms in turns"
+                            if parent is not None else "")
+                  + f", bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, max |diff| 0")
+        result["cells"][label] = cell
+    print(json.dumps({"bilateral": result}), flush=True)
+    return result
 
 
 def smooth_image(h: int, w: int, seed: int) -> np.ndarray:
@@ -2239,7 +2340,7 @@ def main() -> int:
     if "--parent-csrc" in sys.argv:
         t0 = time.perf_counter()
         parent = build_parent(sys.argv[sys.argv.index("--parent-csrc") + 1])
-        phase(f"built the parent's guide, gradient, ring-pick and filters kernels in "
+        phase(f"built the parent's bilateral, guide, gradient, ring-pick and filters kernels in "
               f"{time.perf_counter() - t0:.2f} s")
     def parent_gradient(src):
         out = torch.empty(src.shape[:2], dtype=torch.float32, device=src.device)
@@ -2262,12 +2363,14 @@ def main() -> int:
 
     lb = kbf._lib()
     phase("shared memory per block (all dynamic), as (bytes, tap rows x tap columns a band): "
-          "bilateral " + ", ".join(
-              f"k={2 * r + 1} {'joint' if j else 'self'} {lb.vip_bilateral_smem_bytes(r, j)} B "
+          "bilateral at 4K " + ", ".join(
+              f"k={2 * r + 1} {'joint' if j else 'self'} "
+              f"{lb.vip_bilateral_smem_bytes(r, j, MAIN_SHAPE[0])} B "
+              f"{lb.vip_bilateral_columns_per_thread(r, MAIN_SHAPE[0])} blocked columns/thread "
               f"{lb.vip_bilateral_pixels_per_thread(r, j)} px/thread "
               f"{lb.vip_bilateral_band(r, j, 0)}x{lb.vip_bilateral_band(r, j, 1)}"
-              for r, j in ((4, 0), (8, 1), (15, 0), (109, 0), (110, 0), (74, 1), (75, 1),
-                           (150, 1)))
+              for r, j in ((4, 0), (5, 0), (8, 1), (15, 0), (31, 0), (32, 0), (31, 1), (32, 1),
+                           (109, 0), (110, 0), (74, 1), (75, 1), (150, 1)))
           + "; adaptive bilateral " + ", ".join(
               f"k={2 * r + 1} {kab._lib().vip_adaptive_bilateral_smem_bytes(r)} B "
               f"{kab._lib().vip_adaptive_bilateral_band(r, 0)}x"
@@ -2379,6 +2482,9 @@ def main() -> int:
     phase(f"BTF-shaped JBF {bh}x{bw} k={bk}: max |diff| {d_btf} (tolerance 0), "
           f"kernel {jbf_ms:.4f} ms (parent {PARENT_MS['JBF 600x900 k=17']} ms), plain "
           f"{jbf_plain_ms:.4f} ms")
+
+    # 5b. the bilateral kernel's cells, with the parent's kernel in turns
+    bilateral_kernel_phases(dev, parent)
 
     # 6. gradient grid: u8 and f32, 1 to 4 channels (1 and 3 at 4K), rows
     #    that are whole words and rows that are not, and a u8 image one byte

@@ -6,6 +6,8 @@ has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -14,7 +16,7 @@ torch = pytest.importorskip("torch")
 import various_image_processings_tpu_torch as vt  # noqa: E402
 from various_image_processings_tpu_torch.core.rng import random_array, random_image  # noqa: E402
 from various_image_processings_tpu_torch.core.luts import (  # noqa: E402
-    COLOR_TABLE_SIZE_ADAPTIVE, color_table)
+    COLOR_TABLE_SIZE_ADAPTIVE, color_table, space_kernel, tap_table)
 from various_image_processings_tpu_torch.ops.adaptive_bilateral import (  # noqa: E402
     _abf_math, _abf_taps_math, box_mean)
 from various_image_processings_tpu_torch.ops.bilateral import (  # noqa: E402
@@ -44,16 +46,30 @@ def cuda():
     return torch.device("cuda")
 
 
+@functools.cache
+def _random_image(shape):
+    return random_image(*shape)
+
+
 def images(shape, device):
-    src = random_image(*shape)
+    src = _random_image(shape)
     return (torch.from_numpy(src).to(device),
             torch.from_numpy(src[::-1].copy()).to(device))
 
 
+# heights on both sides of the blocked path's (16 rows and less: the 8-row
+# blocks of 4 pixels 32 apart; more: 32-row blocks of 4 adjacent pixels a
+# thread, rows past the frame masked), widths with a ragged last block of 32
+# and 128 columns and a thread whose 4 columns cross the frame's edge; the
+# blocked path takes k = 11, 17 and 27 (k = 1, 3 and 9 go to the 4-pixel path)
+BILATERAL_SHAPES = [(37, 61), (8, 5), (1, 61), (2, 5), (3, 900), (5, 61), (16, 61), (17, 5),
+                    (600, 900), (2160, 3840)]
+
+
 @pytest.mark.parametrize("border,rounding", [("replicate", "trunc"), ("reflect101", "rint")])
 @pytest.mark.parametrize("joint", [False, True])
-@pytest.mark.parametrize("ksize", [1, 3, 9, 17, 27])
-@pytest.mark.parametrize("shape", [(37, 61), (8, 5)])
+@pytest.mark.parametrize("ksize", [1, 3, 9, 11, 17, 27])
+@pytest.mark.parametrize("shape", BILATERAL_SHAPES)
 def test_kernel_bit_exact_to_plain(cuda, shape, ksize, joint, border, rounding):
     src, guide = images(shape, cuda)
     got = cuda_bf.bilateral(src, guide if joint else None, ksize, 10.0, 30.0, border, rounding)
@@ -61,6 +77,69 @@ def test_kernel_bit_exact_to_plain(cuda, shape, ksize, joint, border, rounding):
                                border, rounding)
     torch.cuda.synchronize()
     assert torch.equal(got, expected)
+
+
+# (radius, height, columns a thread): the smallest radius of the blocked path
+# and the one below, the largest and the next (the 4-pixel path), on the
+# lowest frame it takes, a lower one and a taller one
+@pytest.mark.parametrize("radius,height,cols", [(4, 600, 0), (5, 600, 4), (5, 17, 4), (5, 16, 0),
+                                                (31, 17, 4), (32, 17, 0), (31, 600, 4),
+                                                (32, 600, 0)])
+@pytest.mark.parametrize("joint", [False, True])
+def test_blocked_path_handover_is_bit_exact(cuda, joint, radius, height, cols):
+    """The circle of the radius (every tap of its window but the corners),
+    bit-equal to the plain version on both sides of each handover, the
+    counter of blocked launches rising only where the path is taken."""
+    lib = cuda_bf._lib()
+    assert lib.vip_bilateral_columns_per_thread(radius, height) == cols
+    src, guide = images((height, 45), cuda)
+    table = tap_table(space_kernel(2 * radius + 1, 10.0))
+    _, lut = cuda_bf.device_tables(3, 10.0, 30.0, cuda)
+    for border, rounding in [("replicate", "trunc"), ("reflect101", "rint")]:
+        before = cuda_bf.blocked_calls
+        got = cuda_bf.joint_bilateral(src, guide if joint else None,
+                                      torch.from_numpy(table).to(cuda), lut, radius,
+                                      border, rounding)
+        assert cuda_bf.blocked_calls == before + (cols != 0)
+        want = _taps_math(src, guide if joint else src, table, lut, radius, border, rounding)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_blocked_path_on_runs_shorter_than_a_thread(cuda, joint):
+    """A sparse table whose tap rows hold runs of 1 to 5 taps and gaps: the
+    runs shorter than a thread's 4 outputs go output by output."""
+    radius = 6
+    pos = [(0, 6), (1, 2), (1, 3), (1, 7), (1, 8), (1, 9), (2, 0), (2, 1), (2, 2), (2, 3),
+           (2, 4), (2, 10), (3, 5), (3, 7), (6, 6), (9, 1), (9, 2), (9, 3), (9, 4), (9, 5),
+           (9, 6), (12, 12)]
+    table = np.zeros((len(pos), 4), np.int32)
+    table[:, :2] = pos
+    table[:, 2] = (0.0625 + np.arange(len(pos)) / len(pos)).astype(np.float32).view(np.int32)
+    src, guide = images((45, 70), cuda)
+    assert cuda_bf._lib().vip_bilateral_columns_per_thread(radius, 45) == 4
+    bf_case(src, guide if joint else None, table, radius, cuda)
+
+
+# (joint, shape, ksize, blocked): the benchmark's cells, and a 4K BF at k=17
+@pytest.mark.parametrize("joint,shape,ksize,blocked", [(False, (2160, 3840), 9, False),
+                                                       (True, (600, 900), 17, True),
+                                                       (True, (2160, 3840), 17, True),
+                                                       (False, (2160, 3840), 17, True)])
+def test_blocked_path_counter_rises_once_a_blocked_launch(cuda, joint, shape, ksize, blocked):
+    """The BTF's k′=17 joint filter takes the blocked path at every launch,
+    through the op as through the wrapper, and the k=9 BF never; the
+    counter is not a launch counter."""
+    src, guide = images(shape, cuda)
+    launches, calls = cuda_bf.launches, cuda_bf.blocked_calls
+    for _ in range(3):
+        if joint:
+            vt.joint_bilateral_filter(src, guide, ksize, 8.0, 3.0 ** 0.5)
+        else:
+            vt.bilateral_filter(src, ksize, 10.0, 30.0)
+    assert cuda_bf.launches - launches == 3
+    assert cuda_bf.blocked_calls - calls == (3 if blocked else 0)
+    assert cuda_bf._lib().vip_bilateral_columns_per_thread(ksize // 2, shape[0]) == 4 * blocked
 
 
 def test_auto_on_a_cuda_tensor_launches_the_kernel(cuda):

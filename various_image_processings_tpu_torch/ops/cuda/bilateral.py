@@ -2,13 +2,16 @@
 
 Takes (H, W, 3) u8 CUDA tensors and the filter's tables (core.luts.tap_table
 and the 768-entry range LUT) on the same device, allocates the output and
-launches on PyTorch's current stream.  Every radius is taken: where the
-halo tile of 4 pixels a thread does not fit in one block's shared memory,
-the kernel takes 1 pixel a thread and, where that tile does not fit
-either, streams it through in bands.  Anything the kernel does not take
-raises; a launch the runtime refuses raises.  ``launches`` counts successful
-launches, so a run can show its main path went through the kernel; a call
-is the span ``cuda_wrappers.bilateral`` around ``enqueue.bilateral``.
+launches on PyTorch's current stream.  Every radius is taken: from k = 11
+to k = 63 on frames more than 16 rows high a thread computes 4 adjacent
+output pixels (the blocked path); elsewhere 4 pixels 32 apart, or where
+that halo tile does not fit in one block's shared memory, 1 pixel a thread
+and, where that tile does not fit either, it streams the tile through in
+bands.  Anything the kernel does not take raises; a launch the runtime
+refuses raises.  ``launches`` counts successful launches, so a run can show
+its main path went through the kernel, and ``blocked_calls`` those of them
+that took the blocked path; a call is the span ``cuda_wrappers.bilateral``
+around ``enqueue.bilateral``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ._build import (check_color_image, check_smem, check_table, check_taps, enq
                      load_library, stream_of)
 
 launches = 0
+blocked_calls = 0  # not named *launches: the benchmark counts those as launches
 
 BORDERS = {"replicate": 0, "reflect101": 1}
 ROUNDINGS = {"trunc": 0, "rint": 1}
@@ -32,8 +36,10 @@ ROUNDINGS = {"trunc": 0, "rint": 1}
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library()
-    lib.vip_bilateral_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.vip_bilateral_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.vip_bilateral_smem_bytes.restype = ctypes.c_longlong
+    lib.vip_bilateral_columns_per_thread.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.vip_bilateral_columns_per_thread.restype = ctypes.c_int
     lib.vip_bilateral_pixels_per_thread.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.vip_bilateral_pixels_per_thread.restype = ctypes.c_int
     lib.vip_bilateral_band.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -49,13 +55,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_plan(radius: int, joint: bool, height: int) -> tuple[int, int]:
+    """(shared memory of a block in bytes, output columns a thread on the
+    blocked path or 0) of a launch at this radius and frame height."""
+    lib = _lib()
+    return (lib.vip_bilateral_smem_bytes(radius, int(joint), height),
+            lib.vip_bilateral_columns_per_thread(radius, height))
+
+
 def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
                     lut: torch.Tensor, radius: int, border: str = "replicate",
                     rounding: str = "trunc") -> torch.Tensor:
     """Launch the kernel.  guide=None is the self filter (range weights keyed
-    off src, one tile in shared memory instead of two).  The taps must be in
-    (ky, kx) order, as core.luts.tap_table gives them."""
-    global launches
+    off src).  The taps must be in (ky, kx) order, each (dy, dx) once, as
+    core.luts.tap_table gives them."""
+    global launches, blocked_calls
     w = SPANS.open("cuda_wrappers.bilateral") if SPANS.on else -1
     check_color_image("src", src)
     if guide is not None:
@@ -68,9 +83,9 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
     if border not in BORDERS or rounding not in ROUNDINGS:
         raise ValueError(f"border must be one of {tuple(BORDERS)} and rounding one of "
                          f"{tuple(ROUNDINGS)}, got {border!r}, {rounding!r}")
-    smem = _lib().vip_bilateral_smem_bytes(radius, int(guide is not None))
-    check_smem("bilateral", 2 * radius + 1, smem)
     height, width, _ = src.shape
+    smem, blocked = _launch_plan(radius, guide is not None, height)
+    check_smem("bilateral", 2 * radius + 1, smem)
     out = torch.empty_like(src)
     args = (src.data_ptr(), None if guide is None else guide.data_ptr(), out.data_ptr(),
             height, width, taps.data_ptr(), taps.shape[0], lut.data_ptr(),
@@ -78,6 +93,8 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
     with torch.cuda.device(src.device):
         enqueue("enqueue.bilateral", _lib().vip_bilateral_u8, args, "bilateral")
     launches += 1
+    if blocked:
+        blocked_calls += 1
     if w >= 0:
         SPANS.close(w)
     return out
