@@ -9,12 +9,15 @@ ksize 2k−1, σ_space k−1, σ_color √3.
 
 On a CUDA tensor an iteration is four hand-written kernels (csrc/gradient.cu,
 csrc/bilateral_texture.cu twice, csrc/bilateral.cu), so one call launches
-4·nitr kernels.  The plain versions below run on a CPU tensor, and on the
-card they are what the kernels are held to.  Both keep the reference's
-rounding: true divisions (a divisor on the input's device, never a Python
-literal: PyTorch's CUDA division by a host scalar multiplies by its
-reciprocal, one ulp off, enough to flip the guide's argmin; PARITY.md D1b),
-and every product and sum rounded on its own (PARITY.md D1c).
+4·nitr kernels, all enqueued by one C call (csrc/btf_pipeline.cu,
+``ops.cuda.bilateral_texture.texture_filter``); the stage functions below
+launch them one at a time, for callers that work between stages (row
+sharding's halo exchanges).  The plain versions below run on a CPU tensor,
+and on the card they are what the kernels are held to.  Both keep the
+reference's rounding: true divisions (a divisor on the input's device,
+never a Python literal: PyTorch's CUDA division by a host scalar multiplies
+by its reciprocal, one ulp off, enough to flip the guide's argmin; PARITY.md
+D1b), and every product and sum rounded on its own (PARITY.md D1c).
 """
 
 from __future__ import annotations
@@ -163,6 +166,8 @@ def _btf(src: torch.Tensor, ksize: int, nitr: int, impl: str, variant: str,
     """``impl`` is resolved already."""
     border, rounding = VARIANTS[variant]
     img = src.contiguous()
+    if impl == "cuda" and nitr > 0:
+        return cuda_btf.texture_filter(img, ksize, nitr, taps, lut, border, rounding)
     for _ in range(nitr):
         img = btf_iteration(img, ksize, taps, lut, border, rounding, impl)
     return img.clone() if img is src else img

@@ -121,10 +121,15 @@ def enqueue(span: str, launch, args: tuple, kernel: str) -> None:
     s = SPANS.open(span) if SPANS.on else -1
     err = launch(*args)
     if err != 0:
-        msg = load_library().vip_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} kernel launch failed: {msg} (cudaError_t {err})")
+        raise launch_error(load_library(), kernel, err)
     if s >= 0:
         SPANS.close(s)
+
+
+def launch_error(lib: ctypes.CDLL, kernel: str, err: int) -> RuntimeError:
+    """The error a launch of ``kernel`` that returned the cudaError_t ``err`` raises."""
+    msg = lib.vip_cuda_error_string(err).decode()
+    return RuntimeError(f"{kernel} kernel launch failed: {msg} (cudaError_t {err})")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes: tuple, ndims: tuple) -> None:

@@ -1,5 +1,7 @@
 """Wrappers of the Hopper bilateral-texture-filter stage kernels
-(csrc/bilateral_texture.cu): blur + mRTV, and the guide.
+(csrc/bilateral_texture.cu): blur + mRTV, and the guide; and of the whole
+filter, every kernel of its iterations enqueued by one C call
+(csrc/btf_pipeline.cu).
 
 Each takes CUDA tensors in the layouts the kernels read, allocates the
 outputs and launches on PyTorch's current stream.  Every odd window is
@@ -9,7 +11,10 @@ raises; a launch the runtime refuses raises.
 ``blur_rtv_launches`` and ``guide_launches`` count successful launches, so a
 run can show its main path went through the kernels; a call is the span
 ``cuda_wrappers.<kernel>`` around ``enqueue.<kernel>``, kernel ``blur_rtv``
-or ``guide``.
+or ``guide``.  ``texture_filter`` is the span ``cuda_wrappers.btf`` around
+``enqueue.btf``; it raises each launch counter of the kernels it enqueued
+(``gradient.launches``, ``bilateral.launches`` and ``blocked_calls`` too),
+and ``single_calls`` by one.
 """
 
 from __future__ import annotations
@@ -20,14 +25,37 @@ import functools
 import numpy as np
 import torch
 
+from ...core.luts import COLOR_TABLE_SIZE_BILATERAL
 from ...utils.profiling import SPANS
-from ._build import check_smem, check_tensor, enqueue, load_library, stream_of
+from . import bilateral as cuda_bilateral
+from . import gradient as cuda_gradient
+from ._build import (check_color_image, check_smem, check_table, check_taps, check_tensor,
+                     enqueue, launch_error, load_library, stream_of)
 
 blur_rtv_launches = 0
 guide_launches = 0
+single_calls = 0  # texture_filter's C calls; not named *launches: the benchmark counts those
+
+# an iteration's kernels in the order vip_btf_u8 launches them
+KERNELS = ("gradient", "blur_rtv", "guide", "bilateral")
+# the workspace's regions start on 256-byte boundaries, so every kernel
+# takes the same vector and word paths as on tensors of their own
+ALIGN = 256
 
 # include/cpp/bilateral_texture_filter.hpp:15, as an f32 value made on the host
 EPSILON = np.float32(1e-9)
+
+# vip_btf_u8's parameters (csrc/btf_pipeline.cu)
+BTF_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p,                        # src, out
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,       # magnitude, blurred, rtv
+    ctypes.c_void_p, ctypes.c_void_p,                        # guide, image
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # height, width, ksize, nitr
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,          # taps, n_taps, lut
+    ctypes.c_int, ctypes.c_int,                              # border, rounding
+    ctypes.c_float, ctypes.c_float,                          # epsilon, sigma_alpha
+    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),           # stream, launched
+]
 
 
 @functools.cache
@@ -52,6 +80,8 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_void_p,                     # sigma_alpha, stream
     ]
     lib.vip_guide.restype = ctypes.c_int
+    lib.vip_btf_u8.argtypes = BTF_ARGTYPES
+    lib.vip_btf_u8.restype = ctypes.c_int
     return lib
 
 
@@ -112,3 +142,91 @@ def guide(blurred: torch.Tensor, rtv: torch.Tensor, ksize: int) -> torch.Tensor:
     if w >= 0:
         SPANS.close(w)
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def workspace_layout(height: int, width: int) -> tuple[tuple[int, ...], int]:
+    """The byte offsets of the magnitude (f32 H·W), blurred (f32 H·W·3),
+    rtv (f32 H·W), guide (u8 H·W·3) and image (u8 H·W·3) regions of one
+    ``texture_filter`` call's workspace, each a multiple of ALIGN, and the
+    workspace's size: the end of the last region."""
+    pixels = height * width
+    offsets, end = [], 0
+    for size in (4 * pixels, 12 * pixels, 4 * pixels, 3 * pixels, 3 * pixels):
+        offsets.append(-(-end // ALIGN) * ALIGN)
+        end = offsets[-1] + size
+    return tuple(offsets), end
+
+
+@functools.lru_cache(maxsize=256)
+def _texture_plan(ksize: int, height: int) -> tuple[bool, float]:
+    """(whether the joint filter takes the bilateral kernel's blocked path,
+    the guide's sigma_alpha) of a BTF of window ``ksize`` at this frame
+    height, once the blur, guide and joint filter plans are checked to fit
+    in shared memory."""
+    lib = _lib()
+    check_smem("blur_rtv", ksize, lib.vip_blur_rtv_smem_bytes(ksize // 2))
+    check_smem("guide", ksize, lib.vip_guide_smem_bytes(ksize // 2))
+    smem, blocked = cuda_bilateral._launch_plan(ksize - 1, True, height)
+    check_smem("bilateral", 2 * ksize - 1, smem)
+    return blocked != 0, float(sigma_alpha(ksize))
+
+
+def texture_filter(src: torch.Tensor, ksize: int, nitr: int, taps: torch.Tensor,
+                   lut: torch.Tensor, border: str = "replicate",
+                   rounding: str = "trunc") -> torch.Tensor:
+    """``nitr`` >= 1 iterations of the bilateral texture filter of window
+    ``ksize`` on an (H, W, 3) u8 image → (H, W, 3) u8: the four kernels of
+    each iteration as ``ops.bilateral_texture.btf_iteration`` launches them,
+    all enqueued by one call of ``vip_btf_u8``.  ``taps`` and ``lut`` are the
+    closing joint filter's (``ops.bilateral_texture.jbf_tables``)."""
+    w = SPANS.open("cuda_wrappers.btf") if SPANS.on else -1
+    check_color_image("src", src)
+    if ksize < 1 or ksize % 2 == 0:
+        raise ValueError(f"ksize must be a positive odd integer, got {ksize}")
+    if nitr < 1:
+        raise ValueError(f"nitr must be >= 1, got {nitr}")
+    check_taps(taps, src.device)
+    check_table("lut", lut, torch.float32, (COLOR_TABLE_SIZE_BILATERAL,), src.device)
+    if border not in cuda_bilateral.BORDERS or rounding not in cuda_bilateral.ROUNDINGS:
+        raise ValueError(f"border must be one of {tuple(cuda_bilateral.BORDERS)} and rounding "
+                         f"one of {tuple(cuda_bilateral.ROUNDINGS)}, got {border!r}, "
+                         f"{rounding!r}")
+    height, width, _ = src.shape
+    blocked, alpha = _texture_plan(ksize, height)
+    (mag, blur, rtv, gd, img), size = workspace_layout(height, width)
+    out = torch.empty_like(src)
+    workspace = torch.empty(size, dtype=torch.uint8, device=src.device)
+    base = workspace.data_ptr()
+    args = (src.data_ptr(), out.data_ptr(), base + mag, base + blur, base + rtv, base + gd,
+            base + img, height, width, ksize, nitr, taps.data_ptr(), taps.shape[0],
+            lut.data_ptr(), cuda_bilateral.BORDERS[border], cuda_bilateral.ROUNDINGS[rounding],
+            float(EPSILON), alpha, stream_of(src), ctypes.c_int())
+    with torch.cuda.device(src.device):
+        _enqueue_texture_filter(args, blocked)
+    if w >= 0:
+        SPANS.close(w)
+    return out
+
+
+def _enqueue_texture_filter(args: tuple, blocked: bool) -> None:
+    """``vip_btf_u8(*args)``, the span ``enqueue.btf``; ``args[-1]`` is the
+    ctypes int it writes the count of kernels enqueued to.  The launch
+    counters rise by the kernels that went in, ``blocked_calls`` too where
+    the joint filter is ``blocked``; a failed launch raises, naming its
+    kernel."""
+    global single_calls, blur_rtv_launches, guide_launches
+    s = SPANS.open("enqueue.btf") if SPANS.on else -1
+    err = _lib().vip_btf_u8(*args)
+    if s >= 0:
+        SPANS.close(s)
+    n = args[-1].value
+    single_calls += 1
+    cuda_gradient.launches += (n + 3) // 4
+    blur_rtv_launches += (n + 2) // 4
+    guide_launches += (n + 1) // 4
+    cuda_bilateral.launches += n // 4
+    if blocked:
+        cuda_bilateral.blocked_calls += n // 4
+    if err != 0:
+        raise launch_error(_lib(), KERNELS[n % 4], err)

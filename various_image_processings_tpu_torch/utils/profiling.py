@@ -7,7 +7,8 @@ chain-slope method; and ``torch.profiler`` traces.  ``cuda_time_ms`` times
 the device alone with CUDA events.  ``SPANS`` records the port's spans at
 its layer boundaries: ``ops.<entry>`` (a public entry's whole call),
 ``ops.validate`` and ``ops.tables`` inside it, ``cuda_wrappers.<kernel>``
-(a kernel wrapper) and ``enqueue.<kernel>`` (its ctypes launch) inside that.
+(a kernel wrapper; ``btf``: a whole BTF call's kernels) and
+``enqueue.<kernel>`` (its ctypes call) inside that.
 """
 
 from __future__ import annotations
