@@ -132,6 +132,8 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -247,9 +249,11 @@ with trace(sys.argv[1]):
     torch.cuda.synchronize()
 """
 
-# H100 SXM peaks: HBM bytes/s, f32 FLOP/s, dense bf16 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# the card's peaks as the benchmark takes them (port_bench/peaks.json: HBM
+# bytes/s, f32 FLOP/s), and the H100 SXM's dense bf16 tensor-core FLOP/s,
+# which the Wexler search is bound by
+PEAKS = json.loads((Path(__file__).resolve().parent / "port_bench" / "peaks.json").read_text())
+HBM_BYTES_PER_S, F32_OPS_PER_S = PEAKS["hbm_bytes_per_s"], PEAKS["f32_ops_per_s"]
 BF16_TENSOR_OPS_PER_S = 989e12
 
 
@@ -268,9 +272,17 @@ def phase(msg: str) -> None:
 
 def bound(n_bytes: float, n_ops: float,
           ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    """Least ms the card could take: bytes over HBM rate vs ops over peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least ms the card could take, and what bounds it: the benchmark's
+    roofline (port_bench/metrics/_roofline.py), the larger of the bytes at
+    the HBM rate and the ops at ``ops_per_s``, read as its share of a call
+    of one second."""
+    from port_bench.metrics import _roofline
+
+    one_second = SimpleNamespace(profile=SimpleNamespace(device=[("", 0, 10**9)], calls=1),
+                                 ops_per_call=n_ops, bytes_per_call=n_bytes,
+                                 peaks={**PEAKS, "f32_ops_per_s": ops_per_s})
+    by_bytes = n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s
+    return _roofline.read(one_second) * 10.0, "bytes" if by_bytes else "operations"
 
 
 def wexler_masks(h: int, w: int) -> dict:
@@ -453,7 +465,7 @@ def bilateral_kernel_phases(dev, parent=None) -> dict:
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
     from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
 
-    lb = kbf._lib()
+    lb = _build.load_library()
     ptxas = {name: v for name, v in ptxas_summary(_build.ptxas_report()).items()
              if "bilateral" in name and "adaptive" not in name}
     for name, (regs, st, ld) in ptxas.items():
@@ -2040,6 +2052,7 @@ def fill_kernel_phases(dev, parent=None) -> dict:
     import torch
 
     from various_image_processings_tpu_torch.models import inpainting as wexler
+    from various_image_processings_tpu_torch.ops.cuda import _build
     from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill
     from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
 
@@ -2205,7 +2218,7 @@ def fill_kernel_phases(dev, parent=None) -> dict:
     n_hole = int(hole.sum())
     ninth = float(np.float32(1.0 / 9.0))
     into = img.clone()
-    lib = kfill._lib()
+    lib = _build.load_library()
 
     def kernel_alone() -> None:
         """One launch into a preallocated output: the kernel without the
@@ -2287,7 +2300,6 @@ def main() -> int:
     from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf
     from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt
     from various_image_processings_tpu_torch.ops.cuda import gradient as kgr
-    from various_image_processings_tpu_torch.ops.cuda import slic as kslic
     from various_image_processings_tpu_torch.ops.cuda import wexler_fill as kfill
     from various_image_processings_tpu_torch.ops.cuda import wexler_search as kws
     from various_image_processings_tpu_torch.ops.gradient import _gradient_math
@@ -2297,13 +2309,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    kbf._lib()
-    kgr._lib()
-    kbt._lib()
-    kab._lib()
-    kws._lib()
-    kslic._lib()
-    kfill._lib()
+    _build.load_library()
     phase(f"built {_build.library_path().name} from {len(_build.sources())} source(s) "
           f"in {time.perf_counter() - t0:.2f} s")
     ptxas = ptxas_summary(_build.ptxas_report())
@@ -2361,7 +2367,7 @@ def main() -> int:
             raise SystemExit(f"the parent's guide kernel did not launch: cudaError_t {err}")
         return out
 
-    lb = kbf._lib()
+    lb = _build.load_library()
     phase("shared memory per block (all dynamic), as (bytes, tap rows x tap columns a band): "
           "bilateral at 4K " + ", ".join(
               f"k={2 * r + 1} {'joint' if j else 'self'} "
@@ -2372,18 +2378,18 @@ def main() -> int:
               for r, j in ((4, 0), (5, 0), (8, 1), (15, 0), (31, 0), (32, 0), (31, 1), (32, 1),
                            (109, 0), (110, 0), (74, 1), (75, 1), (150, 1)))
           + "; adaptive bilateral " + ", ".join(
-              f"k={2 * r + 1} {kab._lib().vip_adaptive_bilateral_smem_bytes(r)} B "
-              f"{kab._lib().vip_adaptive_bilateral_band(r, 0)}x"
-              f"{kab._lib().vip_adaptive_bilateral_band(r, 1)}" for r in (4, 88, 89, 150))
+              f"k={2 * r + 1} {lb.vip_adaptive_bilateral_smem_bytes(r)} B "
+              f"{lb.vip_adaptive_bilateral_band(r, 0)}x"
+              f"{lb.vip_adaptive_bilateral_band(r, 1)}" for r in (4, 88, 89, 150))
           + "; blur + mRTV " + ", ".join(
-              f"k={2 * r + 1} {kbt._lib().vip_blur_rtv_smem_bytes(r)} B "
-              f"{kbt._lib().vip_blur_rtv_band(r, 0)}x{kbt._lib().vip_blur_rtv_band(r, 1)}"
+              f"k={2 * r + 1} {lb.vip_blur_rtv_smem_bytes(r)} B "
+              f"{lb.vip_blur_rtv_band(r, 0)}x{lb.vip_blur_rtv_band(r, 1)}"
               for r in (4, 59, 60, 150))
           + "; guide " + ", ".join(
-              f"k={2 * r + 1} {kbt._lib().vip_guide_smem_bytes(r)} B "
-              f"{kbt._lib().vip_guide_band(r, 0)}x{kbt._lib().vip_guide_band(r, 1)}"
+              f"k={2 * r + 1} {lb.vip_guide_smem_bytes(r)} B "
+              f"{lb.vip_guide_band(r, 0)}x{lb.vip_guide_band(r, 1)}"
               for r in (4, 54, 55, 110, 150))
-          + f"; wexler_search {kws._lib().vip_wexler_search_smem_bytes()} B")
+          + f"; wexler_search {lb.vip_wexler_search_smem_bytes()} B")
 
     # 2. parity grid: kernel vs the plain version on the same CUDA tensors,
     #    and vs the plain version on the CPU
@@ -3173,7 +3179,7 @@ def main() -> int:
     large, large_worst = [], 0
     _, bf_lut = kbf.device_tables(3, 10.0, 30.0, dev)
     for joint, r in LARGE_BF_RADII:
-        table = band_taps(r, kbf._lib().vip_bilateral_band(r, int(joint), 0))
+        table = band_taps(r, lb.vip_bilateral_band(r, int(joint), 0))
         d = 0
         for border, rounding in GRID_MODES:
             got = kbf.joint_bilateral(lx, lg if joint else None, torch.from_numpy(table).to(dev),
@@ -3182,15 +3188,15 @@ def main() -> int:
                                                 border, rounding)))
         large_worst = max(large_worst, d)
         large.append(f"bilateral {'joint' if joint else 'self'} k={2 * r + 1} "
-                     f"({kbf._lib().vip_bilateral_band(r, int(joint), 0)} tap rows a band) {d}")
+                     f"({lb.vip_bilateral_band(r, int(joint), 0)} tap rows a band) {d}")
     abf_lut = torch.from_numpy(color_table(sc, 1536)).to(dev)
     for r in LARGE_ABF_RADII:
-        table = band_taps(r, kab._lib().vip_adaptive_bilateral_band(r, 0))
+        table = band_taps(r, lb.vip_adaptive_bilateral_band(r, 0))
         got = kab.adaptive_bilateral_taps(lx, torch.from_numpy(table).to(dev), abf_lut, r)
         d = max_diff(got, _abf_taps_math(lx, table, abf_lut, r))
         large_worst = max(large_worst, d)
         large.append(f"adaptive_bilateral k={2 * r + 1} "
-                     f"({kab._lib().vip_adaptive_bilateral_band(r, 0)} tap rows a band) {d}")
+                     f"({lb.vip_adaptive_bilateral_band(r, 0)} tap rows a band) {d}")
     lmag = _gradient_math(lx.float())
     for sk in LARGE_STAGE_KSIZES:
         blurred, rtv = kbt.blur_and_rtv(lx, lmag, sk)
@@ -3198,8 +3204,8 @@ def main() -> int:
         ds = max(max_abs(blurred, bp), max_abs(rtv, rp))
         dg = max_diff(kbt.guide(blurred, rtv, sk), obt._guide_math(bp, rp, sk))
         large_worst = max(large_worst, ds, dg)
-        large.append(f"blur_rtv k={sk} ({kbt._lib().vip_blur_rtv_band(sk // 2, 0)} tap rows a "
-                     f"band) {ds}, guide k={sk} ({kbt._lib().vip_guide_band(sk // 2, 0)}) {dg}")
+        large.append(f"blur_rtv k={sk} ({lb.vip_blur_rtv_band(sk // 2, 0)} tap rows a "
+                     f"band) {ds}, guide k={sk} ({lb.vip_guide_band(sk // 2, 0)}) {dg}")
     bk_in = torch.from_numpy(random_image(20, 30)).to(dev)
     out_auto = vt.bilateral_texture_filter(bk_in, BTF_LARGE_KSIZE, 1)
     d_btf77 = max_diff(out_auto, vt.bilateral_texture_filter(bk_in, BTF_LARGE_KSIZE, 1,

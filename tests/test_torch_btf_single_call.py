@@ -2,9 +2,8 @@
 ``ops.cuda.bilateral_texture.texture_filter``).
 
 On the CPU: the workspace layout, the launch accounting and the error of a
-call that stops part way (a fake library), the ctypes binding against the C
-signature and the C declarations against the kernels' definitions, the
-routing of ``_btf``, and the C entry point's schedule, compiled with g++
+call that stops part way (a fake library), the C declarations against the
+kernels' definitions, the routing of ``_btf``, and the C entry point's schedule, compiled with g++
 against stub launchers that record what they were given.  On the card
 (marker ``cuda``): the single call byte-equal to the per-stage loop and to
 the plain path, its counters, and the callers that take it.  Imports
@@ -12,7 +11,6 @@ neither jax nor the JAX package."""
 
 import ctypes
 import functools
-import re
 import shutil
 import subprocess
 
@@ -29,6 +27,7 @@ from various_image_processings_tpu_torch.ops.cuda import _build  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import bilateral as kbf  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import bilateral_texture as kbt  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import gradient as kgr  # noqa: E402
+from test_torch_cuda_build import c_parameters  # noqa: E402
 
 CSRC = _build.CSRC_DIR
 PIPELINE = CSRC / "btf_pipeline.cu"
@@ -86,7 +85,7 @@ def counters() -> list[int]:
 @pytest.mark.parametrize("went_in", range(13))
 def test_counters_rise_by_the_kernels_that_went_in(monkeypatch, went_in, blocked):
     fake = FakeLibrary(went_in)
-    monkeypatch.setattr(kbt, "_lib", lambda: fake)
+    monkeypatch.setattr(_build, "load_library", lambda: fake)
     args = (0,) * 10 + (3,) + (0,) * 8 + (ctypes.c_int(),)  # nitr 3
     want = [0] * 4
     for i in range(went_in):  # an iteration launches its 4 kernels in order
@@ -105,28 +104,8 @@ def test_counters_rise_by_the_kernels_that_went_in(monkeypatch, went_in, blocked
 
 
 # ---------------------------------------------------------------------------
-# the binding and the C declarations
+# the C declarations
 # ---------------------------------------------------------------------------
-
-C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
-           "float": ctypes.c_float, "int*": ctypes.POINTER(ctypes.c_int)}
-
-
-def c_parameters(source: str, name: str) -> list:
-    """The ctypes type of each parameter of ``int name(...)`` in ``source``,
-    a declaration or a definition."""
-    match = re.search(rf"\bint {name}\(([^)]*)\)", source)
-    assert match, name
-    types = []
-    for param in match.group(1).split(","):
-        decl = " ".join(param.split())
-        types.append(C_TYPES[re.sub(r"\s*\w+$", "", decl).replace(" *", "*")])
-    return types
-
-
-def test_binding_matches_the_c_entry_point():
-    assert c_parameters(PIPELINE.read_text(), "vip_btf_u8") == kbt.BTF_ARGTYPES
-
 
 @pytest.mark.parametrize("name,source", [("vip_gradient", "gradient.cu"),
                                          ("vip_blur_rtv", "bilateral_texture.cu"),
@@ -244,8 +223,7 @@ def pipeline_on_stubs(tmp_path_factory):
                     "-x", "c++", str(PIPELINE), str(tmp / "stubs.cpp")], check=True,
                    capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(lib_path))
-    lib.vip_btf_u8.argtypes = kbt.BTF_ARGTYPES
-    lib.vip_btf_u8.restype = ctypes.c_int
+    lib.vip_btf_u8.restype, lib.vip_btf_u8.argtypes = _build.SIGNATURES["vip_btf_u8"]
     lib.stub_records.restype = ctypes.POINTER(ctypes.c_longlong)
     lib.stub_reset.argtypes = [ctypes.c_int]
     return lib

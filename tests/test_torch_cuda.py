@@ -31,6 +31,7 @@ from various_image_processings_tpu_torch.models import inpainting as wexler  # n
 from various_image_processings_tpu_torch.ops import wexler_search as search_op  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import wexler_fill as cuda_fill  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import wexler_search as cuda_search  # noqa: E402
+from various_image_processings_tpu_torch.ops.cuda._build import load_library, plan  # noqa: E402
 from various_image_processings_tpu_torch.ops.gradient import _gradient_math  # noqa: E402
 from guide_ties import tie_inputs  # noqa: E402
 from test_torch_wexler_diffusion_strips import (  # noqa: E402
@@ -90,7 +91,7 @@ def test_blocked_path_handover_is_bit_exact(cuda, joint, radius, height, cols):
     """The circle of the radius (every tap of its window but the corners),
     bit-equal to the plain version on both sides of each handover, the
     counter of blocked launches rising only where the path is taken."""
-    lib = cuda_bf._lib()
+    lib = load_library()
     assert lib.vip_bilateral_columns_per_thread(radius, height) == cols
     src, guide = images((height, 45), cuda)
     table = tap_table(space_kernel(2 * radius + 1, 10.0))
@@ -117,7 +118,7 @@ def test_blocked_path_on_runs_shorter_than_a_thread(cuda, joint):
     table[:, :2] = pos
     table[:, 2] = (0.0625 + np.arange(len(pos)) / len(pos)).astype(np.float32).view(np.int32)
     src, guide = images((45, 70), cuda)
-    assert cuda_bf._lib().vip_bilateral_columns_per_thread(radius, 45) == 4
+    assert plan("vip_bilateral_columns_per_thread", radius, 45) == 4
     bf_case(src, guide if joint else None, table, radius, cuda)
 
 
@@ -139,7 +140,7 @@ def test_blocked_path_counter_rises_once_a_blocked_launch(cuda, joint, shape, ks
             vt.bilateral_filter(src, ksize, 10.0, 30.0)
     assert cuda_bf.launches - launches == 3
     assert cuda_bf.blocked_calls - calls == (3 if blocked else 0)
-    assert cuda_bf._lib().vip_bilateral_columns_per_thread(ksize // 2, shape[0]) == 4 * blocked
+    assert plan("vip_bilateral_columns_per_thread", ksize // 2, shape[0]) == 4 * blocked
 
 
 def test_auto_on_a_cuda_tensor_launches_the_kernel(cuda):
@@ -213,7 +214,7 @@ def test_largest_accepted_radius_is_no_smaller_than_before(cuda, joint, radius):
     _, lut = cuda_bf.device_tables(3, 10.0, 30.0, src.device)
     table = sparse_taps(radius)
     taps = torch.from_numpy(table).to(cuda)
-    pixels = cuda_bf._lib().vip_bilateral_pixels_per_thread(radius, int(joint))
+    pixels = plan("vip_bilateral_pixels_per_thread", radius, int(joint))
     assert pixels == (4 if radius <= (55 if joint else 88) else 1)
     for border, rounding in [("replicate", "trunc"), ("reflect101", "rint")]:
         got = cuda_bf.joint_bilateral(src, guide if joint else None, taps, lut, radius,
@@ -221,8 +222,8 @@ def test_largest_accepted_radius_is_no_smaller_than_before(cuda, joint, radius):
         want = _taps_math(src, guide if joint else src, table, lut, radius, border, rounding)
         assert torch.equal(got, want)
     if radius in (109, 74):  # one radius more: the tile goes in bands, bit-equal all the same
-        assert cuda_bf._lib().vip_bilateral_band(radius, int(joint), 0) == 2 * radius + 1
-        assert cuda_bf._lib().vip_bilateral_band(radius + 1, int(joint), 0) < 2 * radius + 3
+        assert plan("vip_bilateral_band", radius, int(joint), 0) == 2 * radius + 1
+        assert plan("vip_bilateral_band", radius + 1, int(joint), 0) < 2 * radius + 3
         table = sparse_taps(radius + 1)
         got = cuda_bf.joint_bilateral(src, guide if joint else None,
                                       torch.from_numpy(table).to(cuda), lut, radius + 1)
@@ -481,7 +482,7 @@ def test_bilateral_bit_exact_just_past_the_one_tile_limit(cuda, joint, ksize):
     149 joint), with the filter's whole tap table: chunk edges fall inside
     and across bands."""
     src, guide = images((23, 37), cuda)
-    assert cuda_bf._lib().vip_bilateral_band(ksize // 2, int(joint), 0) < ksize
+    assert plan("vip_bilateral_band", ksize // 2, int(joint), 0) < ksize
     mode = ("reflect101", "rint") if joint else ("replicate", "trunc")
     got = cuda_bf.bilateral(src, guide if joint else None, ksize, 10.0, 30.0, *mode)
     assert torch.equal(got, _bilateral_math(src, guide if joint else src, ksize, 10.0, 30.0,
@@ -492,7 +493,7 @@ def test_bilateral_bit_exact_just_past_the_one_tile_limit(cuda, joint, ksize):
 @pytest.mark.parametrize("radius", [75, 110, 150, 200])
 def test_bilateral_bit_exact_at_band_edges(cuda, joint, radius):
     src, guide = images((23, 37), cuda)
-    rows = cuda_bf._lib().vip_bilateral_band(radius, int(joint), 0)
+    rows = plan("vip_bilateral_band", radius, int(joint), 0)
     bf_case(src, guide if joint else None, band_taps(radius, rows=min(rows, 2 * radius)),
             radius, cuda)
 
@@ -511,7 +512,7 @@ def first_cut_radius(band, start):
 def test_bilateral_bit_exact_on_column_segments(cuda, joint):
     """Past k ≈ 3521 (joint) and 7073 (self) one tap row of the tile does not
     fit: a band is a segment of one tap row."""
-    lib = cuda_bf._lib()
+    lib = load_library()
     radius = first_cut_radius(lambda r, w: lib.vip_bilateral_band(r, int(joint), w), 1000)
     assert lib.vip_bilateral_band(radius, int(joint), 0) == 1
     cols = lib.vip_bilateral_band(radius, int(joint), 1)
@@ -528,21 +529,21 @@ def abf_taps_case(src, table, radius, cuda):
 
 def test_abf_bit_exact_just_past_the_one_tile_limit(cuda):
     """k = 179 (old limit 177) with the filter's whole tap table."""
-    assert cuda_abf._lib().vip_adaptive_bilateral_band(89, 0) < 179
+    assert plan("vip_adaptive_bilateral_band", 89, 0) < 179
     abf_bit_exact(random_image(23, 37), 179, 10.0, 30.0, cuda)
 
 
 @pytest.mark.parametrize("radius", [89, 110, 150, 200])
 def test_abf_bit_exact_at_band_edges(cuda, radius):
     src, _ = images((23, 37), cuda)
-    rows = cuda_abf._lib().vip_adaptive_bilateral_band(radius, 0)
+    rows = plan("vip_adaptive_bilateral_band", radius, 0)
     abf_taps_case(src, band_taps(radius, rows=min(rows, 2 * radius)), radius, cuda)
 
 
 def test_abf_bit_exact_on_column_segments(cuda):
     """Past k ≈ 6497 a band is a segment of one tap row, for the box sums
     and the taps alike."""
-    lib = cuda_abf._lib()
+    lib = load_library()
     radius = first_cut_radius(lib.vip_adaptive_bilateral_band, 1000)
     assert lib.vip_adaptive_bilateral_band(radius, 0) == 1
     src, _ = images((23, 37), cuda)
@@ -557,8 +558,8 @@ def test_blur_rtv_and_guide_bit_exact_in_bands(cuda, ksize, bright):
     Past k = 255 a window's box sum can pass 2²⁴, where the plain version's
     f32 sum rounds in (ky, kx) order, and so does the kernel's: a bright
     image (values 250..255) makes it round."""
-    assert cuda_btf._lib().vip_blur_rtv_band(ksize // 2, 0) < ksize
-    assert cuda_btf._lib().vip_guide_band(ksize // 2, 0) < ksize
+    assert plan("vip_blur_rtv_band", ksize // 2, 0) < ksize
+    assert plan("vip_guide_band", ksize // 2, 0) < ksize
     img_np = random_image(19, 29)
     if bright:
         img_np = (250 + img_np % 6).astype(np.uint8)

@@ -1,6 +1,15 @@
 """The port's native loader (``utils/native.py``) against the JAX package's
 on the same inputs, and the port's NumPy connectivity paths against its
-native ones."""
+native ones.
+
+The JAX package's own library (``native/build/libvip_native.so``, which its
+loader builds with ``make``) is not there on every machine.  So each result
+of the port's library is held to the JAX package's NumPy path for it, with
+that loader made to report no library: ``models/slic.py::_components`` for
+the components, ``enforce_connectivity``'s Python merge for the merge and
+the fused connectivity pass, ``core/colors.py::bgr2lab_u8_exact``'s integer
+path for Lab.  Where the JAX package's library is built, each is also held
+to it, as before."""
 
 import numpy as np
 import pytest
@@ -8,12 +17,16 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from various_image_processings_tpu.core import colors as jcolors  # noqa: E402
+from various_image_processings_tpu.models import slic as jslic  # noqa: E402
 from various_image_processings_tpu.utils import native as jnative  # noqa: E402
 from various_image_processings_tpu_torch.core.colors import _lab_tables  # noqa: E402
 from various_image_processings_tpu_torch.models import slic  # noqa: E402
 from various_image_processings_tpu_torch.utils import native  # noqa: E402
 
 LABEL_MAPS = [(0, (60, 50), 6), (1, (37, 83), 12), (2, (128, 128), 40), (3, (1, 9), 3)]
+# a superpixel size S for each min_area (S² // 20) the merge is run at
+SP_SIZE = {0: 4, 5: 10, 33: 26}
 
 
 def label_map(seed, shape, nlabels):
@@ -32,42 +45,68 @@ def block_label_map(seed, shape, nlabels):
     return np.where(noise, labels, blocks).astype(np.int32), lab
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jax_native():
-    if not jnative.available():
-        pytest.skip("the JAX package's native library is not built")
+def jax_numpy_path(fn, *args):
+    """``fn(*args)`` of the JAX package with its native library reported
+    absent, so it takes its NumPy path."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_lib", lambda: None)
+        return fn(*args)
+
+
+def numpy_component_sums(comp, lab, ncomp):
+    """Per-component (x, y, l, a, b, count) int64 sums, by bincount."""
+    ys, xs = np.indices(comp.shape)
+    flat = comp.reshape(-1)
+    planes = [xs, ys, *np.moveaxis(lab.astype(np.int64), -1, 0), np.ones(comp.shape, np.int64)]
+    return np.stack([np.bincount(flat, weights=p.reshape(-1), minlength=ncomp)
+                     for p in planes], 1).astype(np.int64)
 
 
 @pytest.mark.parametrize("seed,shape,nlabels", LABEL_MAPS)
 def test_ccl_and_component_sums_match_jax_loader(seed, shape, nlabels):
     labels, lab = label_map(seed, shape, nlabels)
     comp, ncomp = native.ccl_4conn(labels)
-    jcomp, jncomp = jnative.ccl_4conn(labels)
+    sums = native.component_sums(comp, lab, ncomp)
+    jcomp, jsizes, jncomp = jax_numpy_path(jslic._components, labels)
     assert ncomp == jncomp
     np.testing.assert_array_equal(comp, jcomp)
-    np.testing.assert_array_equal(native.component_sums(comp, lab, ncomp),
-                                  jnative.component_sums(jcomp, lab, jncomp))
+    np.testing.assert_array_equal(sums, numpy_component_sums(jcomp, lab, jncomp))
+    np.testing.assert_array_equal(sums[:, 5], jsizes)
+    if jnative.available():
+        jcomp, jncomp = jnative.ccl_4conn(labels)
+        assert ncomp == jncomp
+        np.testing.assert_array_equal(comp, jcomp)
+        np.testing.assert_array_equal(sums, jnative.component_sums(jcomp, lab, jncomp))
 
 
 @pytest.mark.parametrize("seed,shape,nlabels", LABEL_MAPS)
 @pytest.mark.parametrize("min_area", [0, 5, 33])
 def test_merge_and_fused_connectivity_match_jax_loader(seed, shape, nlabels, min_area):
+    """The merge is held through the labels it gives (``_compact`` of its
+    roots over the components), the fused pass directly."""
     labels, lab = label_map(seed, shape, nlabels)
+    assert SP_SIZE[min_area] ** 2 // 20 == min_area
     comp, ncomp = native.ccl_4conn(labels)
     sums = native.component_sums(comp, lab, ncomp)
     sizes = sums[:, 5]
     means = sums[:, 2:5] // sizes[:, None]
-    np.testing.assert_array_equal(native.slic_merge(comp, means, sizes, min_area),
-                                  jnative.slic_merge(comp, means, sizes, min_area))
-    np.testing.assert_array_equal(native.slic_connectivity(labels, lab, min_area),
-                                  jnative.slic_connectivity(labels, lab, min_area))
+    merged = native.slic_merge(comp, means, sizes, min_area)
+    fused = native.slic_connectivity(labels, lab, min_area)
+    want = jax_numpy_path(jslic.enforce_connectivity, labels, lab, SP_SIZE[min_area])
+    np.testing.assert_array_equal(slic._compact(merged, comp), want)
+    np.testing.assert_array_equal(fused, want)
+    if jnative.available():
+        np.testing.assert_array_equal(merged, jnative.slic_merge(comp, means, sizes, min_area))
+        np.testing.assert_array_equal(fused, jnative.slic_connectivity(labels, lab, min_area))
 
 
 def test_lab_matches_jax_loader():
     img = np.random.default_rng(5).integers(0, 256, (61, 37, 3), dtype=np.uint8)
     tables = _lab_tables()
-    np.testing.assert_array_equal(native.bgr2lab_u8(img, *tables),
-                                  jnative.bgr2lab_u8(img, *tables))
+    lab = native.bgr2lab_u8(img, *tables)
+    np.testing.assert_array_equal(lab, jax_numpy_path(jcolors.bgr2lab_u8_exact, img))
+    if jnative.available():
+        np.testing.assert_array_equal(lab, jnative.bgr2lab_u8(img, *tables))
 
 
 @pytest.mark.parametrize("seed,shape,nlabels", LABEL_MAPS)

@@ -23,17 +23,13 @@ own state row and flags.  Here, with no card:
 - ``parallel.superpixel_slic_batched`` on CPU meshes of 1, 2 and 4 batch
   rows gives the labels of per-image ``superpixel_slic`` and of the JAX
   package's ``superpixel_slic_batched`` (tolerance: equal labels), on the
-  mixed-convergence batch and with ``ciede2000``;
-- the ctypes bindings match the C entry points' parameters in the .cu.
+  mixed-convergence batch and with ``ciede2000``.
 
 The JAX SLIC compiles once a (batch shape, metric): this file uses two,
 (4, 40, 48) euclidean and (2, 40, 48) ciede2000, and caches their results."""
 
-import ctypes
 import functools
-import re
 import warnings
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,8 +49,6 @@ from test_torch_slic_kernel import (  # noqa: E402
 from test_torch_slic_delta_e import in_vector_loop  # noqa: E402, F401
 
 CPU = torch.device("cpu")
-CU_SOURCE = (Path(__file__).resolve().parents[1] / "various_image_processings_tpu_torch"
-             / "csrc" / "slic_kmeans.cu")
 
 # (kinds, height, width, S, iterations, m): the mixed-convergence batch (the
 # constant image stops after a few iterations, the noise image runs them
@@ -483,28 +477,3 @@ def test_superpixel_slic_batched_downloads_once_a_row(monkeypatch):
         warnings.simplefilter("ignore")
         tpar.superpixel_slic_batched(imgs, 8, 2, mesh=cpu_mesh(2))
     assert calls == [2, 2] and downloads == [(2, 16, 24), (2, 16, 24)]
-
-
-# ---------------------------------------------------------------------------
-# the ctypes bindings against the C entry points
-# ---------------------------------------------------------------------------
-
-C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
-           "float": ctypes.c_float, "long long": ctypes.c_longlong}
-
-
-def c_parameters(source: str, name: str) -> list:
-    """The ctypes type of each parameter of ``int name(...)`` in ``source``."""
-    match = re.search(rf"\bint {name}\(([^)]*)\)", source)
-    assert match, name
-    types = []
-    for param in match.group(1).split(","):
-        decl = " ".join(param.split())
-        ctype = re.sub(r"\s*\w+$", "", decl).replace(" *", "*")
-        types.append(C_TYPES[ctype])
-    return types
-
-
-@pytest.mark.parametrize("name", sorted(kslic.ARGTYPES))
-def test_bindings_match_the_c_entry_points(name):
-    assert c_parameters(CU_SOURCE.read_text(), name) == kslic.ARGTYPES[name]

@@ -1,5 +1,5 @@
 """Build the package's CUDA sources, load them with ctypes, and the checks
-and the launch every kernel wrapper shares.
+and the launch protocol every kernel wrapper shares.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into one shared library with a plain C
@@ -8,6 +8,14 @@ name carries a hash of the sources and flags, so an edited source is never
 served by a stale build.  ``ptxas``'s report (registers, spills, shared
 memory of each kernel) is kept beside the library.  Nothing here falls back:
 a missing ``nvcc`` or a failed build raises.
+
+``SIGNATURES`` is the library's C ABI, every entry point of ``csrc/*.cu``,
+set once by ``load_library``; ``plan`` asks the host-side planners once for
+each set of arguments.  A kernel wrapper is decorated with ``kernel_wrapper``
+(the span ``cuda_wrappers.<kernel>`` and its module's launch counter) and
+enqueues with ``launch``, or ``bind`` where a loop launches the same
+arguments again and again (the span ``enqueue.<kernel>``, the device guard,
+the current stream, the error).
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -101,34 +110,151 @@ def _build(lib: Path) -> None:
             path.unlink(missing_ok=True)
 
 
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# name -> (restype, argtypes) of every extern "C" function of csrc/*.cu, by
+# source, in the order of its C parameters: the definitions name them.  A
+# launcher returns a cudaError_t and takes its stream last (vip_btf_u8 next
+# to last, before the int it writes how many kernels it enqueued to).
+SIGNATURES = {
+    # adaptive_bilateral.cu
+    "vip_adaptive_bilateral_smem_bytes": (_LL, [_I]),
+    "vip_adaptive_bilateral_band": (_I, [_I, _I]),
+    "vip_adaptive_bilateral_u8": (_I, [_P, _P, _I, _I, _P, _I, _P, _I, _P]),
+    # bilateral.cu
+    "vip_bilateral_smem_bytes": (_LL, [_I, _I, _I]),
+    "vip_bilateral_columns_per_thread": (_I, [_I, _I]),
+    "vip_bilateral_pixels_per_thread": (_I, [_I, _I]),
+    "vip_bilateral_band": (_I, [_I, _I, _I]),
+    "vip_bilateral_u8": (_I, [_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P]),
+    "vip_cuda_error_string": (ctypes.c_char_p, [_I]),
+    # bilateral_texture.cu
+    "vip_blur_rtv_smem_bytes": (_LL, [_I]),
+    "vip_guide_smem_bytes": (_LL, [_I]),
+    "vip_blur_rtv_band": (_I, [_I, _I]),
+    "vip_guide_band": (_I, [_I, _I]),
+    "vip_blur_rtv": (_I, [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "vip_guide": (_I, [_P, _P, _P, _I, _I, _I, _F, _P]),
+    # btf_pipeline.cu
+    "vip_btf_u8": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _F, _F,
+                        _P, ctypes.POINTER(_I)]),
+    # gradient.cu
+    "vip_gradient": (_I, [_P, _P, _I, _I, _I, _I, _P]),
+    # slic_kmeans.cu
+    "vip_slic_association": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                  _I, _P]),
+    "vip_slic_snap_keys": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "vip_slic_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "vip_slic_association_blocks": (_I, [_I, _I]),
+    "vip_slic_association_occupancy": (_I, [_I]),
+    "vip_slic_delta_e": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P]),
+    # wexler_fill.cu
+    "vip_wexler_fill_max_cap": (_I, []),
+    "vip_wexler_diffusion_cluster": (_I, [_I, _I]),
+    "vip_wexler_diffusion_smem_bytes": (_I, [_I, _I]),
+    "vip_wexler_ring_pick": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "vip_wexler_filters": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P]),
+    "vip_wexler_commit": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "vip_wexler_diffusion": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # wexler_search.cu
+    "vip_wexler_search_target_tile": (_I, []),
+    "vip_wexler_search_row_tile": (_I, []),
+    "vip_wexler_search_smem_bytes": (_I, []),
+    "vip_wexler_search": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if this source hash has no library yet) and load the kernels."""
+    """Build (if this source hash has no library yet) and load the kernels,
+    every entry point typed by ``SIGNATURES``."""
     lib = library_path()
     if not lib.exists():
         _build(lib)
     cdll = ctypes.CDLL(str(lib))
-    cdll.vip_cuda_error_string.argtypes = [ctypes.c_int]
-    cdll.vip_cuda_error_string.restype = ctypes.c_char_p
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return cdll
 
 
-def enqueue(span: str, launch, args: tuple, kernel: str) -> None:
-    """``launch(*args)``: one ctypes call into the library, which enqueues a
-    kernel on the stream among its arguments, recorded as the span ``span``
-    (``enqueue.<kernel>``).  Raises if the launch returned a cudaError_t
-    other than cudaSuccess."""
-    s = SPANS.open(span) if SPANS.on else -1
-    err = launch(*args)
-    if err != 0:
-        raise launch_error(load_library(), kernel, err)
-    if s >= 0:
-        SPANS.close(s)
+@functools.lru_cache(maxsize=1024)
+def plan(entry: str, *args: int) -> int:
+    """What the library's host-side planner ``entry`` (``*_smem_bytes``,
+    ``*_band``, ``vip_bilateral_columns_per_thread``, the Wexler tiles and
+    cluster) answers for ``args``: a function of its arguments alone, so
+    asked once for each."""
+    return getattr(load_library(), entry)(*args)
 
 
-def launch_error(lib: ctypes.CDLL, kernel: str, err: int) -> RuntimeError:
+def kernel_wrapper(kernel: str, counter: str | None = "launches",
+                   namespace: dict | None = None) -> Callable:
+    """Decorate a kernel wrapper: its call is the span
+    ``cuda_wrappers.<kernel>``, closed also when it raises, and the int
+    ``counter`` of ``namespace`` (the wrapper's module) rises by one when it
+    returns.  ``counter=None``: the wrapper counts its launches itself."""
+    span = "cuda_wrappers." + kernel
+
+    def decorate(fn: Callable) -> Callable:
+        module = fn.__globals__ if namespace is None else namespace
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            w = SPANS.open(span) if SPANS.on else -1
+            try:
+                out = fn(*args, **kwargs)
+                if counter is not None:
+                    module[counter] += 1
+                return out
+            finally:
+                if w >= 0:
+                    SPANS.close(w)
+
+        return wrapped
+
+    return decorate
+
+
+def enqueue(fn, args: tuple, kernel: str) -> None:
+    """``fn(*args)``: one ctypes call into the library, which enqueues a
+    kernel on the stream among its arguments, recorded as the span
+    ``enqueue.<kernel>``.  Raises if the launch returned a cudaError_t other
+    than cudaSuccess."""
+    s = SPANS.open("enqueue." + kernel) if SPANS.on else -1
+    try:
+        err = fn(*args)
+        if err != 0:
+            raise launch_error(kernel, err)
+    finally:
+        if s >= 0:
+            SPANS.close(s)
+
+
+def launch(entry: str, kernel: str, like: torch.Tensor, *args) -> None:
+    """Enqueue the library's ``entry`` with ``args`` and PyTorch's current
+    stream on ``like``'s device, under that device's guard (``enqueue``)."""
+    args = (*args, torch.cuda.current_stream(like.device).cuda_stream)
+    with torch.cuda.device(like.device):
+        enqueue(getattr(load_library(), entry), args, kernel)
+
+
+def bind(entry: str, kernel: str, like: torch.Tensor, *args) -> Callable[[], None]:
+    """``launch`` with everything looked up now: a function that enqueues
+    ``entry`` with ``args`` on the stream current now on ``like``'s device."""
+    fn, args = getattr(load_library(), entry), (*args, stream_of(like))
+    device = torch.cuda.device(like.device)
+
+    def go() -> None:
+        with device:
+            enqueue(fn, args, kernel)
+
+    return go
+
+
+def launch_error(kernel: str, err: int) -> RuntimeError:
     """The error a launch of ``kernel`` that returned the cudaError_t ``err`` raises."""
-    msg = lib.vip_cuda_error_string(err).decode()
+    msg = load_library().vip_cuda_error_string(err).decode()
     return RuntimeError(f"{kernel} kernel launch failed: {msg} (cudaError_t {err})")
 
 

@@ -13,57 +13,31 @@ a call is the span ``cuda_wrappers.adaptive_bilateral`` around
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_ADAPTIVE, color_table, space_kernel, tap_table
-from ...utils.profiling import SPANS
-from ._build import (check_color_image, check_smem, check_table, check_taps, enqueue,
-                     load_library, stream_of)
+from ._build import (check_color_image, check_smem, check_table, check_taps, kernel_wrapper,
+                     launch, plan)
 
 launches = 0
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    lib.vip_adaptive_bilateral_smem_bytes.argtypes = [ctypes.c_int]
-    lib.vip_adaptive_bilateral_smem_bytes.restype = ctypes.c_longlong
-    lib.vip_adaptive_bilateral_band.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.vip_adaptive_bilateral_band.restype = ctypes.c_int
-    lib.vip_adaptive_bilateral_u8.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,                # src, out
-        ctypes.c_int, ctypes.c_int,                      # height, width
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # taps, n_taps, lut
-        ctypes.c_int, ctypes.c_void_p,                   # radius, stream
-    ]
-    lib.vip_adaptive_bilateral_u8.restype = ctypes.c_int
-    return lib
-
-
+@kernel_wrapper("adaptive_bilateral")
 def adaptive_bilateral_taps(src: torch.Tensor, taps: torch.Tensor, lut: torch.Tensor,
                             radius: int) -> torch.Tensor:
     """Launch the kernel with the filter's tables: the window is 2·radius+1.
     The taps must be in (ky, kx) order, as core.luts.tap_table gives them."""
-    global launches
-    w = SPANS.open("cuda_wrappers.adaptive_bilateral") if SPANS.on else -1
     check_color_image("src", src)
     check_taps(taps, src.device)
     check_table("lut", lut, torch.float32, (COLOR_TABLE_SIZE_ADAPTIVE,), src.device)
-    smem = _lib().vip_adaptive_bilateral_smem_bytes(radius)
-    check_smem("adaptive_bilateral", 2 * radius + 1, smem)
+    check_smem("adaptive_bilateral", 2 * radius + 1,
+               plan("vip_adaptive_bilateral_smem_bytes", radius))
     height, width, _ = src.shape
     out = torch.empty_like(src)
-    args = (src.data_ptr(), out.data_ptr(), height, width, taps.data_ptr(), taps.shape[0],
-            lut.data_ptr(), radius, stream_of(src))
-    with torch.cuda.device(src.device):
-        enqueue("enqueue.adaptive_bilateral", _lib().vip_adaptive_bilateral_u8, args,
-                "adaptive_bilateral")
-    launches += 1
-    if w >= 0:
-        SPANS.close(w)
+    launch("vip_adaptive_bilateral_u8", "adaptive_bilateral", src, src.data_ptr(),
+           out.data_ptr(), height, width, taps.data_ptr(), taps.shape[0], lut.data_ptr(), radius)
     return out
 
 

@@ -16,15 +16,13 @@ around ``enqueue.bilateral``.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_BILATERAL, color_table, space_kernel, tap_table
-from ...utils.profiling import SPANS
-from ._build import (check_color_image, check_smem, check_table, check_taps, enqueue,
-                     load_library, stream_of)
+from ._build import (check_color_image, check_smem, check_table, check_taps, kernel_wrapper,
+                     launch, plan)
 
 launches = 0
 blocked_calls = 0  # not named *launches: the benchmark counts those as launches
@@ -33,45 +31,22 @@ BORDERS = {"replicate": 0, "reflect101": 1}
 ROUNDINGS = {"trunc": 0, "rint": 1}
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    lib.vip_bilateral_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.vip_bilateral_smem_bytes.restype = ctypes.c_longlong
-    lib.vip_bilateral_columns_per_thread.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.vip_bilateral_columns_per_thread.restype = ctypes.c_int
-    lib.vip_bilateral_pixels_per_thread.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.vip_bilateral_pixels_per_thread.restype = ctypes.c_int
-    lib.vip_bilateral_band.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.vip_bilateral_band.restype = ctypes.c_int
-    lib.vip_bilateral_u8.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # src, guide, out
-        ctypes.c_int, ctypes.c_int,                          # height, width
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,      # taps, n_taps, lut
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # radius, border, rounding
-        ctypes.c_void_p,                                     # stream
-    ]
-    lib.vip_bilateral_u8.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=256)
 def _launch_plan(radius: int, joint: bool, height: int) -> tuple[int, int]:
     """(shared memory of a block in bytes, output columns a thread on the
     blocked path or 0) of a launch at this radius and frame height."""
-    lib = _lib()
-    return (lib.vip_bilateral_smem_bytes(radius, int(joint), height),
-            lib.vip_bilateral_columns_per_thread(radius, height))
+    return (plan("vip_bilateral_smem_bytes", radius, int(joint), height),
+            plan("vip_bilateral_columns_per_thread", radius, height))
 
 
+@kernel_wrapper("bilateral")
 def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
                     lut: torch.Tensor, radius: int, border: str = "replicate",
                     rounding: str = "trunc") -> torch.Tensor:
     """Launch the kernel.  guide=None is the self filter (range weights keyed
     off src).  The taps must be in (ky, kx) order, each (dy, dx) once, as
     core.luts.tap_table gives them."""
-    global launches, blocked_calls
-    w = SPANS.open("cuda_wrappers.bilateral") if SPANS.on else -1
+    global blocked_calls
     check_color_image("src", src)
     if guide is not None:
         check_color_image("guide", guide)
@@ -87,16 +62,12 @@ def joint_bilateral(src: torch.Tensor, guide, taps: torch.Tensor,
     smem, blocked = _launch_plan(radius, guide is not None, height)
     check_smem("bilateral", 2 * radius + 1, smem)
     out = torch.empty_like(src)
-    args = (src.data_ptr(), None if guide is None else guide.data_ptr(), out.data_ptr(),
-            height, width, taps.data_ptr(), taps.shape[0], lut.data_ptr(),
-            radius, BORDERS[border], ROUNDINGS[rounding], stream_of(src))
-    with torch.cuda.device(src.device):
-        enqueue("enqueue.bilateral", _lib().vip_bilateral_u8, args, "bilateral")
-    launches += 1
+    launch("vip_bilateral_u8", "bilateral", src, src.data_ptr(),
+           None if guide is None else guide.data_ptr(), out.data_ptr(), height, width,
+           taps.data_ptr(), taps.shape[0], lut.data_ptr(), radius, BORDERS[border],
+           ROUNDINGS[rounding])
     if blocked:
         blocked_calls += 1
-    if w >= 0:
-        SPANS.close(w)
     return out
 
 

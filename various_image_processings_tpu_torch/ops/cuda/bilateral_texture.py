@@ -27,10 +27,11 @@ import torch
 
 from ...core.luts import COLOR_TABLE_SIZE_BILATERAL
 from ...utils.profiling import SPANS
+from . import _build
 from . import bilateral as cuda_bilateral
 from . import gradient as cuda_gradient
 from ._build import (check_color_image, check_smem, check_table, check_taps, check_tensor,
-                     enqueue, launch_error, load_library, stream_of)
+                     kernel_wrapper, launch, launch_error, plan, stream_of)
 
 blur_rtv_launches = 0
 guide_launches = 0
@@ -44,45 +45,6 @@ ALIGN = 256
 
 # include/cpp/bilateral_texture_filter.hpp:15, as an f32 value made on the host
 EPSILON = np.float32(1e-9)
-
-# vip_btf_u8's parameters (csrc/btf_pipeline.cu)
-BTF_ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p,                        # src, out
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,       # magnitude, blurred, rtv
-    ctypes.c_void_p, ctypes.c_void_p,                        # guide, image
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # height, width, ksize, nitr
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,          # taps, n_taps, lut
-    ctypes.c_int, ctypes.c_int,                              # border, rounding
-    ctypes.c_float, ctypes.c_float,                          # epsilon, sigma_alpha
-    ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),           # stream, launched
-]
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    for name in ("vip_blur_rtv_smem_bytes", "vip_guide_smem_bytes"):
-        getattr(lib, name).argtypes = [ctypes.c_int]
-        getattr(lib, name).restype = ctypes.c_longlong
-    for name in ("vip_blur_rtv_band", "vip_guide_band"):
-        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
-        getattr(lib, name).restype = ctypes.c_int
-    lib.vip_blur_rtv.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,             # img, magnitude
-        ctypes.c_void_p, ctypes.c_void_p,             # blurred, rtv
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,     # height, width, ksize
-        ctypes.c_float, ctypes.c_void_p,              # epsilon, stream
-    ]
-    lib.vip_blur_rtv.restype = ctypes.c_int
-    lib.vip_guide.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # blurred, rtv, guide
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,            # height, width, ksize
-        ctypes.c_float, ctypes.c_void_p,                     # sigma_alpha, stream
-    ]
-    lib.vip_guide.restype = ctypes.c_int
-    lib.vip_btf_u8.argtypes = BTF_ARGTYPES
-    lib.vip_btf_u8.restype = ctypes.c_int
-    return lib
 
 
 def sigma_alpha(ksize: int) -> np.float32:
@@ -100,47 +62,33 @@ def _check_pair(image: torch.Tensor, plane: torch.Tensor, ksize: int) -> None:
         raise ValueError(f"ksize must be a positive odd integer, got {ksize}")
 
 
+@kernel_wrapper("blur_rtv", "blur_rtv_launches")
 def blur_and_rtv(img: torch.Tensor, magnitude: torch.Tensor, ksize: int):
     """(H, W, 3) u8 image + (H, W) f32 magnitude →
     ((H, W, 3) f32 blurred, (H, W) f32 rtv)."""
-    global blur_rtv_launches
-    w = SPANS.open("cuda_wrappers.blur_rtv") if SPANS.on else -1
     check_tensor("img", img, (torch.uint8,), (3,))
     check_tensor("magnitude", magnitude, (torch.float32,), (2,))
     _check_pair(img, magnitude, ksize)
-    smem = _lib().vip_blur_rtv_smem_bytes(ksize // 2)
-    check_smem("blur_rtv", ksize, smem)
+    check_smem("blur_rtv", ksize, plan("vip_blur_rtv_smem_bytes", ksize // 2))
     height, width, _ = img.shape
     blurred = torch.empty((height, width, 3), dtype=torch.float32, device=img.device)
     rtv = torch.empty((height, width), dtype=torch.float32, device=img.device)
-    args = (img.data_ptr(), magnitude.data_ptr(), blurred.data_ptr(), rtv.data_ptr(), height,
-            width, ksize, float(EPSILON), stream_of(img))
-    with torch.cuda.device(img.device):
-        enqueue("enqueue.blur_rtv", _lib().vip_blur_rtv, args, "blur_rtv")
-    blur_rtv_launches += 1
-    if w >= 0:
-        SPANS.close(w)
+    launch("vip_blur_rtv", "blur_rtv", img, img.data_ptr(), magnitude.data_ptr(),
+           blurred.data_ptr(), rtv.data_ptr(), height, width, ksize, float(EPSILON))
     return blurred, rtv
 
 
+@kernel_wrapper("guide", "guide_launches")
 def guide(blurred: torch.Tensor, rtv: torch.Tensor, ksize: int) -> torch.Tensor:
     """((H, W, 3) f32 blurred, (H, W) f32 rtv) → (H, W, 3) u8 guide."""
-    global guide_launches
-    w = SPANS.open("cuda_wrappers.guide") if SPANS.on else -1
     check_tensor("blurred", blurred, (torch.float32,), (3,))
     check_tensor("rtv", rtv, (torch.float32,), (2,))
     _check_pair(blurred, rtv, ksize)
-    smem = _lib().vip_guide_smem_bytes(ksize // 2)
-    check_smem("guide", ksize, smem)
+    check_smem("guide", ksize, plan("vip_guide_smem_bytes", ksize // 2))
     height, width, _ = blurred.shape
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=blurred.device)
-    args = (blurred.data_ptr(), rtv.data_ptr(), out.data_ptr(), height, width, ksize,
-            float(sigma_alpha(ksize)), stream_of(blurred))
-    with torch.cuda.device(blurred.device):
-        enqueue("enqueue.guide", _lib().vip_guide, args, "guide")
-    guide_launches += 1
-    if w >= 0:
-        SPANS.close(w)
+    launch("vip_guide", "guide", blurred, blurred.data_ptr(), rtv.data_ptr(), out.data_ptr(),
+           height, width, ksize, float(sigma_alpha(ksize)))
     return out
 
 
@@ -164,14 +112,14 @@ def _texture_plan(ksize: int, height: int) -> tuple[bool, float]:
     the guide's sigma_alpha) of a BTF of window ``ksize`` at this frame
     height, once the blur, guide and joint filter plans are checked to fit
     in shared memory."""
-    lib = _lib()
-    check_smem("blur_rtv", ksize, lib.vip_blur_rtv_smem_bytes(ksize // 2))
-    check_smem("guide", ksize, lib.vip_guide_smem_bytes(ksize // 2))
+    check_smem("blur_rtv", ksize, plan("vip_blur_rtv_smem_bytes", ksize // 2))
+    check_smem("guide", ksize, plan("vip_guide_smem_bytes", ksize // 2))
     smem, blocked = cuda_bilateral._launch_plan(ksize - 1, True, height)
     check_smem("bilateral", 2 * ksize - 1, smem)
     return blocked != 0, float(sigma_alpha(ksize))
 
 
+@kernel_wrapper("btf", None)
 def texture_filter(src: torch.Tensor, ksize: int, nitr: int, taps: torch.Tensor,
                    lut: torch.Tensor, border: str = "replicate",
                    rounding: str = "trunc") -> torch.Tensor:
@@ -180,7 +128,6 @@ def texture_filter(src: torch.Tensor, ksize: int, nitr: int, taps: torch.Tensor,
     each iteration as ``ops.bilateral_texture.btf_iteration`` launches them,
     all enqueued by one call of ``vip_btf_u8``.  ``taps`` and ``lut`` are the
     closing joint filter's (``ops.bilateral_texture.jbf_tables``)."""
-    w = SPANS.open("cuda_wrappers.btf") if SPANS.on else -1
     check_color_image("src", src)
     if ksize < 1 or ksize % 2 == 0:
         raise ValueError(f"ksize must be a positive odd integer, got {ksize}")
@@ -204,8 +151,6 @@ def texture_filter(src: torch.Tensor, ksize: int, nitr: int, taps: torch.Tensor,
             float(EPSILON), alpha, stream_of(src), ctypes.c_int())
     with torch.cuda.device(src.device):
         _enqueue_texture_filter(args, blocked)
-    if w >= 0:
-        SPANS.close(w)
     return out
 
 
@@ -217,9 +162,11 @@ def _enqueue_texture_filter(args: tuple, blocked: bool) -> None:
     kernel."""
     global single_calls, blur_rtv_launches, guide_launches
     s = SPANS.open("enqueue.btf") if SPANS.on else -1
-    err = _lib().vip_btf_u8(*args)
-    if s >= 0:
-        SPANS.close(s)
+    try:
+        err = _build.load_library().vip_btf_u8(*args)
+    finally:
+        if s >= 0:
+            SPANS.close(s)
     n = args[-1].value
     single_calls += 1
     cuda_gradient.launches += (n + 3) // 4
@@ -229,4 +176,4 @@ def _enqueue_texture_filter(args: tuple, blocked: bool) -> None:
     if blocked:
         cuda_bilateral.blocked_calls += n // 4
     if err != 0:
-        raise launch_error(_lib(), KERNELS[n % 4], err)
+        raise launch_error(KERNELS[n % 4], err)

@@ -12,41 +12,19 @@ is the span ``cuda_wrappers.gradient`` around ``enqueue.gradient``.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from ...utils.profiling import SPANS
-from ._build import check_tensor, enqueue, load_library, stream_of
+from ._build import check_tensor, kernel_wrapper, launch
 
 launches = 0
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    lib.vip_gradient.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,             # src, out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,     # height, width, channels
-        ctypes.c_int, ctypes.c_void_p,                # is_float, stream
-    ]
-    lib.vip_gradient.restype = ctypes.c_int
-    return lib
-
-
+@kernel_wrapper("gradient")
 def gradient(src: torch.Tensor) -> torch.Tensor:
     """(H, W, C) u8|f32 → (H, W) f32 gradient magnitude."""
-    global launches
-    w = SPANS.open("cuda_wrappers.gradient") if SPANS.on else -1
     check_tensor("src", src, (torch.uint8, torch.float32), (3,))
     height, width, channels = src.shape
     out = torch.empty((height, width), dtype=torch.float32, device=src.device)
-    args = (src.data_ptr(), out.data_ptr(), height, width, channels,
-            int(src.dtype == torch.float32), stream_of(src))
-    with torch.cuda.device(src.device):
-        enqueue("enqueue.gradient", _lib().vip_gradient, args, "gradient")
-    launches += 1
-    if w >= 0:
-        SPANS.close(w)
+    launch("vip_gradient", "gradient", src, src.data_ptr(), out.data_ptr(), height, width,
+           channels, int(src.dtype == torch.float32))
     return out

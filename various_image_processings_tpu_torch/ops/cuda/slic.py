@@ -25,14 +25,11 @@ association and snap-key launches by (kernel, metric), and
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from collections import Counter
 
 import torch
 
-from ...utils.profiling import SPANS
-from ._build import check_table, check_tensor, enqueue, load_library, stream_of
+from ._build import check_table, check_tensor, kernel_wrapper, launch, load_library, plan
 
 association_launches = 0
 snap_keys_launches = 0
@@ -49,45 +46,6 @@ METRICS = {"euclidean": 0, "ciede2000": 1, "ciede2000_ref": 2}
 MAX_WIDTH = 1 << 27
 MAX_PIXELS = (1 << 31) - 1
 MAX_BATCH = 65535
-
-
-_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# each C entry point's parameters, in csrc/slic_kmeans.cu's order
-ARGTYPES = {
-    "vip_slic_association": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,    # lab, centers, labels, dists, sums, flags
-        _I32, _I32,                            # flag_stride, batch
-        _I32, _I32, _I32, _I32, _I32,          # height, width, S, per_col, per_row
-        _F32, _F32, _I32,                      # space_norm, color_norm, metric
-        _PTR,                                  # stream
-    ],
-    "vip_slic_snap_keys": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,    # lab, centers, labels, sums, keys, flags
-        _I32, _I32,                            # flag_stride, batch
-        _I32, _I32, _I32, _I32, _I32,          # height, width, S, per_col, per_row
-        _I32, _PTR,                            # metric, stream
-    ],
-    "vip_slic_update": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # lab, centers, keys, sums, stats, flags, next
-        _I32, _I32, _I32,                      # flag_stride, batch, n
-        _I32, _I32, _I32, _I32, _I32, _PTR,    # height, width, S, per_row, iteration, stream
-    ],
-    "vip_slic_association_blocks": [_I32, _I32],  # height, width
-    "vip_slic_association_occupancy": [_I32],     # metric
-    "vip_slic_delta_e": [
-        _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # l1, a1, b1, l2, a2, b2, out
-        ctypes.c_longlong, _I32, _PTR,         # n, metric, stream
-    ],
-}
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    for name, argtypes in ARGTYPES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
 
 
 def _grid(lab: torch.Tensor, sp_size: int) -> tuple[int, int, int, int, int]:
@@ -129,6 +87,7 @@ def _flags(state: torch.Tensor, iteration: int) -> tuple[int, int]:
     return state.data_ptr() + (1 + iteration) * 8, state.shape[1] * 2
 
 
+@kernel_wrapper("slic_association", "association_launches")
 def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
               dists: torch.Tensor, sums: torch.Tensor, state: torch.Tensor, iteration: int,
               sp_size: int, space_norm: float, color_norm: float,
@@ -137,8 +96,6 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     ``dists`` (B, H, W) f32, adds to ``sums`` (B, N, 6) int64 of x, y, l, a,
     b and count, and sets an image's changed flag of the iteration if one of
     its distances fell."""
-    global association_launches
-    w = SPANS.open("cuda_wrappers.slic_association") if SPANS.on else -1
     metric_id = _metric_id(metric)
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
@@ -146,26 +103,19 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
     check_table("dists", dists, torch.float32, (batch, height, width), lab.device)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
-    args = (lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), dists.data_ptr(),
-            sums.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size, per_col,
-            per_row, space_norm, color_norm, metric_id, stream_of(lab))
-    with torch.cuda.device(lab.device):
-        enqueue("enqueue.slic_association", _lib().vip_slic_association, args,
-                "SLIC association")
-    association_launches += 1
+    launch("vip_slic_association", "slic_association", lab, lab.data_ptr(), centers.data_ptr(),
+           labels.data_ptr(), dists.data_ptr(), sums.data_ptr(), *_flags(state, iteration),
+           batch, height, width, sp_size, per_col, per_row, space_norm, color_norm, metric_id)
     metric_launches["association", metric] += 1
-    if w >= 0:
-        SPANS.close(w)
 
 
+@kernel_wrapper("slic_snap_keys", "snap_keys_launches")
 def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
               sums: torch.Tensor, keys: torch.Tensor, state: torch.Tensor, iteration: int,
               sp_size: int, metric: str = "euclidean") -> None:
     """Means and snap keys: takes into ``keys`` (B, N) int64 each center's
     least floor(distance to its mean) * 2^32 + raster index (in its image)
     over its pixels."""
-    global snap_keys_launches
-    w = SPANS.open("cuda_wrappers.slic_snap_keys") if SPANS.on else -1
     metric_id = _metric_id(metric)
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
@@ -173,56 +123,44 @@ def snap_keys(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
     check_table("keys", keys, torch.int64, (batch, n), lab.device)
-    args = (lab.data_ptr(), centers.data_ptr(), labels.data_ptr(), sums.data_ptr(),
-            keys.data_ptr(), *_flags(state, iteration), batch, height, width, sp_size, per_col,
-            per_row, metric_id, stream_of(lab))
-    with torch.cuda.device(lab.device):
-        enqueue("enqueue.slic_snap_keys", _lib().vip_slic_snap_keys, args, "SLIC snap keys")
-    snap_keys_launches += 1
+    launch("vip_slic_snap_keys", "slic_snap_keys", lab, lab.data_ptr(), centers.data_ptr(),
+           labels.data_ptr(), sums.data_ptr(), keys.data_ptr(), *_flags(state, iteration), batch,
+           height, width, sp_size, per_col, per_row, metric_id)
     metric_launches["snap_keys", metric] += 1
-    if w >= 0:
-        SPANS.close(w)
 
 
+@kernel_wrapper("slic_update", "update_launches")
 def update(lab: torch.Tensor, centers: torch.Tensor, keys: torch.Tensor, sums: torch.Tensor,
            state: torch.Tensor, iteration: int, sp_size: int) -> None:
     """Center update: snaps ``centers`` (B, N, 5) f32, takes each image's
     drift max and iteration count into its state row 0, sets its next
     iteration's active flag to this one's changed flag, and clears ``sums``
     and ``keys``."""
-    global update_launches
-    w = SPANS.open("cuda_wrappers.slic_update") if SPANS.on else -1
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
     _check_state(lab, centers, state, batch, n)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
     check_table("keys", keys, torch.int64, (batch, n), lab.device)
     flags, stride = _flags(state, iteration)
-    args = (lab.data_ptr(), centers.data_ptr(), keys.data_ptr(), sums.data_ptr(),
-            state.data_ptr(), flags, flags + 8, stride, batch, n, height, width, sp_size,
-            per_row, iteration, stream_of(lab))
-    with torch.cuda.device(lab.device):
-        enqueue("enqueue.slic_update", _lib().vip_slic_update, args, "SLIC update")
-    update_launches += 1
-    if w >= 0:
-        SPANS.close(w)
+    launch("vip_slic_update", "slic_update", lab, lab.data_ptr(), centers.data_ptr(),
+           keys.data_ptr(), sums.data_ptr(), state.data_ptr(), flags, flags + 8, stride, batch,
+           n, height, width, sp_size, per_row, iteration)
 
 
 def association_shape(height: int, width: int, metric: str = "euclidean") -> tuple[int, int]:
     """(blocks an image, blocks an SM can hold) of the association kernel of
     ``metric`` on an image of this shape: its launch shape, for reports."""
-    lib = _lib()
-    return (lib.vip_slic_association_blocks(height, width),
-            lib.vip_slic_association_occupancy(_metric_id(metric)))
+    return (plan("vip_slic_association_blocks", height, width),
+            load_library().vip_slic_association_occupancy(_metric_id(metric)))
 
 
+@kernel_wrapper("slic_delta_e", None)
 def delta_e(l1: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor, l2: torch.Tensor,
             a2: torch.Tensor, b2: torch.Tensor, metric: str = "ciede2000") -> torch.Tensor:
     """The squared ΔE of ``metric`` ("ciede2000" or "ciede2000_ref") of each
     pair (l1, a1, b1)[i], (l2, a2, b2)[i]: six f32 CUDA tensors of one shape,
     through the kernels' device function → f32 of that shape."""
     global delta_e_launches
-    w = SPANS.open("cuda_wrappers.slic_delta_e") if SPANS.on else -1
     metric_id = _metric_id(metric)
     if metric_id == METRICS["euclidean"]:
         raise ValueError("the pair kernel computes the CIEDE2000 metrics only")
@@ -232,11 +170,7 @@ def delta_e(l1: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor, l2: torch.Tens
         check_table(name, t, torch.float32, tuple(l1.shape), l1.device)
     out = torch.empty_like(l1)
     if out.numel():
-        args = (*(t.data_ptr() for t in planes), out.data_ptr(), out.numel(), metric_id,
-                stream_of(l1))
-        with torch.cuda.device(l1.device):
-            enqueue("enqueue.slic_delta_e", _lib().vip_slic_delta_e, args, "SLIC delta E")
+        launch("vip_slic_delta_e", "slic_delta_e", l1, *(t.data_ptr() for t in planes),
+               out.data_ptr(), out.numel(), metric_id)
         delta_e_launches += 1
-    if w >= 0:
-        SPANS.close(w)
     return out

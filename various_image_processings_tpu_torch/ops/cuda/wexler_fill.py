@@ -21,13 +21,9 @@ main path went through the kernels; a launch is the span
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from ...utils.profiling import SPANS
-from ._build import check_tensor, enqueue, load_library, stream_of
+from ._build import bind, check_tensor, kernel_wrapper, launch, plan
 
 # slots of a pass's int32 state vector
 ACTIVE, FAIL, LIVE, COUNT, ENERGY, ITERATIONS = range(6)
@@ -44,38 +40,6 @@ ring_pick_launches = 0
 filters_launches = 0
 commit_launches = 0
 diffusion_launches = 0
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vip_wexler_ring_pick.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,          # rem, rem0, island, tyx, keys, state
-        i32, i32, i32, i32, i32, i32, i32, i32,  # bh, bw, by0, bx0, width, cap, tp, mode
-        ptr,                                   # stream
-    ]
-    lib.vip_wexler_filters.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # img, rem, tyx, state, f, b2, valid
-        i32, i32, i32, i32, i32,               # height, width, cap, tp, initial
-        i32, i32, i32, i32, ptr,               # vy0, vx0, vh, vw, stream
-    ]
-    lib.vip_wexler_commit.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # img, rem, p, keys, b2, tyx, weight, state
-        i32, i32, i32, ptr,                    # width, n_cx, cap, stream
-    ]
-    lib.vip_wexler_diffusion.argtypes = [
-        ptr, ptr, ptr,                         # src, rem0, out
-        i32, i32, i32, i32, i32, i32,          # bh, bw, by0, bx0, width, dither
-        ctypes.c_float, ptr,                   # ninth, stream
-    ]
-    for name in ("vip_wexler_diffusion_cluster", "vip_wexler_diffusion_smem_bytes"):
-        getattr(lib, name).argtypes = [i32, i32]  # bh, bw
-    for name in ("vip_wexler_ring_pick", "vip_wexler_filters", "vip_wexler_commit",
-                 "vip_wexler_diffusion", "vip_wexler_diffusion_cluster",
-                 "vip_wexler_diffusion_smem_bytes"):
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
@@ -106,24 +70,12 @@ def _check_targets(tyx: torch.Tensor, state: torch.Tensor, device) -> int:
     return cap
 
 
-def _bind(fn: str, args: tuple, device, kernel: str, counter: str):
-    """A launch of ``fn`` with fixed arguments: one ctypes call on the
-    tensor's device, its error checked, ``counter`` (``<kernel>_launches``)
-    counted, recorded as the spans of ``wexler_<kernel>``."""
-    name = "wexler_" + counter.removesuffix("_launches")
-    wrapper, queued = "cuda_wrappers." + name, "enqueue." + name
-    fn, device = getattr(_lib(), fn), torch.cuda.device(device)
-    module = globals()
-
-    def go() -> None:
-        w = SPANS.open(wrapper) if SPANS.on else -1
-        with device:
-            enqueue(queued, fn, args, kernel)
-        module[counter] += 1
-        if w >= 0:
-            SPANS.close(w)
-
-    return go
+def _bind(kernel: str, like: torch.Tensor, *args):
+    """A launch of ``vip_wexler_<kernel>`` with fixed arguments (``bind``),
+    counted by ``<kernel>_launches``, recorded as the spans of
+    ``wexler_<kernel>``."""
+    go = bind("vip_wexler_" + kernel, "wexler_" + kernel, like, *args)
+    return kernel_wrapper("wexler_" + kernel, kernel + "_launches", globals())(go)
 
 
 def ring_pick_launcher(rem: torch.Tensor, rem0: torch.Tensor, island: torch.Tensor | None,
@@ -147,10 +99,9 @@ def ring_pick_launcher(rem: torch.Tensor, rem0: torch.Tensor, island: torch.Tens
         raise ValueError(f"keys must hold at least cap = {cap} on {dev}")
     _check_box(box, height, width)
     mode = ENERGY_MODE if not initial else RING_MODE if island is None else ISLAND_MODE
-    args = (rem.data_ptr(), rem0.data_ptr(), None if island is None else island.data_ptr(),
-            tyx.data_ptr(), keys.data_ptr(), state.data_ptr(), *box, width, cap, keys.shape[0],
-            mode, stream_of(rem))
-    return _bind("vip_wexler_ring_pick", args, dev, "Wexler ring pick", "ring_pick_launches")
+    return _bind("ring_pick", rem, rem.data_ptr(), rem0.data_ptr(),
+                 None if island is None else island.data_ptr(), tyx.data_ptr(), keys.data_ptr(),
+                 state.data_ptr(), *box, width, cap, keys.shape[0], mode)
 
 
 def validity_region(height: int, width: int, box: tuple) -> tuple[int, int, int, int]:
@@ -185,10 +136,9 @@ def filters_launcher(img: torch.Tensor, rem: torch.Tensor, tyx: torch.Tensor,
     _check("b2", b2, torch.float32, (cap,), dev)
     _check("valid", valid, torch.uint8, (height - WINDOW + 1, width - WINDOW + 1), dev)
     _check_box(box, height, width)
-    args = (img.data_ptr(), rem.data_ptr(), tyx.data_ptr(), state.data_ptr(), f.data_ptr(),
-            b2.data_ptr(), valid.data_ptr(), height, width, cap, f.shape[1], int(initial),
-            *validity_region(height, width, box), stream_of(img))
-    return _bind("vip_wexler_filters", args, dev, "Wexler filters", "filters_launches")
+    return _bind("filters", img, img.data_ptr(), rem.data_ptr(), tyx.data_ptr(),
+                 state.data_ptr(), f.data_ptr(), b2.data_ptr(), valid.data_ptr(), height, width,
+                 cap, f.shape[1], int(initial), *validity_region(height, width, box))
 
 
 def commit_launcher(img: torch.Tensor, rem: torch.Tensor, p: torch.Tensor, keys: torch.Tensor,
@@ -211,28 +161,26 @@ def commit_launcher(img: torch.Tensor, rem: torch.Tensor, p: torch.Tensor, keys:
     check_tensor("keys", keys, (torch.int64,), (1,))
     if keys.shape[0] < cap or keys.device != dev:
         raise ValueError(f"keys must hold at least cap = {cap} on {dev}")
-    args = (img.data_ptr(), rem.data_ptr(), p.data_ptr(), keys.data_ptr(), b2.data_ptr(),
-            tyx.data_ptr(), weight.data_ptr(), state.data_ptr(), width, width - WINDOW + 1, cap,
-            stream_of(img))
-    return _bind("vip_wexler_commit", args, dev, "Wexler commit", "commit_launches")
+    return _bind("commit", img, img.data_ptr(), rem.data_ptr(), p.data_ptr(), keys.data_ptr(),
+                 b2.data_ptr(), tyx.data_ptr(), weight.data_ptr(), state.data_ptr(), width,
+                 width - WINDOW + 1, cap)
 
 
 def diffusion_shape(bh: int, bw: int) -> tuple[int, int]:
     """(CTAs a channel, shared memory bytes a CTA) of the diffusion start's
     launch on a (bh, bw) box: each channel's box is a cluster of row
     strips.  For reports."""
-    lib = _lib()
-    return lib.vip_wexler_diffusion_cluster(bh, bw), lib.vip_wexler_diffusion_smem_bytes(bh, bw)
+    return (plan("vip_wexler_diffusion_cluster", bh, bw),
+            plan("vip_wexler_diffusion_smem_bytes", bh, bw))
 
 
+@kernel_wrapper("wexler_diffusion", "diffusion_launches")
 def diffusion(src: torch.Tensor, rem0: torch.Tensor, box: tuple, dither: bool,
               ninth: float) -> torch.Tensor:
     """The diffusion start: a copy of ``src`` (H, W, 3) u8 whose hole pixels
     (``rem0`` (H, W) f32 > 0) in the box (bh, bw, by0, bx0) hold bh + bw
     Jacobi sweeps of the 3x3 edge-padded mean from the known pixels' mean,
     the dither on top if asked, clamped to 0..255.  ninth: f32(1 / 9)."""
-    global diffusion_launches
-    w = SPANS.open("cuda_wrappers.wexler_diffusion") if SPANS.on else -1
     check_tensor("src", src, (torch.uint8,), (3,))
     height, width, channels = src.shape
     if channels != 3:
@@ -244,12 +192,6 @@ def diffusion(src: torch.Tensor, rem0: torch.Tensor, box: tuple, dither: bool,
         raise ValueError(f"the diffusion start keeps its box in shared memory: at most "
                          f"{MAX_DIFFUSION_PIXELS} pixels, got {bh}x{bw}")
     out = src.clone()
-    args = (src.data_ptr(), rem0.data_ptr(), out.data_ptr(), bh, bw, by0, bx0, width,
-            int(dither), ninth, stream_of(src))
-    with torch.cuda.device(src.device):
-        enqueue("enqueue.wexler_diffusion", _lib().vip_wexler_diffusion, args,
-                "Wexler diffusion start")
-    diffusion_launches += 1
-    if w >= 0:
-        SPANS.close(w)
+    launch("vip_wexler_diffusion", "wexler_diffusion", src, src.data_ptr(), rem0.data_ptr(),
+           out.data_ptr(), bh, bw, by0, bx0, width, int(dither), ninth)
     return out

@@ -19,38 +19,17 @@ launch is the span ``cuda_wrappers.wexler_search`` around
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.nn.functional as F
 
 from ...core.pad import round_up
-from ...utils.profiling import SPANS
-from ._build import check_tensor, enqueue, load_library, stream_of
+from ._build import bind, check_tensor, kernel_wrapper, plan
 
 K_PAD = 128
 TARGET_TILE = 128  # targets a block (the kernel's kTileN): Tp is a multiple
 _MAX_GRID_YZ = 65535
 
 launches = 0
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library()
-    for name in ("vip_wexler_search_target_tile", "vip_wexler_search_row_tile",
-                 "vip_wexler_search_smem_bytes"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    lib.vip_wexler_search.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # p, f, valid, keys
-        ctypes.c_void_p,                                         # active (or null)
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # window, n_cy, n_cx, tp
-        ctypes.c_void_p,                                         # stream
-    ]
-    lib.vip_wexler_search.restype = ctypes.c_int
-    return lib
 
 
 def decode_keys(keys: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -98,9 +77,9 @@ def prepare(p117: torch.Tensor, f13: torch.Tensor, valid: torch.Tensor):
     if tuple(valid.shape) != (n_cy, n_cx):
         raise ValueError(f"valid must have shape {(n_cy, n_cx)}, got {tuple(valid.shape)}")
     if (-(-n_cx // 64) > _MAX_GRID_YZ
-            or -(-n_cy // _lib().vip_wexler_search_row_tile()) > _MAX_GRID_YZ):
+            or -(-n_cy // plan("vip_wexler_search_row_tile")) > _MAX_GRID_YZ):
         raise ValueError(f"candidate grid {(n_cy, n_cx)} exceeds the launch grid")
-    tp = round_up(t, _lib().vip_wexler_search_target_tile())
+    tp = round_up(t, plan("vip_wexler_search_target_tile"))
     p = F.pad(p117, (0, K_PAD - channels)).contiguous()
     f = F.pad(f13.transpose(1, 2), (0, K_PAD - channels, 0, tp - t)).contiguous()
     keys = torch.full((tp,), -1, dtype=torch.int64, device=p117.device)
@@ -145,21 +124,11 @@ def launcher(p: torch.Tensor, f: torch.Tensor, valid: torch.Tensor, keys: torch.
             active is not None and (active.device != p.device or active.dtype != torch.int32)):
         raise ValueError("the search's buffers and active flag must be on one device "
                          "(the flag int32)")
-    if tp % _lib().vip_wexler_search_target_tile():
+    if tp % plan("vip_wexler_search_target_tile"):
         raise ValueError(f"f's {tp} target rows are not a multiple of the kernel's tile")
     if p.data_ptr() % 16 or f.data_ptr() % 16:
         raise ValueError("p and f must be 16-byte aligned (the kernel's TMA loads need it)")
-    args = (p.data_ptr(), f.data_ptr(), valid.data_ptr(), keys.data_ptr(),
-            None if active is None else active.data_ptr(), window, n_cy, n_cx, tp, stream_of(p))
-    fn, device = _lib().vip_wexler_search, torch.cuda.device(p.device)
-
-    def go() -> None:
-        global launches
-        w = SPANS.open("cuda_wrappers.wexler_search") if SPANS.on else -1
-        with device:
-            enqueue("enqueue.wexler_search", fn, args, "wexler_search")
-        launches += 1
-        if w >= 0:
-            SPANS.close(w)
-
-    return go
+    go = bind("vip_wexler_search", "wexler_search", p, p.data_ptr(), f.data_ptr(),
+              valid.data_ptr(), keys.data_ptr(), None if active is None else active.data_ptr(),
+              window, n_cy, n_cx, tp)
+    return kernel_wrapper("wexler_search", "launches", globals())(go)
