@@ -122,6 +122,7 @@ device the script exits 1.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -204,7 +205,7 @@ SHARD_COUNTS = (2, 4, 8)                  # logical shards of the 4K BF
 # the parent's times, for the lines that print beside them (PERF.md sections
 # 5-6: chip_smoke.py runs of the parent, NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_MS = {
-    "bilateral 4K k=9": "0.3023-0.3025",
+    "bilateral 4K k=9": "0.2975-0.3002",
     "JBF 600x900 k=17": "0.1036-0.1044",
     ("600x900", "gradient"): "0.0057",
     ("600x900", "blur_rtv"): "0.0176-0.0178",
@@ -372,8 +373,9 @@ def sass_loops(funcs: dict, name_part: str) -> list[tuple[str, int, Counter]]:
 
 def build_parent(csrc: str):
     """The bilateral, guide, gradient, ring-pick and filters kernels of
-    another tree's csrc/ (the parent's), built with this tree's nvcc flags,
-    as a ctypes library."""
+    another tree's csrc/ (the parent's; with its bilateral_circle_r*.cu
+    where it has them), built with this tree's nvcc flags, as a ctypes
+    library."""
     import ctypes
 
     from various_image_processings_tpu_torch.ops.cuda import _build
@@ -381,6 +383,7 @@ def build_parent(csrc: str):
     out.mkdir(parents=True, exist_ok=True)
     srcs = [os.path.join(csrc, f) for f in ("bilateral.cu", "bilateral_texture.cu",
                                               "gradient.cu", "wexler_fill.cu")]
+    srcs += sorted(str(p) for p in Path(csrc).glob("bilateral_circle_r*.cu"))
     objs = [str(out / (os.path.basename(f) + ".o")) for f in srcs]
     nvcc = _build.nvcc()
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, f] for f, o in zip(srcs, objs)])
@@ -430,8 +433,20 @@ def parent_fill_launch(parent, piece: str, k):
 
 # the bilateral kernel's cells: (label, shape, (ksize, sigma_space, sigma_color), joint)
 BILATERAL_CELLS = (("BF 4K k=9", MAIN_SHAPE, MAIN_PARAMS, False),
+                   ("BF 512x512 k=9", (512, 512), MAIN_PARAMS, False),
                    ("JBF 600x900 k'=17", BTF_SHAPE, BTF_PARAMS, True),
                    ("JBF 4K k'=17", MAIN_SHAPE, BTF_PARAMS, True))
+
+
+def unrolled_body(code: list[str]) -> tuple[int, int]:
+    """(instructions from the last barrier to the first division, to the
+    first EXIT) of an unrolled-path kernel: its straight-line tap body, and
+    the body with the stores."""
+    last_bar = max(i for i, t in enumerate(code) if "BAR.SYNC" in t)
+    rest = list(enumerate(code))[last_bar:]
+    first_div = next((i for i, t in rest if "MUFU.RCP" in t or "FCHK" in t), len(code))
+    first_exit = next((i for i, t in rest if t.startswith("EXIT")), len(code))
+    return first_div - last_bar, first_exit - last_bar
 
 
 def photo_like(h: int, w: int, dev, seed: int = 1):
@@ -451,8 +466,10 @@ def photo_like(h: int, w: int, dev, seed: int = 1):
 
 def bilateral_kernel_phases(dev, parent=None) -> dict:
     """The bilateral kernel at its cells (BILATERAL_CELLS): what ptxas says
-    of each instantiation (the blocked path's must not spill), the SASS loops
-    of the blocked path, each cell's launch plan, and on a noise frame and a
+    of each instantiation (the blocked path's and the unrolled path's must
+    not spill), the SASS loops of the blocked path, the SASS instructions of
+    the unrolled path's body a (tap, pixel) pair, each cell's launch plan,
+    and on a noise frame and a
     photo-like frame the kernel's device ms, bit-equal to the plain version,
     with the bound beside it; with ``parent`` (build_parent's library) the
     parent's kernel in turns (parent, change, change, parent), bit-equal to
@@ -473,21 +490,43 @@ def bilateral_kernel_phases(dev, parent=None) -> dict:
     blocked = {name: v for name, v in ptxas.items() if "bilateral_cols_kernel" in name}
     if len(blocked) != 2 or any(st or ld for _, st, ld in blocked.values()):
         raise SystemExit(f"the blocked path's instantiations are not 2 or spill: {blocked}")
+    unrolled = {name: v for name, v in ptxas.items() if "bilateral_circle_kernel" in name}
+    if len(unrolled) != 16 or any(st or ld for _, st, ld in unrolled.values()):
+        raise SystemExit(f"the unrolled path's instantiations are not 16 or spill: {unrolled}")
     funcs = sass_functions(str(_build.library_path()))
     for part in ("bilateral_cols_kernelILb0E", "bilateral_cols_kernelILb1E"):
         for name, n, ops in sass_loops(funcs, part):
             top = ", ".join(f"{op} {c}" for op, c in ops.most_common(14))
             phase(f"SASS loop of the blocked path ({name}): {n} instructions: {top}")
-    result = {"card": torch.cuda.get_device_name(0), "ptxas": ptxas, "cells": {}}
+    # the unrolled path: rows x V outputs a thread (rows 1 on small frames,
+    # else H), each adding the circle's taps
+    source = (_build.CSRC_DIR / "bilateral_circle.cuh").read_text()
+    cols, rows_h = (int(re.search(rf"constexpr int {c} = (\d+);", source).group(1))
+                    for c in ("kCircleCols", "kCircleRows"))
+    sass_per_pair = {}
+    for r, joint, rows in itertools.product(range(1, 5), (0, 1), (1, rows_h)):
+        taps = sum((ky - r) ** 2 + (kx - r) ** 2 <= r * r
+                   for ky in range(2 * r + 1) for kx in range(2 * r + 1))
+        part = f"bilateral_circle_kernelILi{r}ELb{joint}ELi{rows}E"
+        code = [t for _, t in funcs[next(n_ for n_ in funcs if part in n_)]]
+        body, with_stores = unrolled_body(code)
+        pairs = taps * cols * rows
+        label = f"r={r} {'joint' if joint else 'self'} {rows}x{cols}"
+        sass_per_pair[label] = body / pairs
+        phase(f"SASS of the unrolled path {label}: {len(code)} instructions, body {body} for "
+              f"{pairs} (tap, pixel) pairs = {body / pairs:.2f} a pair "
+              f"({with_stores / pairs:.2f} with the stores, both store branches)")
+    result = {"card": torch.cuda.get_device_name(0), "ptxas": ptxas,
+              "unrolled_sass_per_pair": sass_per_pair, "cells": {}}
     for label, (h, w), (k, ss, sc), joint in BILATERAL_CELLS:
         r = k // 2
-        cols = lb.vip_bilateral_columns_per_thread(r, h)
+        path = lb.vip_bilateral_path(r, int(joint), h)
         taps, lut = kbf.device_tables(k, ss, sc, dev)
         n_taps = int(taps.shape[0])
         # bytes: the source (and guide) in, the output out; operations: per
         # tap ws * lut, 3 products and 4 sums, per pixel 3 divisions and roundings
         b_ms, b_by = bound((3 if joint else 2) * h * w * 3, h * w * (8 * n_taps + 6))
-        cell = {"columns_per_thread": cols, "smem": lb.vip_bilateral_smem_bytes(r, int(joint), h),
+        cell = {"path": path, "smem": lb.vip_bilateral_smem_bytes(r, int(joint), h),
                 "bound_ms": b_ms, "bound_by": b_by}
         for frame in ("noise", "photo-like"):
             src = (torch.from_numpy(random_image(h, w)).to(dev) if frame == "noise"
@@ -518,7 +557,7 @@ def bilateral_kernel_phases(dev, parent=None) -> dict:
                 ms[who].append(queued_ms(fns[who], 50))
             plain_ms = cuda_time_ms(lambda: _bilateral_math(src, g, k, ss, sc), iters=3, warmup=1)
             cell[frame] = {"ms": ms, "plain_ms": plain_ms}
-            phase(f"{label} {frame}: V={cols}, kernel {' / '.join(f'{t:.4f}' for t in ms['change'])}"
+            phase(f"{label} {frame}: path {path}, kernel {' / '.join(f'{t:.4f}' for t in ms['change'])}"
                   f" ms" + (f", parent {' / '.join(f'{t:.4f}' for t in ms['parent'])} ms in turns"
                             if parent is not None else "")
                   + f", bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, max |diff| 0")
@@ -1778,7 +1817,7 @@ def parallel_phases(dev) -> tuple[dict, Counter]:
         with open(os.path.join(tmp, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
     kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
-    named = [n_ for n_ in kernels if "bilateral_kernel" in n_]
+    named = [n_ for n_ in kernels if re.search(r"bilateral_\w*kernel", n_)]
     phase(f"trace: {len(events)} events, device kernels {kernels[:4]}")
     if not named:
         raise SystemExit("the trace names no bilateral kernel")

@@ -78,29 +78,54 @@ class FakeLibrary:
 
 def counters() -> list[int]:
     return [kgr.launches, kbt.blur_rtv_launches, kbt.guide_launches, kbf.launches,
-            kbf.blocked_calls, kbt.single_calls]
+            kbf.blocked_calls, kbt.single_calls, kbf.unrolled_calls]
 
 
-@pytest.mark.parametrize("blocked", [False, True])
-@pytest.mark.parametrize("went_in", range(13))
-def test_counters_rise_by_the_kernels_that_went_in(monkeypatch, went_in, blocked):
+def enqueue_rise(monkeypatch, went_in: int, path: int) -> list[int]:
+    """The counters' rise over one ``_enqueue_texture_filter`` call of nitr
+    3 whose joint filter takes ``path``, on a library that enqueues
+    ``went_in`` kernels; a call that stops part way raises, naming the
+    kernel that failed."""
     fake = FakeLibrary(went_in)
     monkeypatch.setattr(_build, "load_library", lambda: fake)
     args = (0,) * 10 + (3,) + (0,) * 8 + (ctypes.c_int(),)  # nitr 3
-    want = [0] * 4
-    for i in range(went_in):  # an iteration launches its 4 kernels in order
-        want[i % 4] += 1
-    want += [want[3] if blocked else 0, 1]
     before = counters()
     if went_in < 12:
         kernel = kbt.KERNELS[went_in % 4]
         with pytest.raises(RuntimeError, match=rf"^{kernel} kernel launch failed: invalid "
                                                r"configuration argument \(cudaError_t 9\)$"):
-            kbt._enqueue_texture_filter(args, blocked)
+            kbt._enqueue_texture_filter(args, path)
     else:
-        kbt._enqueue_texture_filter(args, blocked)
-    assert [b - a for a, b in zip(before, counters())] == want
+        kbt._enqueue_texture_filter(args, path)
     assert fake.calls == 1
+    return [b - a for a, b in zip(before, counters())]
+
+
+def kernels_in(went_in: int) -> list[int]:
+    """Each kernel's launches among the first ``went_in`` of a call: an
+    iteration launches its 4 kernels in order."""
+    want = [0] * 4
+    for i in range(went_in):
+        want[i % 4] += 1
+    return want
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("went_in", range(13))
+def test_counters_rise_by_the_kernels_that_went_in(monkeypatch, went_in, blocked):
+    want = kernels_in(went_in)
+    want += [want[3] if blocked else 0, 1, 0]
+    path = kbf.BLOCKED if blocked else kbf.FOUR_PIXELS
+    assert enqueue_rise(monkeypatch, went_in, path) == want
+
+
+@pytest.mark.parametrize("went_in", range(13))
+def test_unrolled_counter_rises_by_the_joint_filters_that_went_in(monkeypatch, went_in):
+    """A BTF of window 2 to 5 (joint filter k′ 3 to 9) on the unrolled path:
+    ``unrolled_calls`` rises by its joint filters, the launch counters as on
+    any other path, ``blocked_calls`` not at all."""
+    want = kernels_in(went_in)
+    assert enqueue_rise(monkeypatch, went_in, kbf.UNROLLED) == want + [0, 1, want[3]]
 
 
 # ---------------------------------------------------------------------------
@@ -318,15 +343,21 @@ def _iterates(name: str, ksize: int, variant: str, impl: str) -> list:
     return out
 
 
-def expect_blocked(ksize: int, height: int) -> bool:
-    """The joint filter (k′ = 2k − 1) takes the bilateral kernel's path 1
-    from k′ = 11 to 63 on frames over 16 rows."""
-    return 11 <= 2 * ksize - 1 <= 63 and height > 16
+def expect_path(ksize: int, height: int) -> int:
+    """The joint filter (k′ = 2k − 1) takes the bilateral kernel's unrolled
+    path from k′ = 3 to 9, its path 1 from k′ = 11 to 63 on frames over 16
+    rows, else 4 pixels a thread up to k′ = 111 and 1 past it."""
+    k = 2 * ksize - 1
+    if 3 <= k <= 9:
+        return kbf.UNROLLED
+    if 11 <= k <= 63 and height > 16:
+        return kbf.BLOCKED
+    return kbf.FOUR_PIXELS if k <= 111 else kbf.ONE_PIXEL
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nitr", range(4))
-@pytest.mark.parametrize("ksize", [3, 9, 77])
+@pytest.mark.parametrize("ksize", [3, 5, 9, 77])
 @pytest.mark.parametrize("name", sorted(SOURCES))
 @pytest.mark.parametrize("variant", ["cuda", "cpp"])
 def test_single_call_equals_the_stage_loop_and_plain(cuda, variant, name, ksize, nitr):
@@ -334,9 +365,10 @@ def test_single_call_equals_the_stage_loop_and_plain(cuda, variant, name, ksize,
     before = counters()
     out = vt.bilateral_texture_filter(src, ksize, nitr, variant=variant)
     rise = [b - a for a, b in zip(before, counters())]
-    blocked = expect_blocked(ksize, src.shape[0])
-    assert blocked == bool(kbf._launch_plan(ksize - 1, True, src.shape[0])[1])
-    assert rise == [nitr] * 4 + [nitr if blocked else 0, int(nitr > 0)]
+    path = expect_path(ksize, src.shape[0])
+    assert kbf._launch_plan(ksize - 1, True, src.shape[0])[1] == path
+    assert rise == [nitr] * 4 + [nitr if path == kbf.BLOCKED else 0, int(nitr > 0),
+                                 nitr if path == kbf.UNROLLED else 0]
     assert out.is_cuda and out.data_ptr() != src.data_ptr()
     assert torch.equal(out.cpu(), _iterates(name, ksize, variant, "cuda")[nitr])
     assert torch.equal(out.cpu(), _iterates(name, ksize, variant, "torch")[nitr])

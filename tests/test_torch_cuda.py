@@ -143,6 +143,117 @@ def test_blocked_path_counter_rises_once_a_blocked_launch(cuda, joint, shape, ks
     assert plan("vip_bilateral_columns_per_thread", ksize // 2, shape[0]) == 4 * blocked
 
 
+# -- the unrolled path: the circle of k = 3 to 9 unrolled at compile time --
+
+@functools.cache
+def _photo_like(shape):
+    """A frame like a photograph: smooth shading, curved edges, noise of
+    σ 2.5 (the benchmark's photo-like traffic in spirit; made here with
+    numpy)."""
+    h, w = shape
+    rng = np.random.default_rng(h * 7919 + w)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        img[..., c] = (128 + 60 * np.sin(xx / (37.0 + 11 * c)) * np.cos(yy / (23.0 + 5 * c))
+                       + 50 * (np.hypot(yy - h / 2, xx - w / 3) < min(h, w) / 3)
+                       - 40 * (yy + 0.5 * xx > (h + w) / 2))
+    img += rng.normal(0.0, 2.5, img.shape).astype(np.float32)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def frames(kind, shape, device):
+    """(src, guide): noise or a photo-like frame, the guide the frame upside down."""
+    src = _random_image(shape) if kind == "noise" else _photo_like(shape)
+    return (torch.from_numpy(src).to(device),
+            torch.from_numpy(src[::-1].copy()).to(device))
+
+
+UNROLLED_SHAPES = [(1, 1), (3, 5), (17, 33), (61, 97), (512, 512), (2160, 3840)]
+MODES = [(b, r) for b in ("replicate", "reflect101") for r in ("trunc", "rint")]
+
+
+@pytest.mark.parametrize("kind", ["noise", "photo"])
+@pytest.mark.parametrize("shape", UNROLLED_SHAPES)
+@pytest.mark.parametrize("joint", [False, True])
+@pytest.mark.parametrize("ksize", [3, 5, 7, 9])
+def test_unrolled_path_bit_exact_to_plain(cuda, ksize, joint, shape, kind):
+    """Every border and rounding, on frames down to one pixel and with
+    ragged blocks, through the unrolled path, counted once a launch."""
+    src, guide = frames(kind, shape, cuda)
+    assert plan("vip_bilateral_path", ksize // 2, int(joint), shape[0]) == cuda_bf.UNROLLED
+    for border, rounding in MODES:
+        before = (cuda_bf.launches, cuda_bf.unrolled_calls, cuda_bf.blocked_calls)
+        got = cuda_bf.bilateral(src, guide if joint else None, ksize, 10.0, 30.0, border,
+                                rounding)
+        after = (cuda_bf.launches, cuda_bf.unrolled_calls, cuda_bf.blocked_calls)
+        assert [b - a for a, b in zip(before, after)] == [1, 1, 0]
+        want = _bilateral_math(src, guide if joint else src, ksize, 10.0, 30.0, border, rounding)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("joint", [False, True])
+@pytest.mark.parametrize("ksize", [3, 5, 7, 9])
+def test_unrolled_path_on_tables_with_taps_left_out(cuda, ksize, joint):
+    """A table that holds part of the circle (a tiny σs drops the outer
+    taps; a random half): the left-out taps add exactly 0."""
+    r = ksize // 2
+    src, guide = images((61, 97), cuda)
+    _, lut = cuda_bf.device_tables(3, 10.0, 30.0, cuda)
+    full = tap_table(space_kernel(ksize, 10.0))
+    keep = np.random.default_rng(ksize).random(len(full)) < 0.5
+    keep[len(full) // 2] = True
+    for table in (tap_table(space_kernel(ksize, 0.3)), full[keep]):
+        for border, rounding in MODES:
+            got = cuda_bf.joint_bilateral(src, guide if joint else None,
+                                          torch.from_numpy(table).to(cuda), lut, r, border,
+                                          rounding)
+            want = _taps_math(src, guide if joint else src, table, lut, r, border, rounding)
+            assert torch.equal(got, want)
+
+
+# (radius, height, path): the unrolled path's largest radius and the next
+# (path 1 over 16 rows, else 4 pixels 32 apart), its smallest and the one
+# below (k = 1), on frames of 16 rows and more
+@pytest.mark.parametrize("radius,height,path", [(4, 600, 4), (5, 600, 1), (4, 16, 4), (5, 16, 2),
+                                                (4, 17, 4), (5, 17, 1), (1, 17, 4), (0, 17, 2)])
+@pytest.mark.parametrize("joint", [False, True])
+def test_unrolled_path_handover_is_bit_exact(cuda, joint, radius, height, path):
+    src, guide = images((height, 45), cuda)
+    assert plan("vip_bilateral_path", radius, int(joint), height) == path
+    table = tap_table(space_kernel(2 * radius + 1, 10.0))
+    _, lut = cuda_bf.device_tables(3, 10.0, 30.0, cuda)
+    for border, rounding in [("replicate", "trunc"), ("reflect101", "rint")]:
+        before = (cuda_bf.unrolled_calls, cuda_bf.blocked_calls)
+        got = cuda_bf.joint_bilateral(src, guide if joint else None,
+                                      torch.from_numpy(table).to(cuda), lut, radius,
+                                      border, rounding)
+        assert (cuda_bf.unrolled_calls - before[0], cuda_bf.blocked_calls - before[1]) == \
+            (int(path == cuda_bf.UNROLLED), int(path == cuda_bf.BLOCKED))
+        want = _taps_math(src, guide if joint else src, table, lut, radius, border, rounding)
+        assert torch.equal(got, want)
+
+
+# (joint, shape, ksize, unrolled): the benchmark's cells
+@pytest.mark.parametrize("joint,shape,ksize,unrolled", [(False, (2160, 3840), 9, True),
+                                                        (False, (512, 512), 9, True),
+                                                        (True, (600, 900), 17, False),
+                                                        (True, (2160, 3840), 17, False)])
+def test_unrolled_counter_rises_once_an_unrolled_launch(cuda, joint, shape, ksize, unrolled):
+    """The k=9 BF takes the unrolled path at every call through the op, the
+    BTF's k′=17 joint filter never; the counter is not a launch counter."""
+    src, guide = images(shape, cuda)
+    launches, calls = cuda_bf.launches, cuda_bf.unrolled_calls
+    for _ in range(3):
+        if joint:
+            vt.joint_bilateral_filter(src, guide, ksize, 8.0, 3.0 ** 0.5)
+        else:
+            vt.bilateral_filter(src, ksize, 10.0, 30.0)
+    assert cuda_bf.launches - launches == 3
+    assert cuda_bf.unrolled_calls - calls == (3 if unrolled else 0)
+
+
 def test_auto_on_a_cuda_tensor_launches_the_kernel(cuda):
     src, guide = images((50, 50), cuda)
     before = cuda_bf.launches

@@ -11,8 +11,25 @@
 // covers every k, and the host side of ops/pallas/_stencil.py (tiling,
 // padding, planar relayout) becomes this kernel's own halo load.
 //
-// Three paths, the first that is taken and fits one block's shared memory:
+// Four paths, the first that is taken and fits one block's shared memory:
 //
+// 4. The unrolled circle (k from 3 to 9, radius 1 to 4, every frame;
+//    csrc/bilateral_circle.cuh, compiled a radius a file in
+//    csrc/bilateral_circle_r<R>.cu), taken first: the radius is a
+//    template parameter, so the circle's taps are a list the compiler
+//    knows and the tap loop is straight code, with every tile offset an
+//    immediate and no tap table walked.  A thread holds 4 adjacent output
+//    columns of 2 adjacent rows (1 row where 2 would give the card's SMs
+//    fewer than 2 blocks each, as at 512 x 512); a warp is 32 threads side
+//    by side, a block 8 warps stacked.  The halo tile is one
+//    packed word a pixel (or guide and source side by side) with a pad word
+//    after every 4, so the 32 lanes, 4 columns apart, read 32 distinct banks.
+//    A thread walks its windows' source rows top to bottom and each row's
+//    words left to right, loads and converts each word once and adds it to
+//    every output whose circle holds it, so each output still adds its taps
+//    in (ky, kx) order.  The weights are a dense (2r + 1)^2 array the block
+//    scatters from the tap table, 0 where it has none; such a tap adds
+//    exactly +0.
 // 1. Four columns (k from 11 to 63, on frames more than 16 rows high): a
 //    thread computes 4 adjacent output pixels of one row; a warp is 32 rows
 //    of 4 columns, a lane a row, and a block 8 warps side by side, 32 x 32.
@@ -81,94 +98,38 @@
 // Path 2 issues about 18: the pair also loads its tile word and turns 3
 // channel bytes into floats (6 instructions), and each of a thread's 4
 // pixels pays that again for the same word, since its pixels lie 32
-// columns apart.  Path 1 converts each word once, at staging, and loads it
-// once for the outputs that use it: a word and its weights (2 loads) serve
-// 2.6 pairs at k=9, 3.2 at k=17 (the union of 4 shifted circles), and the
-// loop over the words that serve all 4 outputs issues 11.75 a pair.  What it
-// adds is fixed work a block: the tap table turned into weights and runs,
-// 16-byte staging, and the output through shared memory, about 0.035 ms a
-// 4K frame more than path 2's.  So below k = 11 path 2 is as fast (k = 9)
-// or faster (k <= 7), and path 1 is taken from k = 11 (measured on the
-// card; PERF.md §6).  Blocking along y (4 rows of one column a thread)
-// costs more than it saves: there the window's edges cut each source row
-// into runs serving different sets of outputs, varying from row to row,
-// and dispatching each run takes ~40 issue slots.  The LUT gather's
-// bank conflicts do not bind on photographs; on noise, where neighbours'
-// distances differ, they make path 1 no faster than path 2 at k = 17.  The
-// first version spent ~30 instructions a tap and pixel: a 16-byte tap load
-// per thread, an I2F per channel (a quarter-rate conversion) and loop
-// overhead for one pixel.
-
-#include <cuda_runtime.h>
+// columns apart.  Path 4 issues 12.66 a pair at k=9 (2 x 4 outputs a
+// thread; 13.88 with 1 x 4): a word and its conversion serve 4.45 pairs,
+// the weights stay in registers, and no loop or dispatch is left (measured
+// on the card; PERF.md §6).  Path 1 converts each word once, at staging,
+// and loads it once for the outputs that use it: a word and its weights (2
+// loads) serve 2.6 pairs at k=9, 3.2 at k=17 (the union of 4 shifted
+// circles), and the loop over the words that serve all 4 outputs issues
+// 11.75 a pair.  What it adds is fixed work a block: the tap table turned
+// into weights and runs, 16-byte staging, and the output through shared
+// memory, about 0.035 ms a 4K frame more than path 2's.  So below k = 11
+// path 2 was as fast (k = 9) or faster (k <= 7), and path 1 is taken from
+// k = 11 (measured on the card; PERF.md §6); path 4 now takes k <= 9.  Blocking along y (4 rows
+// of one column a thread) at run time costs more than it saves: there the
+// window's edges cut each source row into runs serving different sets of
+// outputs, varying from row to row, and dispatching each run takes ~40
+// issue slots; path 4 blocks along y at no cost, its runs unrolled.  The
+// LUT gather's bank conflicts do not bind on photographs; on noise, where
+// neighbours' distances differ, they make path 1 no faster than path 2 at
+// k = 17.  The first version spent ~30 instructions a tap and pixel: a
+// 16-byte tap load per thread, an I2F per channel (a quarter-rate
+// conversion) and loop overhead for one pixel.
 
 #include <cstdint>
 #include <utility>
 
+#include "bilateral_circle.cuh"
+#include "bilateral_common.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;
-constexpr int kRowsPerBlock = 8;
-constexpr int kThreads = kLanes * kRowsPerBlock;
-constexpr int kLutSize = 256 * 3;
 constexpr int kTapChunk = 256;           // taps staged in shared memory at a time
 constexpr long long kMaxSmem = 232448;   // dynamic shared memory one block can use (227 KB)
-
-constexpr int kBorderReplicate = 0;
-constexpr int kRoundingRint = 1;
-
-// Source index of padded index i on an n-element axis.
-__device__ __forceinline__ int fold(int i, int n, int border) {
-  if (border == kBorderReplicate) return min(max(i, 0), n - 1);
-  if (n == 1) return 0;
-  const int period = 2 * n - 2;
-  int j = i % period;
-  if (j < 0) j += period;
-  return j >= n ? period - j : j;
-}
-
-__device__ __forceinline__ uint32_t load_pixel(const uint8_t* p) {
-  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
-         (static_cast<uint32_t>(p[2]) << 16);
-}
-
-// A halo tile word: the guide pixel, and for the joint filter the source
-// pixel after it.
-template <bool kJoint>
-struct TileWord {
-  using type = uint32_t;
-};
-template <>
-struct TileWord<true> {
-  using type = uint2;
-};
-
-__device__ __forceinline__ uint32_t guide_of(uint32_t w) { return w; }
-__device__ __forceinline__ uint32_t source_of(uint32_t w) { return w; }
-__device__ __forceinline__ uint32_t guide_of(uint2 w) { return w.x; }
-__device__ __forceinline__ uint32_t source_of(uint2 w) { return w.y; }
-
-template <bool kJoint>
-__device__ __forceinline__ typename TileWord<kJoint>::type tile_word(const uint8_t* guide,
-                                                                     const uint8_t* src) {
-  if constexpr (kJoint) {
-    return make_uint2(load_pixel(guide), load_pixel(src));
-  } else {
-    return load_pixel(guide);
-  }
-}
-
-// Byte c of a packed pixel as an exact float: 2^23 + b, less 2^23.
-template <int kChannel>
-__device__ __forceinline__ float channel(uint32_t word) {
-  const uint32_t biased = __byte_perm(word, 0x4B000000u, 0x7540 + kChannel);
-  return __fsub_rn(__uint_as_float(biased), 8388608.0f);
-}
-
-__device__ __forceinline__ uint8_t store_u8(float sum, float sumk, int rounding) {
-  const float v = __fdiv_rn(sum, sumk);
-  const float r = rounding == kRoundingRint ? rintf(v) : floorf(__fadd_rn(v, 0.5f));
-  return static_cast<uint8_t>(static_cast<int>(r));
-}
 
 __host__ __device__ constexpr long long tile_words(int radius, int pixels) {
   return static_cast<long long>(kLanes * pixels + 2 * radius) * (kRowsPerBlock + 2 * radius);
@@ -392,7 +353,7 @@ bilateral_band_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict
 constexpr int kCols = 4;        // output columns a thread
 constexpr int kBlockCols = 32;  // a block: 8 warps side by side, 4 columns each ...
 constexpr int kBlockRows = 32;  // ... of 32 rows, a lane a row
-constexpr int kMinColsRadius = 5;  // below k = 11 path 2 is as fast or faster (PERF.md §6)
+constexpr int kMinColsRadius = 5;  // below k = 11 path 2 was as fast or faster (PERF.md §6)
 constexpr int kOutWords = kBlockCols * 3 / 4;  // u32 of a block's output row
 constexpr int kOutStride = kOutWords + 1;      // padded so the 32 lanes write 32 banks
 
@@ -615,12 +576,6 @@ bilateral_cols_kernel(const uint8_t* __restrict__ src, const uint8_t* __restrict
   }
 }
 
-int set_smem(const void* kernel, long long smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-}
-
 template <bool kJoint>
 int launch_cols(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
                 const int4* taps, int n_taps, const float* lut, int radius, int border,
@@ -635,10 +590,32 @@ int launch_cols(const uint8_t* src, const uint8_t* guide, uint8_t* out, int heig
   return static_cast<int>(cudaGetLastError());
 }
 
+// The path a launch takes, the first that is taken: 4 the unrolled circle
+// (radius 1 to 4), 1 four adjacent columns a thread, 2 four pixels 32
+// apart, 3 one pixel a thread (in bands where its tile does not fit).
+int path_of(int radius, bool joint, int height) {
+  if (radius >= 1 && radius <= kCircleMaxRadius) return 4;
+  if (cols_per_thread(radius, height) != 0) return 1;
+  return pixels_per_thread(radius, joint) == 4 ? 2 : 3;
+}
+
 template <bool kJoint>
 int launch(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, int width,
            const int4* taps, int n_taps, const float* lut, int radius, int border,
            int rounding, cudaStream_t stream) {
+  const vip_bilateral::Launch a{kJoint, src,    guide, out,    height,   width,
+                                taps,   n_taps, lut,   border, rounding, stream};
+  switch (radius) {
+    case 1:
+      return vip_bilateral::launch_circle_r1(a);
+    case 2:
+      return vip_bilateral::launch_circle_r2(a);
+    case 3:
+      return vip_bilateral::launch_circle_r3(a);
+    case 4:
+      return vip_bilateral::launch_circle_r4(a);
+  }
+  static_assert(kCircleMaxRadius == 4, "one file a radius of path 4");
   if (cols_per_thread(radius, height) != 0) {
     return launch_cols<kJoint>(src, guide, out, height, width, taps, n_taps, lut, radius, border,
                                rounding, stream);
@@ -670,12 +647,26 @@ int launch(const uint8_t* src, const uint8_t* guide, uint8_t* out, int height, i
 
 extern "C" {
 
-// Dynamic shared memory of one block at this radius and height: path 1's,
-// the 4-pixel tile's, or one band of the 1-pixel path's tile.
+// Dynamic shared memory of one block at this radius and height: path 4's
+// (of its 2-row block, the larger), path 1's, the 4-pixel tile's, or one
+// band of the 1-pixel path's tile.
 long long vip_bilateral_smem_bytes(int radius, int joint, int height) {
-  if (cols_per_thread(radius, height) != 0) return cols_smem_bytes(radius);
-  if (pixels_per_thread(radius, joint != 0) == 4) return smem_bytes(radius, joint != 0, 4);
+  switch (path_of(radius, joint != 0, height)) {
+    case 4:
+      return circle_smem_bytes(radius, joint != 0, kCircleRows);
+    case 1:
+      return cols_smem_bytes(radius);
+    case 2:
+      return smem_bytes(radius, joint != 0, 4);
+  }
   return band_plan(radius, joint != 0).smem;
+}
+
+// The path a launch at this radius and height takes: 4 (the unrolled
+// circle), 1 (four adjacent columns a thread), 2 (four pixels 32 apart) or
+// 3 (one pixel a thread, in bands where its tile does not fit).
+int vip_bilateral_path(int radius, int joint, int height) {
+  return path_of(radius, joint != 0, height);
 }
 
 // Output columns each thread computes on path 1 at this radius and height
@@ -684,8 +675,8 @@ int vip_bilateral_columns_per_thread(int radius, int height) {
   return cols_per_thread(radius, height);
 }
 
-// Pixels each thread computes where path 1 is not taken: 4, or 1 where a
-// 4-pixel halo tile would not fit in shared memory.
+// Pixels each thread computes on paths 2 and 3: 4, or 1 where a 4-pixel
+// halo tile would not fit in shared memory.
 int vip_bilateral_pixels_per_thread(int radius, int joint) {
   return pixels_per_thread(radius, joint != 0);
 }
@@ -699,7 +690,10 @@ int vip_bilateral_band(int radius, int joint, int which) {
 
 // guide == nullptr: the self filter.  taps: n_taps >= 1 int4 (dy, dx, f32
 // bits of ws, 0) in (ky, kx) order, each (dy, dx) once, dy/dx in [0,
-// 2*radius].  lut: 768 f32.
+// 2*radius]; at radius 1 to 4 (path 4) every tap inside the inscribed
+// circle, (dy - r)^2 + (dx - r)^2 <= r^2, as core.luts.tap_table gives
+// them (path 4 adds the circle's taps, with weight 0 where the table has
+// none, and no other).  lut: 768 finite f32 >= 0.
 // Returns the launch's cudaError_t (0 on success).
 int vip_bilateral_u8(const void* src, const void* guide, void* out, int height, int width,
                      const void* taps, int n_taps, const void* lut, int radius, int border,

@@ -1,0 +1,7 @@
+// Path 4 of the bilateral kernel at radius 3 (k = 7):
+// csrc/bilateral_circle.cuh's instantiations, self and joint, 1 and 2 rows a
+// thread, in a file of their own.
+
+#include "bilateral_circle.cuh"
+
+int vip_bilateral::launch_circle_r3(const Launch& a) { return launch_circle<3>(a); }

@@ -104,9 +104,12 @@ class BilateralFilter(_TableFilter):
                           device="cuda") -> "BilateralFilter":
         """A filter from host-built tables: the (k, k) f32 space kernel and the
         (768,) f32 range table, e.g. those of the JAX package's
-        ``core.luts.pre_compute_kernels``.  They are the filter's whole state."""
+        ``core.luts.pre_compute_kernels``.  They are the filter's whole state.
+        At k = 3 to 9 the space kernel is 0 outside its inscribed circle, as
+        that function makes it."""
         space, table = _check_tables(space_kernel, color_table)
         module = cls(height, width, space.shape[0], impl=impl, device=device)
+        cuda_bilateral.check_circle(space)
         module._set_tables(space, table)
         return module
 
@@ -186,12 +189,15 @@ class BilateralTextureFilter(_TableFilter):
         """A filter from the host-built tables of its joint bilateral stage: the
         (2k−1, 2k−1) f32 space kernel and the (768,) f32 range table, e.g. the
         JAX package's ``core.luts.pre_compute_kernels(2k−1, k−1, √3)``.  The
-        window k follows from the space kernel's size."""
+        window k follows from the space kernel's size.  At k = 2 to 5 the
+        space kernel is 0 outside its inscribed circle, as that function
+        makes it."""
         space, table = _check_tables(space_kernel, color_table)
         if (space.shape[0] + 1) % 4 != 2:
             raise ValueError(f"space_kernel must be (2k-1, 2k-1) for an odd window k, "
                              f"got shape {space.shape}")
         module = cls(height, width, (space.shape[0] + 1) // 2, nitr, impl, device)
+        cuda_bilateral.check_circle(space)
         module._set_tables(space, table)
         return module
 

@@ -4,8 +4,8 @@ and the launch protocol every kernel wrapper shares.
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into one shared library with a plain C
 interface, at first use, into ``_build/`` beside ``csrc/``.  The library's
-name carries a hash of the sources and flags, so an edited source is never
-served by a stale build.  ``ptxas``'s report (registers, spills, shared
+name carries a hash of the sources, their headers (``csrc/*.cuh``) and the
+flags, so an edited source is never served by a stale build.  ``ptxas``'s report (registers, spills, shared
 memory of each kernel) is kept beside the library.  Nothing here falls back:
 a missing ``nvcc`` or a failed build raises.
 
@@ -63,8 +63,10 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every source
+    and header (``*.cuh``) in csrc/."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted((*sources(), *CSRC_DIR.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvip_kernels_{digest.hexdigest()[:16]}.so"
@@ -125,6 +127,7 @@ SIGNATURES = {
     "vip_bilateral_columns_per_thread": (_I, [_I, _I]),
     "vip_bilateral_pixels_per_thread": (_I, [_I, _I]),
     "vip_bilateral_band": (_I, [_I, _I, _I]),
+    "vip_bilateral_path": (_I, [_I, _I, _I]),
     "vip_bilateral_u8": (_I, [_P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P]),
     "vip_cuda_error_string": (ctypes.c_char_p, [_I]),
     # bilateral_texture.cu
@@ -182,8 +185,8 @@ def load_library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1024)
 def plan(entry: str, *args: int) -> int:
     """What the library's host-side planner ``entry`` (``*_smem_bytes``,
-    ``*_band``, ``vip_bilateral_columns_per_thread``, the Wexler tiles and
-    cluster) answers for ``args``: a function of its arguments alone, so
+    ``*_band``, the bilateral kernel's path and columns, the Wexler tiles
+    and cluster) answers for ``args``: a function of its arguments alone, so
     asked once for each."""
     return getattr(load_library(), entry)(*args)
 

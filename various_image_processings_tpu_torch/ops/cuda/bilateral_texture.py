@@ -13,7 +13,8 @@ run can show its main path went through the kernels; a call is the span
 ``cuda_wrappers.<kernel>`` around ``enqueue.<kernel>``, kernel ``blur_rtv``
 or ``guide``.  ``texture_filter`` is the span ``cuda_wrappers.btf`` around
 ``enqueue.btf``; it raises each launch counter of the kernels it enqueued
-(``gradient.launches``, ``bilateral.launches`` and ``blocked_calls`` too),
+(``gradient.launches``, ``bilateral.launches``, and ``blocked_calls`` or
+``unrolled_calls`` where the joint filter takes that path),
 and ``single_calls`` by one.
 """
 
@@ -107,16 +108,16 @@ def workspace_layout(height: int, width: int) -> tuple[tuple[int, ...], int]:
 
 
 @functools.lru_cache(maxsize=256)
-def _texture_plan(ksize: int, height: int) -> tuple[bool, float]:
-    """(whether the joint filter takes the bilateral kernel's blocked path,
-    the guide's sigma_alpha) of a BTF of window ``ksize`` at this frame
-    height, once the blur, guide and joint filter plans are checked to fit
-    in shared memory."""
+def _texture_plan(ksize: int, height: int) -> tuple[int, float]:
+    """(the bilateral kernel's path for the joint filter, the guide's
+    sigma_alpha) of a BTF of window ``ksize`` at this frame height, once the
+    blur, guide and joint filter plans are checked to fit in shared
+    memory."""
     check_smem("blur_rtv", ksize, plan("vip_blur_rtv_smem_bytes", ksize // 2))
     check_smem("guide", ksize, plan("vip_guide_smem_bytes", ksize // 2))
-    smem, blocked = cuda_bilateral._launch_plan(ksize - 1, True, height)
+    smem, path = cuda_bilateral._launch_plan(ksize - 1, True, height)
     check_smem("bilateral", 2 * ksize - 1, smem)
-    return blocked != 0, float(sigma_alpha(ksize))
+    return path, float(sigma_alpha(ksize))
 
 
 @kernel_wrapper("btf", None)
@@ -140,7 +141,7 @@ def texture_filter(src: torch.Tensor, ksize: int, nitr: int, taps: torch.Tensor,
                          f"one of {tuple(cuda_bilateral.ROUNDINGS)}, got {border!r}, "
                          f"{rounding!r}")
     height, width, _ = src.shape
-    blocked, alpha = _texture_plan(ksize, height)
+    path, alpha = _texture_plan(ksize, height)
     (mag, blur, rtv, gd, img), size = workspace_layout(height, width)
     out = torch.empty_like(src)
     workspace = torch.empty(size, dtype=torch.uint8, device=src.device)
@@ -150,15 +151,15 @@ def texture_filter(src: torch.Tensor, ksize: int, nitr: int, taps: torch.Tensor,
             lut.data_ptr(), cuda_bilateral.BORDERS[border], cuda_bilateral.ROUNDINGS[rounding],
             float(EPSILON), alpha, stream_of(src), ctypes.c_int())
     with torch.cuda.device(src.device):
-        _enqueue_texture_filter(args, blocked)
+        _enqueue_texture_filter(args, path)
     return out
 
 
-def _enqueue_texture_filter(args: tuple, blocked: bool) -> None:
+def _enqueue_texture_filter(args: tuple, path: int) -> None:
     """``vip_btf_u8(*args)``, the span ``enqueue.btf``; ``args[-1]`` is the
     ctypes int it writes the count of kernels enqueued to.  The launch
-    counters rise by the kernels that went in, ``blocked_calls`` too where
-    the joint filter is ``blocked``; a failed launch raises, naming its
+    counters rise by the kernels that went in, and the counter of the joint
+    filter's ``path`` by its launches; a failed launch raises, naming its
     kernel."""
     global single_calls, blur_rtv_launches, guide_launches
     s = SPANS.open("enqueue.btf") if SPANS.on else -1
@@ -173,7 +174,6 @@ def _enqueue_texture_filter(args: tuple, blocked: bool) -> None:
     blur_rtv_launches += (n + 2) // 4
     guide_launches += (n + 1) // 4
     cuda_bilateral.launches += n // 4
-    if blocked:
-        cuda_bilateral.blocked_calls += n // 4
+    cuda_bilateral.count_path(path, n // 4)
     if err != 0:
         raise launch_error(KERNELS[n % 4], err)
