@@ -827,13 +827,12 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         phase(f"SLIC {h}x{w} S={s_size} {iters} it m={m:g} {name}: card labels (op, module) "
               f"bit-equal to the CPU path {equal}; CLI mean PNG equal "
               f"{np.array_equal(mean_png, want_png)}; drift {model.last_max_drift_cells} "
-              f"(CPU {cpu_model.last_max_drift_cells}, must be <= 2); connected "
+              f"(CPU {cpu_model.last_max_drift_cells}); connected "
               f"{connected(got_op)}; op: {op_iters} iterations, {op_syncs} host syncs; k-means "
               f"kernel launches (op, module, CLI) {counts}")
         if (not equal or not np.array_equal(mean_png, want_png) or not connected(got_op)
                 or op_syncs != 1 or set(counts.values()) != {3 * iters}
-                or model.last_max_drift_cells != cpu_model.last_max_drift_cells
-                or model.last_max_drift_cells > 2.0):
+                or model.last_max_drift_cells != cpu_model.last_max_drift_cells):
             raise SystemExit(f"SLIC {name} at {h}x{w} wrong")
         results[f"512_{name}"] = t = measure(model, img)
         show(f"{h}x{w} {name}", t)
@@ -851,10 +850,9 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         first_ms = (time.perf_counter() - t0) * 1e3
         counts = read_kernels()
         n = int(got.max()) + 1
-        ok = (connected(got) and model.last_max_drift_cells <= 2.0 and 1 <= n <= h * w
-              and set(counts.values()) == {iters})
+        ok = connected(got) and 1 <= n <= h * w and set(counts.values()) == {iters}
         phase(f"SLIC {h}x{w} {name}: {n} superpixels, connected {connected(got)}, drift "
-              f"{model.last_max_drift_cells} (must be <= 2); k-means kernel launches "
+              f"{model.last_max_drift_cells}; k-means kernel launches "
               f"(module) {counts}")
         if not ok:
             raise SystemExit(f"SLIC {name} at 4K failed its invariants")
@@ -1135,7 +1133,8 @@ def slic_kernel_phases(dev) -> dict:
                 centers_t[:2, 0, 0] = -3.0 * s
             scanned, on_grid = scan_pairs(centers, h, w, s)
             before = dists.clone()
-            labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
+            labels_t, dists_t, changed_t, sums_t = grid.association(
+                centers_t, labels_t, dists_t, max(2, 1 + int(drift)))  # the kernel's reach
             kslic.associate(lab[None], *batch[:4], batch[5], it, s, space_norm, color_norm,
                             metric)
             for a, b in ((labels, grid.from_blocks(labels_t)), (dists, grid.from_blocks(dists_t)),

@@ -1427,7 +1427,10 @@ def each_kernel_against_its_plain_piece(cuda, displaced, metric):
         if it == displaced:
             centers[0, :2] = -3.0 * s
             centers_t[:2, 0, 0] = -3.0 * s
-        labels_t, dists_t, changed_t, sums_t = grid.association(centers_t, labels_t, dists_t)
+        # the kernel widens its neighbourhood with the drift so far (the
+        # displaced center's three cells included)
+        labels_t, dists_t, changed_t, sums_t = grid.association(
+            centers_t, labels_t, dists_t, max(2, 1 + int(drift)))
         kslic.associate(lab[None], *batch[:4], batch[5], it, s, grid.space_norm,
                         grid.color_norm, metric)
         assert torch.equal(labels, grid.from_blocks(labels_t))

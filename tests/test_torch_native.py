@@ -148,3 +148,41 @@ def test_bad_inputs_raise():
         native.slic_connectivity(labels, lab[:, :4], 1)
     with pytest.raises(ValueError, match="component ids"):
         native.component_sums(labels, lab, 2)
+
+
+class FakeLibc:
+    def __init__(self):
+        self.calls = []
+
+    def mallopt(self, param, value):
+        self.calls.append((param, value))
+        return 1
+
+
+def test_the_slic_pass_keeps_freed_memory_and_the_loader_does_not(monkeypatch):
+    """SLIC's connectivity pass owns glibc's allocator policy: its first call
+    tells glibc to serve blocks of up to 1 GiB from the heap and to keep up
+    to that much freed, and later calls tell it nothing more; loading the
+    runtime tells it nothing.  A C library without ``mallopt`` is left as
+    it is."""
+    import ctypes
+
+    libc, real = FakeLibc(), ctypes.CDLL
+    monkeypatch.setattr(ctypes, "CDLL", lambda name, *a, **k: libc if name is None
+                        else real(name, *a, **k))
+    labels = np.zeros((8, 8), np.int32)
+    lab = np.zeros((8, 8, 3), np.uint8)
+    native.load_library.cache_clear()
+    slic._keep_freed_memory.cache_clear()
+    try:
+        native.load_library()
+        assert libc.calls == []
+        for impl in ("native", "numpy", "native"):
+            slic.enforce_connectivity(labels, lab, 4, impl=impl)
+        assert libc.calls == [(-3, 1 << 30), (-1, 1 << 30)]
+        monkeypatch.setattr(ctypes, "CDLL", lambda name, *a, **k: object())
+        slic._keep_freed_memory.cache_clear()
+        slic._keep_freed_memory()  # no mallopt: nothing to do, no error
+    finally:
+        native.load_library.cache_clear()
+        slic._keep_freed_memory.cache_clear()

@@ -202,8 +202,9 @@ def test_slic_batched_matches_per_image():
 
 
 def test_slic_batched_warns_once_past_two_cells(monkeypatch):
-    # every sub-batch's k-means reports a drift of 3 cells an image: one
-    # warning for the batch
+    # every sub-batch's k-means reports a drift of 3 cells an image: the
+    # JAX function warns once for the batch (its 5x5 gather misses windows
+    # there); the port's association widens with the drift, so nothing warns
     real = tbatch.mslic.slic_device_batched
 
     def drifting(*args):
@@ -217,7 +218,7 @@ def test_slic_batched_warns_once_past_two_cells(monkeypatch):
         tpar.superpixel_slic_batched(imgs, 8, 2, mesh=cpu_mesh(batch=2))
     drift = [w for w in caught if issubclass(w.category, RuntimeWarning)
              and "drift" in str(w.message)]
-    assert len(drift) == 1
+    assert len(drift) == 0
     with pytest.raises(ValueError, match="divisible"):
         tpar.superpixel_slic_batched(imgs, 8, 2, mesh=cpu_mesh(batch=4))
     with pytest.raises(ValueError, match=">= 2"):

@@ -23,7 +23,10 @@ own state row and flags.  Here, with no card:
 - ``parallel.superpixel_slic_batched`` on CPU meshes of 1, 2 and 4 batch
   rows gives the labels of per-image ``superpixel_slic`` and of the JAX
   package's ``superpixel_slic_batched`` (tolerance: equal labels), on the
-  mixed-convergence batch and with ``ciede2000``.
+  mixed-convergence batch and with ``ciede2000``; against the JAX package
+  with the association held at its 5×5 gather (``gather_5x5``: the batch's
+  centers drift three cells, past which the port's windows are the
+  reference's).
 
 The JAX SLIC compiles once a (batch shape, metric): this file uses two,
 (4, 40, 48) euclidean and (2, 40, 48) ciede2000, and caches their results."""
@@ -45,7 +48,7 @@ from various_image_processings_tpu_torch.core.pad import cdiv  # noqa: E402
 from various_image_processings_tpu_torch.models import slic as P  # noqa: E402
 from various_image_processings_tpu_torch.ops.cuda import slic as kslic  # noqa: E402
 from test_torch_slic_kernel import (  # noqa: E402
-    BIG_KEY, F32, OFFSETS, lab_image, twin_color, twin_run)
+    BIG_KEY, F32, gather_5x5, lab_image, offsets, twin_color, twin_run)
 from test_torch_slic_delta_e import in_vector_loop  # noqa: E402, F401
 
 CPU = torch.device("cpu")
@@ -71,12 +74,13 @@ def lab_batch(kinds, h, w):
 # ---------------------------------------------------------------------------
 
 def twin_batch_association(lab, centers, labels, dists, s, space_norm, color_norm, active,
-                           metric="euclidean"):
+                           metric="euclidean", reach=None):
     """The association kernel over a batch: lab (B, H, W, 3); centers
     (B * N, 5), labels and dists (B, H, W) flat by image; a pixel of image b
-    takes its candidates among centers b * N + c; an image whose ``active``
-    flag is clear is left as it was.  → (labels, dists, changed (B,) bool,
-    sums (B * N, 6) int64)."""
+    takes its candidates among centers b * N + c, from its cell's (2
+    reach[b] + 1)² neighbourhood (``reach`` (B,) ints, 2 each by default);
+    an image whose ``active`` flag is clear is left as it was.  → (labels,
+    dists, changed (B,) bool, sums (B * N, 6) int64)."""
     b, h, w = labels.shape
     pc, pr = cdiv(h, s), cdiv(w, s)
     n = pc * pr
@@ -89,9 +93,11 @@ def twin_batch_association(lab, centers, labels, dists, s, space_norm, color_nor
     feats = [xs, ys, *(lab[..., k].astype(np.int64) for k in range(3)), np.ones_like(xs)]
     run_l, run_d = labels.copy(), dists.copy()
     sums = np.zeros((b * n, 6), np.int64)
-    for dy, dx in OFFSETS:
+    reach = np.full(b, 2) if reach is None else np.asarray(reach)
+    for dy, dx in offsets(int(reach.max())):
         ny, nx = gy + dy, gx + dx
-        on_grid = (ny >= 0) & (ny < pc) & (nx >= 0) & (nx < pr) & active[image]
+        on_grid = ((ny >= 0) & (ny < pc) & (nx >= 0) & (nx < pr) & active[image]
+                   & (max(abs(dy), abs(dx)) <= reach[image]))
         cid = np.where(on_grid, ny * pr + nx, 0)
         gid = image * n + cid  # the kernels' 64-bit offset of the image's centers
         c = centers[gid]
@@ -164,15 +170,17 @@ def twin_batch_state(labs, s, num_iteration):
 
 def twin_batch_run(labs, s, num_iteration, color_scale, metric="euclidean"):
     """Whole batched runs as the kernels run them: every iteration's three
-    steps for the batch, each image's active flag read from its state row
-    → (labels (B, H, W), centers (B, N, 5), dists (B, H, W), state)."""
+    steps for the batch, each image's active flag and association reach
+    (max(2, 1 + its drift so far)) read from its state rows → (labels (B,
+    H, W), centers (B, N, 5), dists (B, H, W), state)."""
     b, h, w = labs.shape[:3]
     space_norm, color_norm = P._norms(s, color_scale)
     centers, labels, dists, sums, keys, state = twin_batch_state(labs, s, num_iteration)
     for it in range(num_iteration):
         active = state[:, 1 + it, 0] == 1
         labels, dists, changed, new_sums = twin_batch_association(
-            labs, centers, labels, dists, s, space_norm, color_norm, active, metric)
+            labs, centers, labels, dists, s, space_norm, color_norm, active, metric,
+            np.maximum(2, 1 + state[:, 0, 0]))
         sums += new_sums
         state[active, 1 + it, 1] = changed[active]
         keys = np.minimum(keys, twin_batch_keys(labs, centers, labels, sums, active, metric))
@@ -425,9 +433,13 @@ def cpu_mesh(batch):
 
 
 def test_mixed_batch_stops_at_different_iterations():
+    """With the JAX package's gather, as the comparison below runs it
+    (with the port's windows its constant image drifts on to the last
+    iteration; ``BATCHES``' mixed batch stops early either way)."""
     h, w, s, iters, m = JAX_SHAPE
     labs = bgr2lab_u8_exact(torch.from_numpy(bgr_batch(MIXED)))
-    ran = [run[4] for run in per_image_runs(labs.numpy(), s, iters, m)]
+    with gather_5x5():
+        ran = [run[4] for run in per_image_runs(labs.numpy(), s, iters, m)]
     assert min(ran) < iters and max(ran) == iters, ran
 
 
@@ -442,6 +454,10 @@ def test_superpixel_slic_batched_equals_jax_and_single_calls(rows):
     assert P.host_syncs >= rows
     for i in range(len(MIXED)):
         assert torch.equal(out[i], vt.superpixel_slic(imgs[i], s, iters, m, device="cpu"))
+    with gather_5x5():
+        out = tpar.superpixel_slic_batched(imgs, s, iters, m, mesh=cpu_mesh(rows))
+        for i in range(len(MIXED)):
+            assert torch.equal(out[i], vt.superpixel_slic(imgs[i], s, iters, m, device="cpu"))
     np.testing.assert_array_equal(out.numpy(), jax_labels(MIXED, "euclidean"))
 
 

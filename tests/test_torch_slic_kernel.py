@@ -1,8 +1,9 @@
 """The SLIC k-means kernels' formulation (csrc/slic_kmeans.cu) on the CPU.
 
 The kernels run only on the card.  Here a NumPy twin of one iteration,
-written pixel-major as the kernels are (per pixel, the candidates in
-ascending id with in-scan sums; then the means and each pixel's snap key;
+written pixel-major as the kernels are (per pixel, the candidates of its
+cell's (2R + 1)² neighbourhood in ascending id with in-scan sums, R =
+max(2, 1 + the drift so far); then the means and each pixel's snap key;
 then one update a center, with the drift), is held bit-equal to the plain
 version (``models/slic.py::_Grid``'s ``association``, ``center_means``,
 ``snap_keys``, ``move_centers`` and ``cell_drift``) and, over whole runs with
@@ -14,6 +15,9 @@ them to the plain pieces with the ΔE metrics.  Then the routing:
 ``impl="cuda"`` on a CPU tensor raises (with every metric), ``"auto"`` on
 the CPU takes the plain version, and ``_download`` counts the iterations a
 kernel-route call leaves on the device.  No JAX here."""
+
+import contextlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -29,7 +33,28 @@ from various_image_processings_tpu_torch.ops.cuda import slic as kslic  # noqa: 
 
 F32 = np.float32
 BIG_KEY = np.iinfo(np.int64).max
-OFFSETS = [(dy, dx) for dy in (-2, -1, 0, 1, 2) for dx in (-2, -1, 0, 1, 2)]
+
+
+def offsets(reach=2):
+    """The (dy, dx) of a (2·reach + 1)² cell neighbourhood, in ascending
+    center id: the 5×5 one at reach 2."""
+    return [(dy, dx) for dy in range(-reach, reach + 1) for dx in range(-reach, reach + 1)]
+
+
+@contextlib.contextmanager
+def gather_5x5():
+    """The plain route with its association held at the 5×5 neighbourhood
+    whatever the drift: the JAX package's gather.  That is the port's one
+    departure from the JAX package (the JAX package's windows past a drift
+    of one cell, ROADMAP E, F4), so with it held off the rest of the port is
+    still held to the JAX package on frames that drift two cells or more."""
+    real = P._Grid.association
+
+    def association(self, centers, labels, dists, reach=2):
+        return real(self, centers, labels, dists, 2)
+
+    with mock.patch.object(P._Grid, "association", association):
+        yield
 
 
 def twin_color(c_l, c_a, c_b, l, a, b, metric="euclidean"):
@@ -47,9 +72,10 @@ def twin_color(c_l, c_a, c_b, l, a, b, metric="euclidean"):
 
 
 def twin_association(lab, centers, labels, dists, s, space_norm, color_norm,
-                     metric="euclidean"):
-    """Pixel-major association: every pixel's ≤25 candidates in ascending
-    id, strict < against the running (label, distance), (x, y, l, a, b, 1)
+                     metric="euclidean", reach=2):
+    """Pixel-major association: every pixel's candidates of its cell's
+    (2·reach + 1)² neighbourhood (≤25 at reach 2) in ascending id, strict <
+    against the running (label, distance), (x, y, l, a, b, 1)
     added to a candidate's sums at its turn where it scans the pixel and the
     running label is its id.  → (labels, dists, changed, sums (N, 6) int64,
     pixels where a later candidate tied the running distance)."""
@@ -63,7 +89,7 @@ def twin_association(lab, centers, labels, dists, s, space_norm, color_norm,
     run_l, run_d = labels.copy(), dists.copy()
     sums = np.zeros((pc * pr, 6), np.int64)
     ties = 0
-    for dy, dx in OFFSETS:
+    for dy, dx in offsets(reach):
         ny, nx = gy + dy, gx + dx
         on_grid = (ny >= 0) & (ny < pc) & (nx >= 0) & (nx < pr)
         cid = np.where(on_grid, ny * pr + nx, 0)
@@ -118,8 +144,9 @@ def twin_update(lab, centers, keys, s, width, per_row):
 
 def twin_run(lab, s, num_iteration, color_scale, metric="euclidean"):
     """Whole runs as the kernels run them: each iteration active only if the
-    last one changed a pixel → (labels, centers, dists, drift, iterations run,
-    tied pixels)."""
+    last one changed a pixel, its association's reach 1 + the drift so far
+    from a drift of two (the kernel's wide path) → (labels, centers, dists,
+    drift, iterations run, tied pixels)."""
     h, w = lab.shape[:2]
     pc, pr = cdiv(h, s), cdiv(w, s)
     space_norm, color_norm = P._norms(s, color_scale)
@@ -129,8 +156,8 @@ def twin_run(lab, s, num_iteration, color_scale, metric="euclidean"):
     dists = np.full((h, w), np.finfo(F32).max, F32)
     drift = ran = ties = 0
     for _ in range(num_iteration):
-        labels, dists, changed, sums, tied = twin_association(lab, centers, labels, dists, s,
-                                                              space_norm, color_norm, metric)
+        labels, dists, changed, sums, tied = twin_association(
+            lab, centers, labels, dists, s, space_norm, color_norm, metric, max(2, 1 + drift))
         _, keys = twin_keys(lab, centers, labels, sums, metric)
         centers, d = twin_update(lab, centers, keys, s, w, pr)
         drift, ran, ties = max(drift, d), ran + 1, ties + tied

@@ -166,6 +166,27 @@ def test_each_public_entry_records_its_root_and_validation(spans, entry):
     assert all(d.starts[0] <= s <= e <= d.ends[0] for s, e in zip(d.starts, d.ends))
 
 
+def test_a_slic_call_records_its_host_pieces_and_counts_its_connectivity_pass(spans):
+    """The download, the connectivity pass and the upload are spans inside
+    ``ops.superpixel_slic``; the pass's counters rise by one call; the
+    labels are those of a call with the recorder off."""
+    from various_image_processings_tpu_torch.models import slic
+
+    spans.stop()
+    want = vt.superpixel_slic(image(), 6, 2)
+    spans.start(1 << 12)
+    calls, ns = slic.connectivity_calls, slic.connectivity_ns
+    got = vt.superpixel_slic(image(), 6, 2)
+    d = spans.drain()
+    assert torch.equal(got, want)
+    assert d.names == ["ops.superpixel_slic", "ops.validate", "models.slic.download",
+                       "models.slic.connectivity", "models.slic.upload"]
+    assert d.parents == [-1, 0, 0, 0, 0] and d.dropped == 0
+    assert all(d.starts[0] <= s <= e <= d.ends[0] for s, e in zip(d.starts, d.ends))
+    assert d.ends[2] <= d.starts[3] and d.ends[3] <= d.starts[4]  # in that order
+    assert slic.connectivity_calls == calls + 1 and slic.connectivity_ns > ns
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

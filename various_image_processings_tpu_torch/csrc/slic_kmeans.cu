@@ -7,9 +7,13 @@
 // counterpart of that device program, and compute what the port's plain
 // version (models/slic.py::_Grid) computes, bit for bit:
 //
-//   slic_association_kernel  every pixel takes the <= 25 candidate centers
-//     of its cell's 5x5 cell neighbourhood in ascending id, against the
-//     persistent (labels, dists) map, strictly-smaller winning.  At each
+//   slic_association_kernel  every pixel takes the candidate centers of its
+//     cell's (2R + 1)^2 cell neighbourhood in ascending id, against the
+//     persistent (labels, dists) map, strictly-smaller winning: R = 2 (25
+//     candidates, the JAX package's gather) while the image's largest drift
+//     so far (its state row 0) is at most one cell, else R = 1 + that drift,
+//     since a center D cells from home scans pixels up to D + 1 cells from
+//     it (associate_wide).  At each
 //     candidate's turn a pixel that the candidate scans (|x - cx| <= S and
 //     |y - cy| <= S) and whose running label is that candidate adds
 //     (x, y, l, a, b, 1) to the candidate's sums: a pixel stolen by a later
@@ -20,7 +24,8 @@
 //     key is floor(colour distance to its center's mean) * 2^32 + raster
 //     index (a signed int64: a squared CIEDE2000 difference may round to a
 //     tiny negative value, whose floor is -1), and each center keeps the
-//     least key of its pixels.
+//     least key of its pixels (a center that drifted past the tile's
+//     window takes its pixels' keys from global memory).
 //   slic_update_kernel       one thread a center: it moves to the pixel of
 //     its least key (or keeps its state), the running Chebyshev drift in
 //     cells takes the max, the iteration count is stored, the next
@@ -270,6 +275,105 @@ __device__ __forceinline__ void shared_add(unsigned* counter, unsigned v) {
                : "memory");
 }
 
+// Colour k (0 l, 1 a, 2 b) of center c's mean: floor(f32(sum) / f32(count)),
+// the JAX package's mean (an f32 quotient just below an integer may round up
+// before the floor), or its state where it had no pixel.
+__device__ __forceinline__ float center_mean(const float* centers, const long long* sums,
+                                             int64_t c, int k) {
+  const long long count = sums[c * 6 + 5];
+  return count > 0 ? floorf(__fdiv_rn(__ll2float_rn(sums[c * 6 + 2 + k]), __ll2float_rn(count)))
+                   : centers[c * 5 + 2 + k];
+}
+
+// The association once a center has drifted two cells or more from its home
+// cell (reach = 1 + that drift): each thread its pixel of the block's tile,
+// the candidates of its cell's (2 reach + 1)^2 neighbourhood in ascending id
+// read from global memory (an image's centers sit in the L2), the same
+// window test, distance and strict-< scan as the 5 x 5 path, and each
+// candidate's members added by warp reductions of tile-relative fields (a
+// sum of 32 stays below 2^13), one global atomic a field.
+template <class M>
+__device__ __forceinline__ void associate_wide(
+    const uint8_t* __restrict__ lab, const float* __restrict__ centers,
+    int32_t* __restrict__ labels, float* __restrict__ dists, unsigned long long* __restrict__ sums,
+    int32_t* __restrict__ flags, int height, int width, int s, int per_col, int per_row,
+    float space_norm, float color_norm, int reach, int y0, int x0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int x = x0 + (warp % (kTileW / kPieceW)) * kPieceW + lane % kPieceW;
+  const int y = y0 + (warp / (kTileW / kPieceW)) * kPieceH + lane / kPieceW;
+  const bool valid = x < width && y < height;
+  const int64_t idx = static_cast<int64_t>(y) * width + x;
+  int run_l = -1;
+  float run_d = 0.0f;
+  unsigned pl = 0, pa = 0, pb = 0;
+  if (valid) {
+    run_l = labels[idx];
+    run_d = dists[idx];
+    pl = lab[idx * 3];
+    pa = lab[idx * 3 + 1];
+    pb = lab[idx * 3 + 2];
+  }
+  const float old_d = run_d;
+  const float xf = static_cast<float>(x), yf = static_cast<float>(y), sf = static_cast<float>(s);
+  const float lf = static_cast<float>(pl), af = static_cast<float>(pa),
+              bf = static_cast<float>(pb);
+  const float pc = M::kDeltaE ? chroma(af, bf) : 0.0f;
+  const int cy = min(y, height - 1) / s, cx = min(x, width - 1) / s;
+  for (int dy = -reach; dy <= reach; ++dy) {
+    for (int dx = -reach; dx <= reach; ++dx) {
+      const int gy = cy + dy, gx = cx + dx;
+      const int id = gy * per_row + gx;
+      bool hit = false;
+      if (valid && gy >= 0 && gy < per_col && gx >= 0 && gx < per_row) {
+        const float ddx = __fsub_rn(xf, centers[static_cast<int64_t>(id) * 5]);
+        const float ddy = __fsub_rn(yf, centers[static_cast<int64_t>(id) * 5 + 1]);
+        hit = fabsf(ddx) <= sf && fabsf(ddy) <= sf;  // the reference's window (:243-246)
+        if (hit) {
+          const float* c = centers + static_cast<int64_t>(id) * 5;
+          const float spatial = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+          const float color = color_distance<M>(c[2], c[3], c[4],
+                                                M::kDeltaE ? chroma(c[3], c[4]) : 0.0f, lf, af,
+                                                bf, pc);
+          const float d = __fadd_rn(__fmul_rn(space_norm, spatial), __fmul_rn(color_norm, color));
+          if (d < run_d) {  // strict: the lowest center id wins ties
+            run_d = d;
+            run_l = id;
+          }
+        }
+      }
+      // the members at this candidate's turn, summed a candidate at a time
+      const bool member = hit && run_l == id;
+      unsigned pending = __ballot_sync(kFull, member);
+      while (pending) {
+        const int target = __shfl_sync(kFull, id, __ffs(pending) - 1);
+        const bool mine = member && id == target;
+        const unsigned field[6] = {static_cast<unsigned>(x - x0), static_cast<unsigned>(y - y0),
+                                   pl, pa, pb, 1u};
+        unsigned total[6];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) total[k] = __reduce_add_sync(kFull, mine ? field[k] : 0u);
+        if (lane < 6) {
+          unsigned long long v = total[0] + static_cast<unsigned long long>(total[5]) *
+                                                static_cast<unsigned>(x0);
+          v = lane == 1 ? total[1] + static_cast<unsigned long long>(total[5]) *
+                                         static_cast<unsigned>(y0)
+                        : v;
+#pragma unroll
+          for (int k = 2; k < 6; ++k) v = lane == k ? total[k] : v;
+          if (v != 0ull) atomicAdd(&sums[static_cast<int64_t>(target) * 6 + lane], v);
+        }
+        pending &= ~__ballot_sync(kFull, mine);
+      }
+    }
+  }
+  const bool changed = valid && run_d < old_d;
+  if (changed) {  // run_l changes only where run_d fell
+    labels[idx] = run_l;
+    dists[idx] = run_d;
+  }
+  if (__any_sync(kFull, changed) && lane == 0) flags[1] = 1;
+}
+
 // 4 blocks an SM (ΔE: 54 registers, 46 KB of shared memory a block) or 5
 // (euclidean: 48 registers, no spill)
 template <class M>
@@ -277,8 +381,9 @@ __global__ void __launch_bounds__(kThreads, M::kDeltaE ? 4 : 5)
 slic_association_kernel(const uint8_t* __restrict__ lab, const float* __restrict__ centers,
                         int32_t* __restrict__ labels, float* __restrict__ dists,
                         unsigned long long* __restrict__ sums, int32_t* __restrict__ flags,
-                        int flag_stride, int height, int width, int s, int per_col, int per_row,
-                        int tiles_x, float space_norm, float color_norm) {
+                        const int32_t* __restrict__ stats, int flag_stride, int height,
+                        int width, int s, int per_col, int per_row, int tiles_x,
+                        float space_norm, float color_norm) {
   // this block's image: its flags, planes, centers and sums
   const int64_t image = blockIdx.y;
   flags += image * flag_stride;
@@ -292,6 +397,13 @@ slic_association_kernel(const uint8_t* __restrict__ lab, const float* __restrict
   sums += image * n * 6;
   const int y0 = static_cast<int>(blockIdx.x / tiles_x) * kTileH;
   const int x0 = static_cast<int>(blockIdx.x % tiles_x) * kTileW;
+  // the image's largest drift so far, in cells
+  const int drift = stats[image * flag_stride];
+  if (drift >= 2) {  // the 5 x 5 neighbourhood no longer holds every window
+    associate_wide<M>(lab, centers, labels, dists, sums, flags, height, width, s, per_col,
+                      per_row, space_norm, color_norm, 1 + drift, y0, x0);
+    return;
+  }
 
   // this thread's pixel, loaded before the window so the two loads overlap
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -559,15 +671,8 @@ slic_snap_keys_kernel(const uint8_t* __restrict__ lab, const float* __restrict__
     best[i] = kNoKey ^ kSignBit;
     if (gy < 0 || gy >= per_col || gx < 0 || gx >= per_row) continue;
     const int64_t c = static_cast<int64_t>(gy) * per_row + gx;
-    const long long count = sums[c * 6 + 5];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      // floor(f32(sum) / f32(count)), the JAX package's mean (an f32
-      // quotient just below an integer may round up before the floor)
-      mean[k][i] = count > 0 ? floorf(__fdiv_rn(__ll2float_rn(sums[c * 6 + 2 + k]),
-                                                __ll2float_rn(count)))
-                             : centers[c * 5 + 2 + k];
-    }
+    for (int k = 0; k < 3; ++k) mean[k][i] = center_mean(centers, sums, c, k);
     if constexpr (M::kDeltaE) mean[3][i] = chroma(mean[1][i], mean[2][i]);
   }
   __syncthreads();
@@ -585,17 +690,29 @@ slic_snap_keys_kernel(const uint8_t* __restrict__ lab, const float* __restrict__
     int key = 0;
     if (label >= 0) {
       const int ly = label / per_row - t.wy0, lx = label % per_row - t.wx0;
-      // association gives a pixel only a center of its cell's 5x5
-      // neighbourhood, all of which lie in the window
-      if (ly < 0 || ly >= t.wh || lx < 0 || lx >= t.ww) __trap();
-      slot = ly * t.ww + lx;
+      const float lf = static_cast<float>(lab[idx * 3]);
       const float af = static_cast<float>(lab[idx * 3 + 1]);
       const float bf = static_cast<float>(lab[idx * 3 + 2]);
-      const float d = color_distance<M>(mean[0][slot], mean[1][slot], mean[2][slot],
-                                        mean[kPlanes - 1][slot],
-                                        static_cast<float>(lab[idx * 3]), af, bf,
-                                        M::kDeltaE ? chroma(af, bf) : 0.0f);
-      key = static_cast<int>(floorf(d));  // >= -1: a ΔE² may round below 0
+      const float pc = M::kDeltaE ? chroma(af, bf) : 0.0f;
+      if (ly >= 0 && ly < t.wh && lx >= 0 && lx < t.ww) {
+        slot = ly * t.ww + lx;
+        const float d = color_distance<M>(mean[0][slot], mean[1][slot], mean[2][slot],
+                                          mean[kPlanes - 1][slot], lf, af, bf, pc);
+        key = static_cast<int>(floorf(d));  // >= -1: a ΔE² may round below 0
+      } else {
+        // a center more than two cells from the pixel's cell (one that
+        // drifted): its mean from global memory, the key taken in alone
+        float m[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) m[k] = center_mean(centers, sums, label, k);
+        const float d = color_distance<M>(m[0], m[1], m[2], M::kDeltaE ? chroma(m[1], m[2]) : 0.0f,
+                                          lf, af, bf, pc);
+        const long long own = static_cast<long long>(
+            static_cast<unsigned long long>(static_cast<long long>(static_cast<int>(floorf(d))))
+                << 32 |
+            static_cast<unsigned>(idx));
+        atomicMin(&keys[label], own);
+      }
     }
     // (key, raster) least in lexical order: the least key, then the least
     // raster index among its pixels (H * W < 2^31)
@@ -699,16 +816,17 @@ int tiles(int height, int width, int s, int* tiles_x) {
 
 template <class M>
 int launch_association(const void* lab, const void* centers, void* labels, void* dists,
-                       void* sums, void* flags, int flag_stride, int batch, int height,
-                       int width, int s, int per_col, int per_row, float space_norm,
-                       float color_norm, cudaStream_t stream) {
+                       void* sums, void* flags, const void* stats, int flag_stride, int batch,
+                       int height, int width, int s, int per_col, int per_row,
+                       float space_norm, float color_norm, cudaStream_t stream) {
   const int tiles_x = (width + kTileW - 1) / kTileW;
   const dim3 grid(association_blocks(height, width), batch);
   slic_association_kernel<M><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(lab), static_cast<const float*>(centers),
       static_cast<int32_t*>(labels), static_cast<float*>(dists),
-      static_cast<unsigned long long*>(sums), static_cast<int32_t*>(flags), flag_stride, height,
-      width, s, per_col, per_row, tiles_x, space_norm, color_norm);
+      static_cast<unsigned long long*>(sums), static_cast<int32_t*>(flags),
+      static_cast<const int32_t*>(stats), flag_stride, height, width, s, per_col, per_row,
+      tiles_x, space_norm, color_norm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -755,25 +873,26 @@ int launch_delta_e(const void* l1, const void* a1, const void* b1, const void* l
 extern "C" {
 
 // labels and dists are updated in place; sums are added to; flags: the
-// iteration's (active, changed) pair of image 0.  Returns the launch's
-// cudaError_t (0 on success).
+// iteration's (active, changed) pair of image 0; stats: image 0's row 0,
+// whose drift widens the neighbourhood.  Returns the launch's cudaError_t (0
+// on success).
 int vip_slic_association(const void* lab, const void* centers, void* labels, void* dists,
-                         void* sums, void* flags, int flag_stride, int batch, int height,
-                         int width, int s, int per_col, int per_row, float space_norm,
-                         float color_norm, int metric, void* stream) {
+                         void* sums, void* flags, const void* stats, int flag_stride, int batch,
+                         int height, int width, int s, int per_col, int per_row,
+                         float space_norm, float color_norm, int metric, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch < 1 || batch > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
   switch (metric) {
     case 0:
-      return launch_association<Euclidean>(lab, centers, labels, dists, sums, flags, flag_stride,
-                                           batch, height, width, s, per_col, per_row,
-                                           space_norm, color_norm, st);
+      return launch_association<Euclidean>(lab, centers, labels, dists, sums, flags, stats,
+                                           flag_stride, batch, height, width, s, per_col,
+                                           per_row, space_norm, color_norm, st);
     case 1:
-      return launch_association<Ciede2000>(lab, centers, labels, dists, sums, flags, flag_stride,
-                                           batch, height, width, s, per_col, per_row,
-                                           space_norm, color_norm, st);
+      return launch_association<Ciede2000>(lab, centers, labels, dists, sums, flags, stats,
+                                           flag_stride, batch, height, width, s, per_col,
+                                           per_row, space_norm, color_norm, st);
     case 2:
-      return launch_association<Ciede2000Ref>(lab, centers, labels, dists, sums, flags,
+      return launch_association<Ciede2000Ref>(lab, centers, labels, dists, sums, flags, stats,
                                               flag_stride, batch, height, width, s, per_col,
                                               per_row, space_norm, color_norm, st);
     default:

@@ -5,13 +5,17 @@ PyTorch counterpart of ``various_image_processings_tpu/models/slic.py``
 reference's sequential per-center window scans become a race-free k-means
 whose results do not depend on the order of floating-point reductions:
 
-- **association** (reference :236-281): every pixel takes its ≤25 candidate
-  centers from the 5×5 grid-cell neighbourhood of its own cell, in ascending
-  center order, against the *persistent* distance map (the reference's map
-  carries across iterations), strictly-smaller winning, so the lowest center
-  index wins ties.  The 5×5 neighbourhood covers the reference's ±S window
-  around each center's current position for any drift up to two cells;
-  ``last_max_drift_cells`` measures that drift and the class warns past 2.
+- **association** (reference :236-281): every pixel takes its candidate
+  centers from the (2R + 1)² grid-cell neighbourhood of its own cell, in
+  ascending center order, against the *persistent* distance map (the
+  reference's map carries across iterations), strictly-smaller winning, so
+  the lowest center index wins ties.  A center D cells from its home cell
+  scans pixels up to D + 1 cells from it, so R = max(2, 1 + D), D the
+  centers' drift (``last_max_drift_cells`` reports its largest), holds
+  every center whose ±S window holds the pixel, whatever the drift.  The
+  JAX package keeps R = 2, the 5×5 neighbourhood: the two agree while no
+  center has drifted two cells, and differ after (photographs at S = 10
+  drift three or four).
 - **center means**, accumulated at each center's own turn as the reference
   does (:262-269): a pixel stolen by a later center still counts in the
   earlier center's mean.  Means are ``floor(f32(sum) / f32(count))`` (the
@@ -29,6 +33,14 @@ whose results do not depend on the order of floating-point reductions:
   native C++ pass (``utils/native.py``) for the euclidean metric, staged
   native components and a Python merge for the ΔE metrics, and the
   NumPy/scipy path when the caller asks for ``impl="numpy"``.
+
+The host pieces of a ``SuperpixelSLIC.apply`` call are spans of
+``utils/profiling.py``'s ``SPANS``: ``models.slic.download`` (``_download``:
+on the card the wait for the k-means, then its one device→host copy),
+``models.slic.connectivity`` (``enforce_connectivity``) and
+``models.slic.upload`` (the final labels' copy to the device).  Every
+connectivity pass also adds its host time to ``connectivity_ns`` and one to
+``connectivity_calls``, whether the recorder is on or off.
 
 Two routes compute the same bits on the card (``slic_device``'s
 ``impl``).  The kernels (``ops/cuda/slic.py``, ``csrc/slic_kmeans.cu``:
@@ -50,7 +62,9 @@ differ by ulps between them).
 
 from __future__ import annotations
 
-import warnings
+import ctypes
+import functools
+from time import perf_counter_ns
 
 import numpy as np
 import torch
@@ -59,11 +73,17 @@ from ..core.colors import bgr2lab_u8_exact
 from ..core.pad import cdiv, reflect101_indices
 from ..ops import _validate
 from ..ops._dispatch import check_impl, resolve_impl
+from ..utils.profiling import SPANS
 
 METRICS = ("euclidean", "ciede2000", "ciede2000_ref")
 _BIG = float(np.finfo(np.float32).max)
 _BIG_KEY = torch.iinfo(torch.int64).max
-_OFFSETS_5X5 = [(dy, dx) for dy in (-2, -1, 0, 1, 2) for dx in (-2, -1, 0, 1, 2)]
+
+
+def _offsets(reach: int) -> list[tuple[int, int]]:
+    """The (dy, dx) of a (2·reach + 1)² cell neighbourhood, in ascending center id."""
+    return [(dy, dx) for dy in range(-reach, reach + 1) for dx in range(-reach, reach + 1)]
+
 
 host_syncs = 0  # device-to-host reads made by SLIC since the last reset
 iterations = 0  # k-means iterations run since the last reset
@@ -72,6 +92,10 @@ iterations = 0  # k-means iterations run since the last reset
 # plain call): the card decides the early exit, so the host learns the count
 # only from ``_download``, which adds it to ``iterations``
 device_iterations: torch.Tensor | None = None
+# the host's time in ``enforce_connectivity`` (ns) and its completed calls,
+# since the module was loaded: never reset by a call
+connectivity_ns = 0
+connectivity_calls = 0
 
 
 def _host(t: torch.Tensor):
@@ -169,11 +193,7 @@ class _Grid:
         self.xs, self.ys = xs_i.to(torch.float32), ys_i.to(torch.float32)
         self.valid_x, self.valid_y = xs_i < width, ys_i < height
         self.flat_index = ys_i * width + xs_i      # raster index, int64
-        # center ids on the cell grid padded by two cells (-1 past the edge):
-        # slicing it at (2 + dy, 2 + dx) gives each cell its neighbour
-        # (gy + dy, gx + dx)
-        center_id = torch.arange(self.n, dtype=torch.int32, device=dev).view(self.pc, self.pr)
-        self.center_id_pad = torch.nn.functional.pad(center_id, (2, 2, 2, 2), value=-1)
+        self.center_id = torch.arange(self.n, dtype=torch.int32, device=dev).view(self.pc, self.pr)
 
     def to_blocks(self, x: torch.Tensor, fill) -> torch.Tensor:
         """(..., H, W) → (..., per_col, S, per_row, S), padded with ``fill``."""
@@ -193,19 +213,26 @@ class _Grid:
         cx, cy, colors = _init_centers(lab_f, self.h, self.w, self.s, self.pc, self.pr)
         return torch.cat([cx[None], cy[None], colors.T]).view(5, self.pc, self.pr)
 
-    def association(self, centers: torch.Tensor, labels: torch.Tensor, dists: torch.Tensor):
-        """One association pass with in-scan mean accumulation.  ``labels``
-        and ``dists`` are blocked; returns (labels, dists, any pixel
-        changed (0-d bool), per-center sums (6, per_col, per_row) int64 of
-        x, y, l, a, b and count)."""
-        s, pc, pr = self.s, self.pc, self.pr
-        pad = torch.nn.functional.pad(centers, (2, 2, 2, 2))
-        acc = torch.zeros((6, pc + 4, pr + 4), dtype=torch.int64, device=self.device)
+    def association(self, centers: torch.Tensor, labels: torch.Tensor, dists: torch.Tensor,
+                    reach: int = 2):
+        """One association pass with in-scan mean accumulation over the
+        candidates of each pixel's (2·reach + 1)² cell neighbourhood (reach
+        ≥ 1 + the centers' drift in cells: every center whose window holds
+        the pixel).  ``labels`` and ``dists`` are blocked; returns (labels,
+        dists, any pixel changed (0-d bool), per-center sums (6, per_col,
+        per_row) int64 of x, y, l, a, b and count)."""
+        s, pc, pr, r = self.s, self.pc, self.pr, reach
+        pad = torch.nn.functional.pad(centers, (r, r, r, r))
+        # center ids on the cell grid padded by r cells (-1 past the edge):
+        # slicing it at (r + dy, r + dx) gives each cell its neighbour
+        # (gy + dy, gx + dx)
+        center_id_pad = torch.nn.functional.pad(self.center_id, (r, r, r, r), value=-1)
+        acc = torch.zeros((6, pc + 2 * r, pr + 2 * r), dtype=torch.int64, device=self.device)
         run_d, run_l = dists, labels
-        for dy, dx in _OFFSETS_5X5:
-            cells = (slice(2 + dy, 2 + dy + pc), slice(2 + dx, 2 + dx + pr))
+        for dy, dx in _offsets(r):
+            cells = (slice(r + dy, r + dy + pc), slice(r + dx, r + dx + pr))
             c = pad[:, cells[0], cells[1]].reshape(5, pc, 1, pr, 1)
-            lbl = self.center_id_pad[cells].reshape(pc, 1, pr, 1)
+            lbl = center_id_pad[cells].reshape(pc, 1, pr, 1)
             dxs = self.xs - c[0]                                   # (pc, 1, pr, S)
             dys = self.ys - c[1]                                   # (pc, S, pr, 1)
             # the reference's window: |x - cx| <= S and |y - cy| <= S (:243-246)
@@ -233,7 +260,7 @@ class _Grid:
             acc[:, cells[0], cells[1]] += cell
         # run_d only falls, and falls only where a pixel changed
         changed = (run_d < dists).any()
-        return run_l, run_d, changed, acc[:, 2:2 + pc, 2:2 + pr]
+        return run_l, run_d, changed, acc[:, r:r + pc, r:r + pr]
 
     @staticmethod
     def center_means(centers: torch.Tensor, sums: torch.Tensor) -> torch.Tensor:
@@ -249,8 +276,8 @@ class _Grid:
         whose floor(color distance) to the mean is the least: one min over
         (floor key, raster index) packed into an int64, by scatter (the
         result does not depend on the order).  A pixel's label is always a
-        center of its 5×5 cell neighbourhood (association assigns no other),
-        so its label alone says whose member it is."""
+        center whose window held it (association assigns no other), so its
+        label alone says whose member it is."""
         return self.move_centers(centers, self.snap_keys(means, labels))
 
     def snap_keys(self, means: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -298,8 +325,9 @@ def slic_device(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
 
     ``max_drift_cells`` is the running maximum over iterations and centers
     of the Chebyshev distance (in cells) between a center's current cell and
-    its home cell: values ≤ 2 mean the 5×5 gather covered every reference
-    ±S window.
+    its home cell; the association's neighbourhood widens with it (the
+    module's docstring).  Values ≤ 1 mean the JAX package's 5×5 gather gives
+    the same labels.
 
     ``impl``: ``"cuda"`` runs the k-means on the kernels (a CUDA tensor
     only), ``"torch"`` the plain version on the tensor's device, ``"auto"``
@@ -344,20 +372,27 @@ def slic_device_batched(lab_u8: torch.Tensor, height: int, width: int, sp_size: 
 def _kmeans_plain(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
                   num_iteration: int, color_scale: float, metric: str):
     """The plain version: ``_Grid``'s torch ops, the host reading the early
-    exit after every iteration but the last."""
+    exit and the centers' drift (the next association's reach) in one read
+    after every iteration but the last."""
     global iterations
     grid = _Grid(lab_u8, height, width, sp_size, color_scale, metric)
     centers = grid.init_centers()
     labels = torch.full(grid.pix.shape[1:], -1, dtype=torch.int32, device=grid.device)
     dists = torch.full(grid.pix.shape[1:], _BIG, dtype=torch.float32, device=grid.device)
     drift = torch.zeros((), dtype=torch.float32, device=grid.device)
+    reach = 2
     for it in range(num_iteration):
-        labels, dists, changed, sums = grid.association(centers, labels, dists)
+        labels, dists, changed, sums = grid.association(centers, labels, dists, reach)
         means = grid.center_means(centers, sums)
         centers = grid.snap_centers(centers, means, labels)
-        drift = torch.maximum(drift, grid.cell_drift(centers))
+        now = grid.cell_drift(centers)
+        drift = torch.maximum(drift, now)
         iterations += 1
-        if it + 1 < num_iteration and not _host(changed):
+        if it + 1 == num_iteration:
+            break
+        more, now = _host(torch.stack([changed.to(torch.int32), now.to(torch.int32)]))
+        reach = max(2, 1 + int(now))
+        if not more:
             break
     return (grid.from_blocks(labels), centers.reshape(5, -1).T.contiguous(),
             grid.from_blocks(dists), drift)
@@ -366,8 +401,8 @@ def _kmeans_plain(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
 def _kmeans_cuda(lab_u8: torch.Tensor, height: int, width: int, sp_size: int,
                  num_iteration: int, color_scale: float, metric: str):
     """The kernel route on a (B, H, W, 3) batch: every iteration enqueued,
-    three launches each for the whole batch, each image's early exit decided
-    on the card (``ops/cuda/slic.py``)."""
+    three launches each for the whole batch, each image's early exit and its
+    association's reach decided on the card (``ops/cuda/slic.py``)."""
     global device_iterations
     from ..ops.cuda import slic as kslic
 
@@ -469,6 +504,29 @@ def _pair_distances(metric: str, means: np.ndarray):
     return dist
 
 
+# glibc's mallopt parameters (malloc.h)
+M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+KEEP_BYTES = 1 << 30
+
+
+@functools.cache
+def _keep_freed_memory() -> None:
+    """SLIC's host pass owns the process's allocator policy: once, glibc is
+    told to serve blocks of up to ``KEEP_BYTES`` from its heap and to keep up
+    to that much freed at the heap's top, so one call's temporaries are
+    reused by the next.  A 4K call allocates ~0.4 GB of them (the download's
+    host copy; the native pass's runs, edges and tables, which
+    ``native/src/vip_native.cpp`` allocates per call); with glibc's defaults
+    (a block above a dynamic threshold of at most 32 MiB mapped alone, the
+    heap's free top trimmed) every call mapped and zeroed them anew.  The
+    policy holds for every later allocation of the process, whatever makes
+    it.  Nothing where the C library has no ``mallopt``."""
+    mallopt = getattr(ctypes.CDLL(None), "mallopt", None)
+    if mallopt is not None:
+        mallopt(M_MMAP_THRESHOLD, KEEP_BYTES)
+        mallopt(M_TRIM_THRESHOLD, KEEP_BYTES)
+
+
 def enforce_connectivity(labels: np.ndarray, lab: np.ndarray, sp_size: int,
                          metric: str = "euclidean", impl: str = "native") -> np.ndarray:
     """Reference: include/cpp/slic.hpp:386-458 — relabel 4-connected
@@ -479,7 +537,27 @@ def enforce_connectivity(labels: np.ndarray, lab: np.ndarray, sp_size: int,
     ``impl="native"`` (the default) runs the euclidean pass as one C++ call
     and, for the ΔE metrics, native components and sums with the merge in
     Python; ``impl="numpy"`` runs scipy components, NumPy sums and the
-    Python merge.  Both give the same labels."""
+    Python merge.  Both give the same labels.
+
+    A call that returns adds its host time to ``connectivity_ns`` and one to
+    ``connectivity_calls`` (the native library's build, on a checkout's
+    first call, comes before the clock starts).  The first call sets the C
+    library's allocator policy for the process (``_keep_freed_memory``)."""
+    global connectivity_ns, connectivity_calls
+    _keep_freed_memory()
+    if impl == "native":
+        from ..utils import native
+        native.load_library()
+    start = perf_counter_ns()
+    out = _connectivity(labels, lab, sp_size, metric, impl)
+    connectivity_ns += perf_counter_ns() - start
+    connectivity_calls += 1
+    return out
+
+
+def _connectivity(labels: np.ndarray, lab: np.ndarray, sp_size: int, metric: str,
+                  impl: str) -> np.ndarray:
+    """``enforce_connectivity``'s pass."""
     if impl not in ("native", "numpy"):
         raise ValueError(f"impl must be 'native' or 'numpy', got {impl!r}")
     if metric not in METRICS:
@@ -606,15 +684,18 @@ class SuperpixelSLIC:
         lab = bgr2lab_u8_exact(image.contiguous())
         labels, _, _, drift = slic_device(lab, self.height, self.width, self.superpixel_size,
                                           self.num_iteration, self.color_scale, self.metric)
+        s = SPANS.open("models.slic.download") if SPANS.on else -1
         raw, lab_host, self.last_max_drift_cells = _download(labels, lab, drift)
-        if self.last_max_drift_cells > 2.0:
-            warnings.warn(
-                f"SLIC center drift reached {self.last_max_drift_cells:.0f} cells (> 2): "
-                "the 5x5 cell gather no longer covers every reference +/-S scan window "
-                "and some pixels may miss their nearest center (models/slic.py "
-                "bounded-drift assumption)", RuntimeWarning, stacklevel=2)
+        if s >= 0:
+            SPANS.close(s)
+        s = SPANS.open("models.slic.connectivity") if SPANS.on else -1
         final = enforce_connectivity(raw, lab_host, self.superpixel_size, self.metric)
+        if s >= 0:
+            SPANS.close(s)
+        s = SPANS.open("models.slic.upload") if SPANS.on else -1
         self._labels = torch.from_numpy(final).to(self.device)
+        if s >= 0:
+            SPANS.close(s)
         return self._labels
 
     def get_label(self) -> torch.Tensor:

@@ -143,8 +143,8 @@ SIGNATURES = {
     # gradient.cu
     "vip_gradient": (_I, [_P, _P, _I, _I, _I, _I, _P]),
     # slic_kmeans.cu
-    "vip_slic_association": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                  _I, _P]),
+    "vip_slic_association": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _F, _I, _P]),
     "vip_slic_snap_keys": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "vip_slic_update": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "vip_slic_association_blocks": (_I, [_I, _I]),

@@ -95,7 +95,9 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     """Association with in-scan sums: updates ``labels`` (B, H, W) int32 and
     ``dists`` (B, H, W) f32, adds to ``sums`` (B, N, 6) int64 of x, y, l, a,
     b and count, and sets an image's changed flag of the iteration if one of
-    its distances fell."""
+    its distances fell.  An image whose state row 0 holds a drift of two
+    cells or more takes its candidates from the (2 drift + 3)² cells around
+    each pixel's, not the 5 × 5."""
     metric_id = _metric_id(metric)
     batch, height, width, per_col, per_row = _grid(lab, sp_size)
     n = per_col * per_row
@@ -103,9 +105,11 @@ def associate(lab: torch.Tensor, centers: torch.Tensor, labels: torch.Tensor,
     check_table("labels", labels, torch.int32, (batch, height, width), lab.device)
     check_table("dists", dists, torch.float32, (batch, height, width), lab.device)
     check_table("sums", sums, torch.int64, (batch, n, 6), lab.device)
+    flags, stride = _flags(state, iteration)
     launch("vip_slic_association", "slic_association", lab, lab.data_ptr(), centers.data_ptr(),
-           labels.data_ptr(), dists.data_ptr(), sums.data_ptr(), *_flags(state, iteration),
-           batch, height, width, sp_size, per_col, per_row, space_norm, color_norm, metric_id)
+           labels.data_ptr(), dists.data_ptr(), sums.data_ptr(), flags, state.data_ptr(),
+           stride, batch, height, width, sp_size, per_col, per_row, space_norm, color_norm,
+           metric_id)
     metric_launches["association", metric] += 1
 
 

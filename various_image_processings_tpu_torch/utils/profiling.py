@@ -8,7 +8,9 @@ the device alone with CUDA events.  ``SPANS`` records the port's spans at
 its layer boundaries: ``ops.<entry>`` (a public entry's whole call),
 ``ops.validate`` and ``ops.tables`` inside it, ``cuda_wrappers.<kernel>``
 (a kernel wrapper; ``btf``: a whole BTF call's kernels) and
-``enqueue.<kernel>`` (its ctypes call) inside that.
+``enqueue.<kernel>`` (its ctypes call) inside that, and SLIC's host pieces
+``models.slic.download``, ``models.slic.connectivity`` and
+``models.slic.upload``.
 """
 
 from __future__ import annotations
