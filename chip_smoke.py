@@ -179,6 +179,7 @@ LARGE_SHAPE = (23, 37)
 BTF_LARGE_KSIZE = 77                      # its JBF runs at k' = 153, past 149
 SLIC_SHAPE = (512, 512)                   # BASELINE.md config 4
 SLIC_PARAMS = (26, 10, 20.0)              # superpixel size S, iterations, color scale m
+CELL_SLIC_PARAMS = (10, 10, 20.0)         # the benchmark's slic_euclid_4k (S, iterations, m)
 SLIC_CALLS = 3                            # warm calls timed a configuration
 SLIC_BATCH = 8                            # phase 24s's batch of 512x512 images
 SLIC_BATCH_CALLS = 3                      # warm calls timed a batch case
@@ -631,12 +632,15 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
     """Phases 20-23: SLIC superpixels and their exact Lab.  The k-means runs
     on the port's kernels for every metric (csrc/slic_kmeans.cu; the JAX
     package's is a pure-XLA program, no Pallas kernel), the connectivity
-    pass on the host.  ``random_4k`` is the main path's 2160x3840 image.
-    Prints the timing split of a call and its counters, and a
-    ``{"slic": ...}`` line with them.  Returns the k-means kernels' launches
-    on the main paths of phases 21-23 (euclidean: op, module, CLI at
-    512x512, module at 4K; each ΔE metric: op and module at 512x512),
-    counted from 0, by kernel and by (kernel, metric)."""
+    pass on the card for the euclidean metric (csrc/components.cu) and on
+    the host for the ΔE metrics.  ``random_4k`` is the main path's
+    2160x3840 image.  Prints the timing split of a call and its counters,
+    and a ``{"slic": ...}`` line with them.  Returns the k-means kernels'
+    launches on the main paths of phases 21-23 (euclidean: op, module, CLI
+    at 512x512, module at 4K; each ΔE metric: op and module at 512x512),
+    counted from 0, by kernel and by (kernel, metric), and the connectivity
+    pass's under "connectivity_pass" (its kernels a euclidean call, none a
+    ΔE call: each phase holds its count to that)."""
     import cv2
     import torch
 
@@ -645,6 +649,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
     from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
     from various_image_processings_tpu_torch.core.rng import random_image
     from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import connectivity as kcc
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
     from various_image_processings_tpu_torch.utils import native
     from various_image_processings_tpu_torch.utils.io import imread, imwrite
@@ -657,14 +662,18 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         for name in SLIC_KERNELS:
             setattr(kslic, f"{name}_launches", 0)
         kslic.metric_launches.clear()
+        kcc.pass_launches = 0
 
     def read_kernels() -> dict:
-        """The counts since the reset, added to the main path's (by kernel,
-        and by (kernel, metric) for the association and snap keys)."""
+        """The k-means kernels' counts since the reset, added to the main
+        path's (by kernel, and by (kernel, metric) for the association and
+        snap keys), as is the connectivity pass's (``kcc.pass_launches``,
+        which the caller holds to its calls)."""
         torch.cuda.synchronize()
         got = {name: getattr(kslic, f"{name}_launches") for name in SLIC_KERNELS}
         main_launches.update(got)
         main_launches.update(kslic.metric_launches)
+        main_launches["connectivity_pass"] += kcc.pass_launches
         return got
     # 20. Lab on all 2^24 colors: the card's integer path against cv2 and
     #     against the CPU path (in bands of rows, to bound host memory)
@@ -705,7 +714,10 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         split of one call into its stages (a synchronize after the k-means
         keeps its tail out of the copy's time), and the counters of one
         call, profiled (device activity only: host events cost seconds to
-        collect) unless ``profile`` is false."""
+        collect) unless ``profile`` is false.  The euclidean metric's
+        connectivity pass runs on the card (CUDA events; its "device->host"
+        the call's one read of the header), the ΔE metrics' on the host
+        (the raw labels' download, the pass, the labels' upload)."""
         h, w = img.shape[:2]
         walls = []
         for _ in range(calls):
@@ -724,16 +736,27 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         ev[2].record()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        raw_h, lab_h, _ = slic._download(raw, lab, drift)
-        t2 = time.perf_counter()
-        final = slic.enforce_connectivity(raw_h, lab_h, s_size, model.metric)
-        t3 = time.perf_counter()
-        torch.from_numpy(final).to(img.device)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
+        if model.metric == "euclidean":
+            cc = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            cc[0].record()
+            _, header = slic.connectivity_device(raw, lab, s_size)
+            cc[1].record()
+            header[:6].cpu()  # the call's one read: it waits for the pass
+            t3 = t4 = time.perf_counter()
+            t2 = t3 - cc[0].elapsed_time(cc[1]) / 1e3  # the pass by events, the rest the read
+        else:
+            raw_h, lab_h, _ = slic._download(raw, lab, drift)
+            t2 = time.perf_counter()
+            final = slic.enforce_connectivity(raw_h, lab_h, s_size, model.metric)
+            t3 = time.perf_counter()
+            torch.from_numpy(final).to(img.device)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
         split = {"lab_ms": ev[0].elapsed_time(ev[1]), "kmeans_ms": ev[1].elapsed_time(ev[2]),
                  "d2h_ms": (t2 - t1) * 1e3, "connectivity_ms": (t3 - t2) * 1e3,
-                 "h2d_ms": (t4 - t3) * 1e3, "split_wall_ms": (t4 - t0) * 1e3}
+                 "h2d_ms": (t4 - t3) * 1e3, "split_wall_ms": (t4 - t0) * 1e3,
+                 "connectivity_on": ("the card, by events" if model.metric == "euclidean"
+                                     else "the host")}
         slic.host_syncs = slic.iterations = 0
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -773,7 +796,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         phase(f"SLIC {label}: warm wall {t['wall_ms']:.3f} ms a call (runs "
               f"{', '.join(f'{x:.3f}' for x in t['walls_ms'])}); split: Lab "
               f"{t['lab_ms']:.4f} ms, k-means {t['kmeans_ms']:.3f} ms (CUDA events), "
-              f"device->host {t['d2h_ms']:.3f} ms, host connectivity "
+              f"device->host {t['d2h_ms']:.3f} ms, connectivity ({t['connectivity_on']}) "
               f"{t['connectivity_ms']:.3f} ms, host->device {t['h2d_ms']:.3f} ms "
               f"(sum {t['split_wall_ms']:.3f}); {t['iterations']} iterations, "
               f"{t['host_syncs']} host syncs a call, kernel launches an iteration {launches}, "
@@ -820,6 +843,7 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
                 os.chdir(cwd)
             mean_png = imread(os.path.join(tmp, "in_slic_mean.png"))
         counts = read_kernels()
+        passes = kcc.pass_launches  # op, module and CLI: a pass each on the card
         want_png = cli_slic.draw_superpixel(img_np, want.numpy())
         equal = (got_op.device == got_module.device == img.device
                  and torch.equal(got_op.cpu(), want)
@@ -829,9 +853,11 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
               f"{np.array_equal(mean_png, want_png)}; drift {model.last_max_drift_cells} "
               f"(CPU {cpu_model.last_max_drift_cells}); connected "
               f"{connected(got_op)}; op: {op_iters} iterations, {op_syncs} host syncs; k-means "
-              f"kernel launches (op, module, CLI) {counts}")
+              f"kernel launches (op, module, CLI) {counts}; connectivity pass launches {passes} "
+              f"(expected {3 * len(kcc.KERNELS)})")
         if (not equal or not np.array_equal(mean_png, want_png) or not connected(got_op)
                 or op_syncs != 1 or set(counts.values()) != {3 * iters}
+                or passes != 3 * len(kcc.KERNELS)
                 or model.last_max_drift_cells != cpu_model.last_max_drift_cells):
             raise SystemExit(f"SLIC {name} at {h}x{w} wrong")
         results[f"512_{name}"] = t = measure(model, img)
@@ -849,11 +875,14 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         counts = read_kernels()
+        passes = kcc.pass_launches
         n = int(got.max()) + 1
-        ok = connected(got) and 1 <= n <= h * w and set(counts.values()) == {iters}
+        ok = (connected(got) and 1 <= n <= h * w and set(counts.values()) == {iters}
+              and passes == len(kcc.KERNELS))
         phase(f"SLIC {h}x{w} {name}: {n} superpixels, connected {connected(got)}, drift "
               f"{model.last_max_drift_cells}; k-means kernel launches "
-              f"(module) {counts}")
+              f"(module) {counts}; connectivity pass launches {passes} (expected "
+              f"{len(kcc.KERNELS)})")
         if not ok:
             raise SystemExit(f"SLIC {name} at 4K failed its invariants")
         # the random image fragments into many small components, whose
@@ -872,6 +901,51 @@ def slic_phases(dev, random_4k: np.ndarray) -> dict:
     print(json.dumps({"slic": results}), flush=True)
     phase(f"SLIC phases 20-23 took {time.perf_counter() - t_start:.1f} s")
     return main_launches
+
+
+def connectivity_pass_phase(dev) -> dict:
+    """Phase 22b: SLIC's connectivity pass on the card (csrc/components.cu)
+    at the benchmark's cell (4K photo-like frames, S = 10, 10 iterations):
+    its kernels alone (queued behind a sleep kernel, CUDA events) beside
+    their bound (the labels and Lab read and the region ids written once:
+    11 B a pixel) and the plain twin (``impl="torch"``, host clock); the
+    kernels' labels and header equal to the twin's, the labels to the
+    native host pass's."""
+    import torch
+
+    from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
+    from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import connectivity as kcc
+    from various_image_processings_tpu_torch.utils import native
+
+    h, w = MAIN_SHAPE
+    s_size, iters, m = CELL_SLIC_PARAMS
+    b_ms, b_by = bound(11.0 * h * w, 0.0)
+    frames = []
+    for seed in (1, 2):
+        lab = bgr2lab_u8_exact(photo_like(h, w, dev, seed))
+        labels = slic.slic_device(lab, h, w, s_size, iters, m)[0].contiguous()
+        got, header = slic.connectivity_device(labels, lab, s_size)
+        k_ms = queued_ms(lambda: slic.connectivity_device(labels, lab, s_size), 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin, twin_header = slic.connectivity_device(labels, lab, s_size, impl="torch")
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        want = native.slic_connectivity(labels.cpu().numpy(), lab.cpu().numpy(),
+                                        s_size * s_size // 20)
+        equal = (torch.equal(got, twin) and np.array_equal(got.cpu().numpy(), want)
+                 and header[:6].tolist() == twin_header[:6].tolist())
+        counts = dict(zip(kcc.HEADER, header[:kcc.HEADER_READ].tolist()))
+        phase(f"SLIC connectivity pass {h}x{w} photo-like seed {seed} S={s_size}: kernels "
+              f"{k_ms:.4f} ms / bound {b_ms:.4f} ms ({b_by}) / plain twin {p_ms:.1f} ms; labels "
+              f"equal to the twin's and the native pass's {equal}; {counts}")
+        if not equal:
+            raise SystemExit("the connectivity pass's kernels differ from the twin or the host")
+        frames.append({"ms": k_ms, "plain_ms": p_ms, **counts})
+    return {"ms": max(f["ms"] for f in frames), "plain_ms": max(f["plain_ms"] for f in frames),
+            "bound_ms": b_ms, "bound_by": b_by, "frames": frames,
+            "at": f"{h}x{w} photo-like S={s_size}, a pass of {len(kcc.KERNELS)} kernels"}
 
 
 def delta_e_pairs():
@@ -911,6 +985,7 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
     from various_image_processings_tpu_torch.core import ciede2000
     from various_image_processings_tpu_torch.core.colors import bgr2lab_u8_exact
     from various_image_processings_tpu_torch.models import slic
+    from various_image_processings_tpu_torch.ops.cuda import connectivity as kcc
     from various_image_processings_tpu_torch.ops.cuda import slic as kslic
     from various_image_processings_tpu_torch.utils.profiling import cuda_time_ms
 
@@ -931,9 +1006,11 @@ def delta_e_phases(dev, smooth_np: np.ndarray, reset_kernels, read_kernels, meas
         phase(f"SLIC {h}x{w} smooth metric={metric} through op and module: labels equal "
               f"{torch.equal(got_op, got_module)}, on {got_op.device}; op: {op_iters} "
               f"iterations, {op_syncs} host syncs; k-means kernel launches {counts}, by "
-              f"instantiation {by_metric}")
+              f"instantiation {by_metric}; connectivity pass launches {kcc.pass_launches} "
+              f"(expected 0: the host's pass)")
         if (not torch.equal(got_op, got_module) or got_op.device != img.device or op_syncs != 1
-                or set(counts.values()) != {2 * iters} or by_metric != want_counts):
+                or set(counts.values()) != {2 * iters} or by_metric != want_counts
+                or kcc.pass_launches):
             raise SystemExit(f"SLIC {metric} main path wrong")
 
     # 23a. the pair kernel against core/ciede2000.py on the card, bit for bit,
@@ -3298,6 +3375,7 @@ def main() -> int:
     slic_launches = slic_phases(dev, img_np)
     slic_launches.update(parallel_phases(dev)[1])  # the batched SLIC path's
     slic_k = slic_kernel_phases(dev)
+    cc = connectivity_pass_phase(dev)
 
     main_label = "600x900"
     entries = [{
@@ -3414,6 +3492,18 @@ def main() -> int:
             "at": f"{SLIC_SHAPE[0]}x{SLIC_SHAPE[1]} smooth S={s_size} m={m:g}"
                   + (f" {metric}" if delta_e else "") + ", an iteration",
         })
+    entries.append({
+        "name": "connectivity_pass",
+        "route": "cuda",
+        "source": "various_image_processings_tpu_torch/csrc/components.cu",
+        "replaces": "various_image_processings_tpu/models/slic.py enforce_connectivity (the "
+                    "host's native C++ or NumPy pass, no Pallas kernel)",
+        "launches": slic_launches["connectivity_pass"],
+        "max_abs_err": 0,
+        **{key: cc[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "at": cc["at"],
+    })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1189,7 +1189,7 @@ def test_slic_kernel_route_reads_nothing_back(cuda):
     model = vt.SuperpixelSLIC(130, 130, 26, 10)
     slic.host_syncs = slic.iterations = 0
     model.apply(smooth_u8((130, 130), 3).to(cuda))
-    assert slic.host_syncs == 1 and 1 <= slic.iterations <= 10  # the download
+    assert slic.host_syncs == 1 and 1 <= slic.iterations <= 10  # the one read
 
 
 DELTA_E_METRICS = ["ciede2000", "ciede2000_ref"]

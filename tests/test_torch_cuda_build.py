@@ -72,7 +72,7 @@ def test_binding_matches_the_c_entry_point(name):
 
 
 def test_every_c_entry_point_is_in_the_table():
-    assert len(DEFINED) == 35
+    assert len(DEFINED) == 37
     assert sorted(DEFINED) == sorted(_build.SIGNATURES)
 
 
@@ -233,7 +233,7 @@ def test_launch_counters_are_the_module_ints_the_benchmark_reads():
                      if k.endswith("launches") and type(v) is int}
     assert counters == {
         "adaptive_bilateral.launches", "bilateral.launches", "gradient.launches",
-        "bilateral_texture.blur_rtv_launches", "bilateral_texture.guide_launches",
+        "connectivity.pass_launches", "bilateral_texture.blur_rtv_launches", "bilateral_texture.guide_launches",
         "slic.association_launches", "slic.snap_keys_launches", "slic.update_launches",
         "slic.delta_e_launches", "wexler_fill.ring_pick_launches",
         "wexler_fill.filters_launches", "wexler_fill.commit_launches",

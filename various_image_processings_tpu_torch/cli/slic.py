@@ -2,8 +2,8 @@
 [color_scale]]]`` (defaults S=30, 10 iterations, m=20).  Writes the
 mean-color superpixel rendering and the red-contour overlay, like the
 sample's draw_superpixel / draw_contour (sample/slic/main.cpp:8-66).
-The k-means runs on ``--device``: on the GPU, on the hand-written kernels
-(``ops/slic.py``'s route)."""
+The k-means runs on ``--device``: on the GPU, on the hand-written kernels,
+and so does the connectivity pass (``ops/slic.py``'s route)."""
 
 from __future__ import annotations
 

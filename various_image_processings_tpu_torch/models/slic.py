@@ -29,18 +29,28 @@ whose results do not depend on the order of floating-point reductions:
   is enqueued and its kernels return at once when its active flag is clear,
   so a call reads nothing back.  On the plain path the host reads the flag
   after each iteration; ``host_syncs`` counts those reads.
-- **enforce_connectivity** (reference :386-458) runs on the host: the
-  native C++ pass (``utils/native.py``) for the euclidean metric, staged
-  native components and a Python merge for the ΔE metrics, and the
-  NumPy/scipy path when the caller asks for ``impl="numpy"``.
+- **connectivity** (reference :386-458): 4-connected components, the
+  merge of those smaller than S²/20 and the regions' numbering.  For the
+  euclidean metric on a CUDA image it runs on the card
+  (``connectivity_device``: the kernels of ``csrc/components.cu``, the
+  merge run in parallel over clusters of adjacent small components, or
+  their plain twin ``_connectivity_plain``), and the labels never leave it.
+  Elsewhere ``enforce_connectivity`` runs it on the host: the native C++
+  pass (``utils/native.py``) for the euclidean metric, staged native
+  components and a Python merge for the ΔE metrics, and the NumPy/scipy
+  path when the caller asks for ``impl="numpy"``.
 
 The host pieces of a ``SuperpixelSLIC.apply`` call are spans of
-``utils/profiling.py``'s ``SPANS``: ``models.slic.download`` (``_download``:
-on the card the wait for the k-means, then its one device→host copy),
-``models.slic.connectivity`` (``enforce_connectivity``) and
-``models.slic.upload`` (the final labels' copy to the device).  Every
-connectivity pass also adds its host time to ``connectivity_ns`` and one to
-``connectivity_calls``, whether the recorder is on or off.
+``utils/profiling.py``'s ``SPANS``: ``models.slic.connectivity`` (on the
+card the pass's enqueues, on the host ``enforce_connectivity``) and
+``models.slic.download`` (the wait for the device, then its one device→host
+copy: on the card's pass a header of counts, on the host route the raw
+labels and Lab), and on the host route ``models.slic.upload`` (the final
+labels' copy to the device).  Every connectivity pass also adds its host
+time to ``connectivity_ns`` and one to ``connectivity_calls``, whether the
+recorder is on or off; a pass on the card adds to
+``device_connectivity_calls``, and its header to ``small_components``,
+``merge_clusters`` and ``largest_merge_cluster`` when the call reads it.
 
 Two routes compute the same bits on the card (``slic_device``'s
 ``impl``).  The kernels (``ops/cuda/slic.py``, ``csrc/slic_kmeans.cu``:
@@ -92,10 +102,18 @@ iterations = 0  # k-means iterations run since the last reset
 # plain call): the card decides the early exit, so the host learns the count
 # only from ``_download``, which adds it to ``iterations``
 device_iterations: torch.Tensor | None = None
-# the host's time in ``enforce_connectivity`` (ns) and its completed calls,
-# since the module was loaded: never reset by a call
+# the host's time in a connectivity pass (ns: ``enforce_connectivity``, or
+# the enqueues of ``connectivity_device``) and the completed passes, since
+# the module was loaded: never reset by a call
 connectivity_ns = 0
 connectivity_calls = 0
+# the passes run on the card; from the headers ``SuperpixelSLIC.apply`` read:
+# the small components and their clusters (running totals) and the largest
+# cluster (the most seen)
+device_connectivity_calls = 0
+small_components = 0
+merge_clusters = 0
+largest_merge_cluster = 0
 
 
 def _host(t: torch.Tensor):
@@ -619,6 +637,151 @@ def _connectivity(labels: np.ndarray, lab: np.ndarray, sp_size: int, metric: str
     return _compact(final, comp)
 
 
+# ---------------------------------------------------------------------------
+# connectivity (device)
+# ---------------------------------------------------------------------------
+
+def connectivity_device(labels: torch.Tensor, lab: torch.Tensor, sp_size: int,
+                        impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """The euclidean connectivity pass on the labels' device: (H, W) int32
+    k-means labels + (H, W, 3) u8 Lab → ((H, W) int32 region ids, equal to
+    ``enforce_connectivity``'s, and a (16,) int32 header whose first slots
+    are ``ops/cuda/connectivity.py``'s ``HEADER``: components, small ones,
+    clusters, the largest cluster's members, regions and list entries; the
+    kernels' own counters after), both on that device.
+
+    ``impl``: ``"cuda"`` the kernels (a CUDA tensor only, nothing read back),
+    ``"torch"`` the plain twin on any device, ``"auto"`` the kernels for a
+    CUDA tensor.  A call adds its host time to ``connectivity_ns`` and one
+    to ``connectivity_calls``; on the kernels one to
+    ``device_connectivity_calls`` too (the library's first build comes
+    before the clock starts)."""
+    global connectivity_ns, connectivity_calls, device_connectivity_calls
+    check_impl(impl)
+    if labels.ndim != 2 or tuple(lab.shape) != (*labels.shape, 3):
+        raise ValueError(f"labels {tuple(labels.shape)} and Lab {tuple(lab.shape)} must be "
+                         f"(H, W) and (H, W, 3)")
+    min_area = (sp_size * sp_size) // 20
+    cuda = resolve_impl(impl, labels) == "cuda"
+    if cuda:
+        from ..ops.cuda import _build
+        from ..ops.cuda import connectivity as kcc
+        _build.load_library()
+    start = perf_counter_ns()
+    if cuda:
+        out = kcc.connectivity(labels.contiguous(), lab.contiguous(), min_area)
+    else:
+        out = _connectivity_plain(labels, lab, min_area)
+    connectivity_ns += perf_counter_ns() - start
+    connectivity_calls += 1
+    device_connectivity_calls += cuda
+    return out
+
+
+def _hook(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """The least index of each node's component in the graph of edges (a,
+    b) over n nodes: hook the larger root of every edge under the smaller,
+    jump pointers to their roots, until nothing changes."""
+    parent = torch.arange(n, device=a.device)
+    while True:
+        ra, rb = parent[a], parent[b]
+        hooked = parent.clone()
+        hooked.scatter_reduce_(0, torch.maximum(ra, rb), torch.minimum(ra, rb), "amin")
+        while True:
+            jumped = hooked[hooked]
+            if torch.equal(jumped, hooked):
+                break
+            hooked = jumped
+        if torch.equal(hooked, parent):
+            return parent
+        parent = hooked
+
+
+def _connectivity_plain(labels: torch.Tensor, lab: torch.Tensor,
+                        min_area: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of the kernels, stage by stage in torch ops on the
+    labels' device, the merge a Python loop over the clusters (each
+    cluster's members in ascending id, the sequential rule)."""
+    h, w = labels.shape
+    dev = labels.device
+    # components: numbered by their least (first) pixel
+    idx = torch.arange(h * w, device=dev).view(h, w)
+    across = labels[:, 1:] == labels[:, :-1]
+    down = labels[1:, :] == labels[:-1, :]
+    root = _hook(torch.cat([idx[:, :-1][across], idx[:-1, :][down]]),
+                 torch.cat([idx[:, 1:][across], idx[1:, :][down]]), h * w)
+    is_root = root == torch.arange(h * w, device=dev)
+    rank = torch.cumsum(is_root, 0) - 1
+    comp = rank[root].view(h, w)
+    ncomp = int(is_root.sum())
+    # sizes and truncated means, exact integers
+    flat = comp.reshape(-1)
+    sizes = torch.bincount(flat, minlength=ncomp)
+    sums = torch.zeros((ncomp, 3), dtype=torch.int64, device=dev)
+    sums.index_add_(0, flat, lab.reshape(-1, 3).to(torch.int64))
+    means = sums // sizes[:, None]
+    small = sizes < min_area
+    # neighbours of the small components, and their clusters
+    u = torch.cat([comp[:, :-1].reshape(-1), comp[:-1, :].reshape(-1)])
+    v = torch.cat([comp[:, 1:].reshape(-1), comp[1:, :].reshape(-1)])
+    differ = u != v
+    pairs = torch.unique(torch.stack([torch.cat([u[differ], v[differ]]),
+                                      torch.cat([v[differ], u[differ]])], 1), dim=0)
+    pairs = pairs[small[pairs[:, 0]]]
+    both = pairs[small[pairs[:, 1]]]
+    cluster = _hook(both[:, 0], both[:, 1], ncomp)
+    nsmall = int(small.sum())
+    members = torch.nonzero(small).reshape(-1)
+    roots, count = torch.unique(cluster[members], return_counts=True)
+    # the merge, one cluster at a time
+    means_h = means.cpu().tolist()
+    neighbours: dict[int, list[int]] = {}
+    for a, b in pairs.cpu().tolist():
+        neighbours.setdefault(a, []).append(b)
+    by_cluster: dict[int, list[int]] = {}
+    for c, k in zip(members.cpu().tolist(), cluster[members].cpu().tolist()):
+        by_cluster.setdefault(k, []).append(c)
+    small_h = set(members.cpu().tolist())
+    parent: dict[int, int] = {}
+
+    def find(c: int) -> int:
+        while c in parent:
+            c = parent[c]
+        return c
+
+    def distance(c1: int, c2: int) -> float:
+        m1, m2 = means_h[c1], means_h[c2]
+        dl = float(m1[0] - m2[0]) * 2.55
+        da = float(m1[1] - m2[1])
+        db = float(m1[2] - m2[2])
+        return dl * dl + da * da + db * db
+
+    for cluster_members in by_cluster.values():
+        pending: dict[int, set[int]] = {}
+        for c in cluster_members:  # ascending: c is its own root at its turn
+            near = {find(x) for x in neighbours.get(c, ())} | {find(x) for x in
+                                                                 pending.pop(c, ())}
+            near.discard(c)
+            if not near:
+                continue  # the reference prints "Failed to extract neighbors." (:435-438)
+            best = min(near, key=lambda r: (distance(c, r), r))
+            parent[c] = best
+            if best in small_h:  # its turn is still to come
+                pending.setdefault(best, set()).update(near - {best})
+    # regions: each numbered by the rank of its least member
+    region_root = torch.tensor([find(c) for c in range(ncomp)], dtype=torch.int64, device=dev)
+    least = torch.full((ncomp,), ncomp, dtype=torch.int64, device=dev)
+    least.scatter_reduce_(0, region_root, torch.arange(ncomp, device=dev), "amin")
+    first = least[region_root] == torch.arange(ncomp, device=dev)
+    region_rank = torch.cumsum(first, 0) - 1
+    out = region_rank[least[region_root]][comp].to(torch.int32)
+    header = torch.zeros(16, dtype=torch.int32, device=dev)
+    header[:6] = torch.tensor([ncomp, nsmall, len(roots), int(count.max()) if len(count) else 0,
+                               int(first.sum()), int((2 * sizes[small] + 2).sum())],
+                              dtype=torch.int32)
+    return out, header
+
+
 def _download(labels: torch.Tensor, lab: torch.Tensor, drift: torch.Tensor):
     """Raw labels, Lab image and drift to the host in ONE device→host copy,
     for one image (drift 0-d → a float) or a batch (labels (B, H, W), Lab
@@ -654,9 +817,10 @@ class SuperpixelSLIC:
     reference's constructor and wrapper swap them twice).  Lab and the
     k-means run on ``device`` (the GPU unless the caller passes
     ``device="cpu"``; on the GPU the k-means runs on the kernels,
-    ``slic_device``'s ``"auto"``); the connectivity pass runs on the host;
-    ``apply`` returns the final int32 labels as a tensor on ``device``, with
-    one device→host read a call on the kernel route."""
+    ``slic_device``'s ``"auto"``); the connectivity pass runs on the card
+    for the euclidean metric on the GPU (``connectivity_device``), else on
+    the host; ``apply`` returns the final int32 labels as a tensor on
+    ``device``, with one device→host read a call on the kernel route."""
 
     def __init__(self, height: int, width: int, superpixel_size: int = 30,
                  num_iteration: int = 10, color_scale: float = 20.0,
@@ -684,6 +848,8 @@ class SuperpixelSLIC:
         lab = bgr2lab_u8_exact(image.contiguous())
         labels, _, _, drift = slic_device(lab, self.height, self.width, self.superpixel_size,
                                           self.num_iteration, self.color_scale, self.metric)
+        if image.is_cuda and self.metric == "euclidean":
+            return self._apply_device(labels, lab, drift)
         s = SPANS.open("models.slic.download") if SPANS.on else -1
         raw, lab_host, self.last_max_drift_cells = _download(labels, lab, drift)
         if s >= 0:
@@ -697,6 +863,30 @@ class SuperpixelSLIC:
         if s >= 0:
             SPANS.close(s)
         return self._labels
+
+    def _apply_device(self, labels: torch.Tensor, lab: torch.Tensor,
+                      drift: torch.Tensor) -> torch.Tensor:
+        """The connectivity pass on the card, then the call's one read: the
+        drift, the iterations the k-means ran and the pass's header."""
+        global iterations, device_iterations, small_components, merge_clusters
+        global largest_merge_cluster
+        s = SPANS.open("models.slic.connectivity") if SPANS.on else -1
+        final, header = connectivity_device(labels, lab, self.superpixel_size, "cuda")
+        if s >= 0:
+            SPANS.close(s)
+        s = SPANS.open("models.slic.download") if SPANS.on else -1
+        ran, device_iterations = device_iterations, None
+        host = _host(torch.cat([drift.reshape(1).view(torch.int32), ran.reshape(1),
+                                header[:6]]))
+        if s >= 0:
+            SPANS.close(s)
+        self.last_max_drift_cells = float(host[:1].view(np.float32)[0])
+        iterations += int(host[1])
+        small_components += int(host[3])
+        merge_clusters += int(host[4])
+        largest_merge_cluster = max(largest_merge_cluster, int(host[5]))
+        self._labels = final
+        return final
 
     def get_label(self) -> torch.Tensor:
         if self._labels is None:

@@ -115,8 +115,9 @@ def _build(lib: Path) -> None:
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # name -> (restype, argtypes) of every extern "C" function of csrc/*.cu, by
 # source, in the order of its C parameters: the definitions name them.  A
-# launcher returns a cudaError_t and takes its stream last (vip_btf_u8 next
-# to last, before the int it writes how many kernels it enqueued to).
+# launcher returns a cudaError_t and takes its stream last (vip_btf_u8 and
+# vip_cc_pass next to last, before the int they write how many kernels they
+# enqueued to).
 SIGNATURES = {
     # adaptive_bilateral.cu
     "vip_adaptive_bilateral_smem_bytes": (_LL, [_I]),
@@ -140,6 +141,9 @@ SIGNATURES = {
     # btf_pipeline.cu
     "vip_btf_u8": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _F, _F,
                         _P, ctypes.POINTER(_I)]),
+    # components.cu
+    "vip_cc_workspace_bytes": (_LL, [_I, _I]),
+    "vip_cc_pass": (_I, [_P, _P, _P, _P, _P, _I, _I, _LL, _P, ctypes.POINTER(_I)]),
     # gradient.cu
     "vip_gradient": (_I, [_P, _P, _I, _I, _I, _I, _P]),
     # slic_kmeans.cu

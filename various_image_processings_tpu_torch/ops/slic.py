@@ -28,7 +28,9 @@ def superpixel_slic(image, superpixel_size: int = 30, num_iteration: int = 10,
     ``models/slic.py::slic_device``'s ``"auto"`` route, the hand-written
     kernels (``csrc/slic_kmeans.cu``) for an image on the GPU with any of
     the three metrics, the plain PyTorch version on the CPU.  The
-    connectivity pass runs on the host (native C++; for the ΔE metrics,
+    connectivity pass runs on the card for the euclidean metric on the GPU
+    (``csrc/components.cu``: the labels never leave it, and the call reads
+    the device once), else on the host (native C++; for the ΔE metrics,
     native components and a Python merge).  The call is the span
     ``ops.superpixel_slic``; ``ops.validate`` takes in the model's set-up."""
     from ..models.slic import SuperpixelSLIC
